@@ -1,0 +1,21 @@
+"""Adiabatic RayTracer, PyTorch + CUDA port of the JAX/Pallas package
+``adiabatic_raytracer_tpu`` (which stays in the repository as the reference).
+
+Same module layout as the reference, so each counterpart is found by name:
+
+* configs, constants                                  (config.py, constants.py)
+* threefry2x32 stream bit-identical to jax.random    (utils/rng.py)
+* Schwarzschild metric, Goldreich-Julian fields       (models/)
+* geometry, dispersion, conversion physics            (ops/geometry.py, ...)
+* conversion-surface sampler + K1 line-scan kernel    (ops/sampler.py, ops/line_scan.py)
+* pool DP5 integrator (CPU engine, K2's plain version) (ops/integrator.py, ops/propagate.py)
+* K2 DP5 megakernel, one CUDA thread per ray          (ops/megakernel.py, csrc/)
+* backtrace + host work-queue forward tree            (ops/tree.py)
+* driver / CLI / npy output                           (driver.py, cli.py)
+
+The package imports torch and numpy only, never jax.
+"""
+
+__version__ = "0.1.0"
+
+from adiabatic_raytracer_tpu_torch.config import NumericsConfig, Scene, TreeConfig  # noqa: F401

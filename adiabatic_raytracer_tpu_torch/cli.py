@@ -1,0 +1,129 @@
+"""Command-line interface: the reference's flags (Gen_Samples.jl:15-134) plus
+`--device {cpu,cuda}`.
+
+Usage:  python -m adiabatic_raytracer_tpu_torch --device cuda --MassA 1e-5 ...
+
+Defaults by device: on cuda engine=mega (the K2 kernel), tree_engine=queue,
+event_batch=2048, sampler compute dtype f32 (the K1 kernel); on cpu those of
+the JAX package's CPU path (pool engine, event_batch=16, f64).  Options the
+port does not run yet raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="adiabatic_raytracer_tpu_torch",
+                                description="PyTorch + CUDA adiabatic axion-photon ray tracer")
+    p.add_argument("--ThetaM", type=float, default=0.0, help="misalignment angle in rad")
+    p.add_argument("--Nts", type=int, default=100, help="number photon trajectories")
+    p.add_argument("--ftag", type=str, default="", help="file tag")
+    p.add_argument("--rotW", type=float, default=1.0, help="rotational freq NS in 1/s")
+    p.add_argument("--MassA", type=float, default=1e-5, help="axion mass in eV")
+    p.add_argument("--Axg", type=float, default=1e-12, help="coupling in 1/GeV")
+    p.add_argument("--B0", type=float, default=1e14, help="surface magnetic field in G")
+    p.add_argument("--run_RT", type=int, default=1, help="should we run ray tracer?")
+    p.add_argument("--run_Combine", type=int, default=0, help="should we combine file runs")
+    p.add_argument("--side_runs", type=int, default=0, help="how many runs do we combine?")
+    p.add_argument("--combine_renumber", type=int, default=0)
+    p.add_argument("--combine_allow_missing", type=int, default=0)
+    p.add_argument("--rNS", type=float, default=10.0, help="radius NS in km")
+    p.add_argument("--Mass_NS", type=float, default=1.0, help="Mass NS in solar masses")
+    p.add_argument("--vNS_x", type=float, default=0.0, help="vel NS x in c")
+    p.add_argument("--vNS_y", type=float, default=0.0, help="vel NS y in c")
+    p.add_argument("--vNS_z", type=float, default=0.0, help="vel NS z in c")
+    p.add_argument("--saveMode", type=int, default=0,
+                   help="0: essentials npy; 1: more npy (2/3 not ported yet)")
+    p.add_argument("--probCutoff", type=float, default=1e-10)
+    p.add_argument("--numCutoff", type=int, default=5)
+    p.add_argument("--MCNodes", type=int, default=5)
+    p.add_argument("--maxNodes", type=int, default=50)
+    p.add_argument("--seed", type=int, default=-1, help="RNG seed; -1 = random")
+    p.add_argument("--bndry_lyr", type=float, default=-1.0,
+                   help="boundary-layer power-law index; negative disables")
+    p.add_argument("--dir_tag", type=str, default="results")
+    p.add_argument("--device", choices=["cpu", "cuda"], default="cpu",
+                   help="torch device; 'cuda' without a card raises")
+    p.add_argument("--event_batch", type=int, default=0,
+                   help="events per batch; 0 = auto (2048 on cuda, 16 on cpu)")
+    p.add_argument("--tree_window", type=int, default=0,
+                   help="forward-tree streaming window; only 0 (off) is ported")
+    p.add_argument("--tree_engine", choices=["auto", "queue", "kernel"], default="auto",
+                   help="auto = queue (the in-kernel tree engine K3 is not ported)")
+    p.add_argument("--scan_gate_check", type=int, default=-1,
+                   help="events for the per-scene gated-scan census check; "
+                        "-1 = config default (256), 0 disables")
+    p.add_argument("--precision", choices=["f64"], default="f64",
+                   help="integration-state dtype (only f64 is ported)")
+    p.add_argument("--computeDtype", choices=["auto", "state", "f32"], default="auto",
+                   help="sampler dtype; auto = f32 on cuda (K1), f64 on cpu")
+    p.add_argument("--engine", choices=["auto", "pool", "mega"], default="auto",
+                   help="auto = mega (K2) on cuda, pool on cpu")
+    p.add_argument("--mesh", type=int, default=0, help="device mesh (not ported)")
+    p.add_argument("--pipeline_depth", type=int, default=0,
+                   help="batches in flight; only 0/1 (depth 1) is ported")
+    p.add_argument("--checkpoint", action="store_true", help="not ported")
+    p.add_argument("--resume", action="store_true", help="not ported")
+    return p
+
+
+def main(argv=None) -> int:
+    run_from_args(argv)
+    return 0
+
+
+def run_from_args(argv=None):
+    """Parse the flags and run; returns driver.run's (rows, path, stats), or
+    None when the ray tracer is not run."""
+    args = build_parser().parse_args(argv)
+
+    from adiabatic_raytracer_tpu_torch.config import NumericsConfig, Scene, TreeConfig
+    from adiabatic_raytracer_tpu_torch.driver import run
+    from adiabatic_raytracer_tpu_torch.utils.npyio import combine_files
+
+    on_cuda = args.device == "cuda"
+    sc = Scene(mass_a=args.MassA, ax_g=args.Axg, theta_m=args.ThetaM,
+               omega_pul=args.rotW, b0=args.B0, r_ns=args.rNS, mass_ns=args.Mass_NS,
+               bndry_lyr=args.bndry_lyr, rho_dm=0.45,
+               v_ns=(args.vNS_x, args.vNS_y, args.vNS_z),
+               flat=False, isotropic=False, melrose=True)
+    compute_dtype = (("f32" if on_cuda else "state") if args.computeDtype == "auto"
+                     else args.computeDtype)
+    engine = ("mega" if on_cuda else "pool") if args.engine == "auto" else args.engine
+    event_batch = args.event_batch if args.event_batch > 0 else (2048 if on_cuda else 16)
+    tree_engine = "queue" if args.tree_engine == "auto" else args.tree_engine
+    cfg = NumericsConfig(atol=1e-6, rtol=1e-7, compute_dtype=compute_dtype,
+                         engine=engine, tree_window=args.tree_window,
+                         tree_engine=tree_engine,
+                         **({"scan_gate_check": args.scan_gate_check}
+                            if args.scan_gate_check >= 0 else {}))
+    tcfg = TreeConfig(prob_cutoff=args.probCutoff, num_cutoff=args.numCutoff,
+                      mc_nodes=args.MCNodes, max_nodes=args.maxNodes)
+
+    print(f"Axion parameters: {args.MassA}\n{args.Axg}")
+    t0 = time.time()
+    out = None
+    if args.run_RT == 1:
+        os.makedirs(os.path.join(args.dir_tag, "npy"), exist_ok=True)
+        out = run(sc, cfg, tcfg, args.Nts, seed=args.seed, save_mode=args.saveMode,
+                  file_tag=args.ftag, dir_tag=args.dir_tag, event_batch=event_batch,
+                  mesh_devices=args.mesh, checkpoint=args.checkpoint, resume=args.resume,
+                  pipeline_depth=args.pipeline_depth, device=args.device)
+    if args.run_Combine == 1:
+        combined = combine_files(args.dir_tag, args.MassA, args.Axg, args.ThetaM,
+                                 args.rotW, args.B0, args.Nts, 3, args.numCutoff,
+                                 args.MCNodes, args.maxNodes, args.ftag, args.side_runs,
+                                 renumber_events=bool(args.combine_renumber),
+                                 allow_missing=bool(args.combine_allow_missing))
+        print(f"combined -> {combined}")
+    print(f"\ntime diff: {time.time() - t0:.1f}s")
+    return out
+
+
+if __name__ == "__main__":
+    sys.exit(main())

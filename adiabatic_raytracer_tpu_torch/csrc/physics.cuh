@@ -1,0 +1,169 @@
+// Device physics shared by the K1 line scan (line_scan.cu, f32) and the K2
+// megakernel (megakernel.cu, f64): Schwarzschild inverse metric with the
+// interior branch, the Goldreich-Julian dipole, the plasma frequency and the
+// two forms of the level-crossing condition.
+//
+// Transcribed from the JAX reference (adiabatic_raytracer_tpu/ops/
+// megakernel.py _metric/_dipole_unit/_omega_p/_condition and
+// ops/pallas_kernels.py _condition_block); each function has a torch twin of
+// the same name in ops/megakernel.py or ops/sampler.py that the CPU tests and
+// chip_smoke.py hold it against.  Scene scalars arrive as POD structs passed
+// by value at launch, so a new scene needs no rebuild.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace art {
+
+constexpr double C_KM = 2.99792e5;            // speed of light [km/s]
+constexpr double HBAR = 6.582119e-16;         // [eV s]
+constexpr double INV_ALPHA = 137.0;
+constexpr double M_E_EV = 5.0e5;
+constexpr double GAUSS_TO_EV2 = 1.95e-2;
+constexpr double SQRT_4PI_ALPHA = 0.30286190409413793;  // sqrt(4 pi / 137)
+constexpr double PI = 3.141592653589793;
+
+// K1 scene scalars (ops/line_scan.py LineScene).
+struct LineScene {
+  float cm, sm, omega, b0, r_ns, r_metric, rs0, mass_a;
+  int isotropic;
+};
+
+// K2 scene + numerics scalars (ops/megakernel.py MegaParams, same order).
+struct MegaParams {
+  double cm, sm, omega, b0_sign, r_ns, r_metric, rs0, mass_a, wp2_scale;
+  double rs0_full, gm_full, prob_scale, rtol, atol, dt_min;
+  double safety, min_fac, max_fac, pi_beta, expo1, gate_theta, stall_min;
+  int max_steps, interp, interp_coarse, bisect, stall_window;
+  int max_roots, max_crossings, species, with_prob;
+};
+
+template <typename T>
+struct Metric {
+  T tt, rr, thth, pp;
+};
+
+template <typename T> __device__ __forceinline__ T dsqrt(T x);
+template <> __device__ __forceinline__ float dsqrt<float>(float x) { return sqrtf(x); }
+template <> __device__ __forceinline__ double dsqrt<double>(double x) { return sqrt(x); }
+
+// Inverse Schwarzschild metric (g^tt, g^rr, g^thth, g^pp) with the
+// reference's interior continuation below rn (models/metric.py).
+template <typename T>
+__device__ __forceinline__ Metric<T> metric(T r, T sin_th, T rs0, T rn) {
+  const bool inside = r <= rn;
+  const T q = r / rn;
+  const T rs = inside ? rs0 * (q * q * q) : rs0;
+  Metric<T> g;
+  if (inside) {
+    T a1 = T(1) - rs / rn;
+    a1 = a1 > T(1e-30) ? a1 : T(1e-30);
+    const T a2 = T(1) - r * r * rs / (rn * rn * rn);
+    const T a2c = a2 > T(1e-30) ? a2 : T(1e-30);
+    const T d = T(3) * dsqrt(a1) - dsqrt(a2c);
+    g.tt = T(-4) / (d * d);
+    g.rr = a2;
+  } else {
+    const T one_m = T(1) - rs / r;
+    g.tt = T(-1) / one_m;
+    g.rr = one_m;
+  }
+  g.thth = T(1) / (r * r);
+  const T rsn = r * sin_th;
+  g.pp = T(1) / (rsn * rsn);
+  return g;
+}
+
+// Goldreich-Julian dipole in units of |b0| (sign in b0_sign), rotated by
+// omega*time through cos/sin(phi - omega t) by angle addition.
+template <typename T>
+__device__ __forceinline__ void dipole_unit(T cm, T sm, T b0_sign, T r_ns, T r, T cz,
+                                            T sin_th, T cphi, T sphi, T swt, T cwt,
+                                            T* br, T* bth, T* bph) {
+  const T cp = cphi * cwt + sphi * swt;
+  const T sp = sphi * cwt - cphi * swt;
+  const T q = r_ns / r;
+  const T bnorm = b0_sign * (q * q * q) * T(0.5);
+  *br = T(2) * bnorm * (cm * cz + sm * sin_th * cp);
+  *bth = bnorm * (cm * sin_th - sm * cz * cp);
+  *bph = bnorm * sm * sp;
+}
+
+// Plasma frequency [eV] from the physical B_z [Gauss] (RayTracer.jl:877-878).
+template <typename T>
+__device__ __forceinline__ T omega_p(T omega, T bz) {
+  const T nelec = fabs(T(2) * omega * bz) / T(SQRT_4PI_ALPHA) * T(GAUSS_TO_EV2) * T(HBAR);
+  return dsqrt(T(4) * T(PI) * nelec / T(INV_ALPHA) / T(M_E_EV));
+}
+
+// K1: thick-surface condition at a Cartesian point of a sampling line, the
+// momentum renormalized onto the axion shell along the local-velocity
+// direction (sampler._line_condition; pallas_kernels._condition_block).
+// t = 0, so the azimuthal trig comes from Cartesian ratios.
+__device__ __forceinline__ float line_condition(float px, float py, float pz, float vlx,
+                                                float vly, float vlz, float erg,
+                                                const LineScene& S) {
+  const float rr = sqrtf(px * px + py * py + pz * pz);
+  const float cz = pz / rr;
+  const float st = sqrtf(fmaxf(1.f - cz * cz, 1e-30f));
+  const float aa = rr < S.r_ns ? 1.f : 1.f - S.rs0 / rr;
+  const float dr_dt = (px * vlx + py * vly + pz * vlz) / rr;
+  const float v_th = (pz * dr_dt - rr * vlz) / (rr * st);
+  const float v_ph = (-py * vlx + px * vly) / (rr * st);
+  float w_r = dr_dt / sqrtf(aa) / aa;
+  float w_t = v_th * rr / aa;
+  float w_p = v_ph * (rr * st) / aa;
+  const Metric<float> g = metric<float>(rr, st, S.rs0, S.r_metric);
+  const float wsq = g.rr * w_r * w_r + g.thth * w_t * w_t + g.pp * w_p * w_p;
+  const float nrm = sqrtf((-(erg * erg) * g.tt - S.mass_a * S.mass_a) / wsq);
+  w_r *= nrm;
+  w_t *= nrm;
+  w_p *= nrm;
+  float br, bth, bph;
+  dipole_unit<float>(S.cm, S.sm, 1.f, S.r_ns, rr, cz, st, px / (rr * st), py / (rr * st),
+                     0.f, 1.f, &br, &bth, &bph);
+  br *= S.b0;
+  bth *= S.b0;
+  bph *= S.b0;
+  const float wp = omega_p<float>(S.omega, br * cz - bth * st);
+  float kp = 0.f;
+  if (!S.isotropic) {
+    const float bl_r = br / sqrtf(g.rr), bl_t = bth / sqrtf(g.thth), bl_p = bph / sqrtf(g.pp);
+    const float bmag = sqrtf(g.rr * bl_r * bl_r + g.thth * bl_t * bl_t + g.pp * bl_p * bl_p);
+    kp = (g.rr * w_r * bl_r + g.thth * w_t * bl_t + g.pp * w_p * bl_p) / bmag;
+  }
+  const float e2n = erg * erg;
+  const float ksqr = g.tt * e2n + g.rr * w_r * w_r + g.thth * w_t * w_t + g.pp * w_p * w_p;
+  const float e2 = e2n / g.rr;
+  return 0.5f * (ksqr + wp * wp * (e2 - kp * kp) / e2) / e2n;
+}
+
+// K2: strength-reduced crossing condition on the integration state
+// u = (r, theta, phi, w_r, w_th, w_ph, e7) at log-time lnt (the reference's
+// cond_mode "fast"): 0.5 ma^2 (wp2t (1 - kp^2/e2) - 1) / e7^2.
+__device__ __forceinline__ double condition(const MegaParams& P, const double* u, double lnt) {
+  const double t = exp(lnt);
+  const double r = u[0];
+  double s_th, c_th, s_ph, c_ph, swt, cwt;
+  sincos(u[1], &s_th, &c_th);
+  sincos(u[2], &s_ph, &c_ph);
+  sincos(P.omega * t, &swt, &cwt);
+  const Metric<double> g = metric<double>(r, s_th, P.rs0, P.r_metric);
+  double br, bth, bph;
+  dipole_unit<double>(P.cm, P.sm, P.b0_sign, P.r_ns, r, c_th, s_th, c_ph, s_ph, swt, cwt,
+                      &br, &bth, &bph);
+  const double bz = br * c_th - bth * s_th;
+  const double wp2t = r <= P.r_ns ? 0.0 : P.wp2_scale * fabs(bz);
+  const double e72 = u[6] * u[6];
+  const double inv_e72 = 1.0 / e72;
+  const double wsq = g.rr * u[3] * u[3] + g.thth * u[4] * u[4] + g.pp * u[5] * u[5];
+  const double nrm2 = (-e72 * g.tt - P.mass_a * P.mass_a) / wsq;
+  const double inv_r = 1.0 / r;
+  const double n_w = sqrt(g.rr) * u[3] * br + inv_r * u[4] * bth + inv_r / fabs(s_th) * u[5] * bph;
+  const double bm2 = br * br + bth * bth + bph * bph;
+  const double mel = 1.0 - nrm2 * n_w * n_w * g.rr * inv_e72 / bm2;
+  return (0.5 * P.mass_a * P.mass_a) * (wp2t * mel - 1.0) * inv_e72;
+}
+
+}  // namespace art

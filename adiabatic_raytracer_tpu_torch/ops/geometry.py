@@ -1,0 +1,85 @@
+"""Coordinate and momentum transforms: Cartesian <-> spherical, celerity.
+
+Port of adiabatic_raytracer_tpu/ops/geometry.py (RayTracer.jl:196-216,
+404-416, 983-1008).  x_sph = [r, theta, phi]; covariant celerity
+w = (v_r / sqrt(A), v_th r, v_ph r sin(theta)) / A with A = 1 - r_s/r.
+The reference's conversion-surface-angle diagnostics (surf_norm and
+friends) are dead in its production path and are not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from adiabatic_raytracer_tpu_torch.models.metric import lapse_A, metric_inverse
+
+
+def cart_to_sph(x):
+    """(..., 3) Cartesian -> [r, theta, phi]."""
+    r = torch.sqrt(torch.sum(x * x, dim=-1))
+    theta = torch.arccos(x[..., 2] / r)
+    phi = torch.atan2(x[..., 1], x[..., 0])
+    return torch.stack([r, theta, phi], dim=-1)
+
+
+def sph_to_cart(x_sph):
+    r, theta, phi = x_sph[..., 0], x_sph[..., 1], x_sph[..., 2]
+    st, ct = torch.sin(theta), torch.cos(theta)
+    return torch.stack([r * st * torch.cos(phi), r * st * torch.sin(phi), r * ct],
+                       dim=-1)
+
+
+def cart_vel_to_sph(x_cart, v_cart):
+    """Cartesian velocity -> (dr/dt, r dth/dt, r sth dph/dt)
+    (RayTracer.jl:205-206)."""
+    r = torch.sqrt(torch.sum(x_cart * x_cart, dim=-1))
+    sin_theta = torch.sqrt(torch.clamp(1.0 - (x_cart[..., 2] / r) ** 2, min=1e-30))
+    dr_dt = torch.sum(x_cart * v_cart, dim=-1) / r
+    v_th = (x_cart[..., 2] * dr_dt - r * v_cart[..., 2]) / (r * sin_theta)
+    v_ph = (-x_cart[..., 1] * v_cart[..., 0] + x_cart[..., 0] * v_cart[..., 1]) / (
+        r * sin_theta)
+    return torch.stack([dr_dt, v_th, v_ph], dim=-1)
+
+
+def celerity_from_cart(x_cart, v_cart, mass_ns):
+    """Cartesian direction -> covariant celerity w (RayTracer.jl:209-211)."""
+    x_sph = cart_to_sph(x_cart)
+    r = x_sph[..., 0]
+    sin_theta = torch.sin(x_sph[..., 1])
+    v_pl = cart_vel_to_sph(x_cart, v_cart)
+    a = lapse_A(r, mass_ns)
+    w = torch.stack([
+        v_pl[..., 0] / torch.sqrt(a),
+        v_pl[..., 1] * r,
+        v_pl[..., 2] * (r * sin_theta),
+    ], dim=-1) / a[..., None]
+    return w
+
+
+def celerity_to_cart_vel(x_sph, w, mass_ns, a=None):
+    """Covariant celerity w -> Cartesian proper velocity
+    (RayTracer.jl:406-416); `a` overrides the lapse."""
+    r, theta, phi = x_sph[..., 0], x_sph[..., 1], x_sph[..., 2]
+    if a is None:
+        a = lapse_A(r, mass_ns)
+    v_r = w[..., 0] * torch.sqrt(a) * a
+    v_th = w[..., 1] / r * a
+    v_ph = w[..., 2] / (r * torch.sin(theta)) * a
+    st, ct = torch.sin(theta), torch.cos(theta)
+    sp, cp = torch.sin(phi), torch.cos(phi)
+    v_tmp = st * v_r + ct * v_th
+    vx = cp * v_tmp - sp * v_ph
+    vy = sp * v_tmp + cp * v_ph
+    vz = ct * v_r - st * v_th
+    return torch.stack([vx, vy, vz], dim=-1)
+
+
+def spatial_dot(x_sph, a, b, mass_ns):
+    """sum_i g^{ii} a_i b_i (spatial_dot, RayTracer.jl:973-981)."""
+    _, g_rr, g_thth, g_pp = metric_inverse(x_sph, mass_ns)
+    return (g_rr * a[..., 0] * b[..., 0] + g_thth * a[..., 1] * b[..., 1]
+            + g_pp * a[..., 2] * b[..., 2])
+
+
+def spatial_norm(x_sph, a, mass_ns):
+    return torch.sqrt(spatial_dot(x_sph, a, a, mass_ns))

@@ -1,0 +1,453 @@
+"""Weighted branching-tree Monte-Carlo engine, batched over events.
+
+Port of adiabatic_raytracer_tpu/ops/tree.py (get_tree, MainRunner.jl:
+126-352): the backtrace (`backtrace`, `backtrace_from_result`), the host
+work-queue forward tree (`forward_tree`, unwindowed; K lanes per event per
+iteration) and the global finals pack (`compact_finals_global`).
+
+Each iteration selects, per event, the K heaviest pending nodes, propagates
+all selected nodes as one batch (pool engine or K2), and spawns children.
+Per-lane results do not depend on which other lanes share a launch, so the
+port launches only the valid lanes where the reference launched a padded
+fixed width.  MC draws fold the per-event node index into the event key,
+as in the reference, so the draw stream is the same.
+
+Stop codes (`info`, MainRunner.jl:324-348): 1 worklist exhausted,
+2 prob_cutoff, 3 num_cutoff, 4 max_nodes; negated once the pure-MC mode
+(count > MC_nodes) was entered.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, NamedTuple
+
+import torch
+from torch.func import vmap
+
+from adiabatic_raytracer_tpu_torch.config import NumericsConfig, Scene, TreeConfig
+from adiabatic_raytracer_tpu_torch.ops.conversion import get_prob_nonad
+from adiabatic_raytracer_tpu_torch.ops.propagate import propagate
+from adiabatic_raytracer_tpu_torch.utils import rng
+
+
+def _negate_b(sc: Scene) -> Scene:
+    """Backwards-in-time propagation: k -> -k and B -> -B (MainRunner.jl:580-586)."""
+    return dataclasses.replace(sc, b0=-sc.b0)
+
+
+def _prob_batch(pos, k, erg_eff, sc: Scene):
+    """P = 1 - exp(-P_nonAD) at a batch of points (MainRunner.jl:134-137),
+    clamped to [0, 1]; returns (P, P_nonAD)."""
+    if pos.shape[0] == 0:
+        z = pos.new_zeros(0)
+        return z, z
+    p_nonad = vmap(lambda x, kk, e: get_prob_nonad(x, kk, e, sc))(pos, k, erg_eff)
+    return torch.clamp(1.0 - torch.exp(-p_nonad), 0.0, 1.0), p_nonad
+
+
+class BacktraceResult(NamedTuple):
+    prob0: Any
+    p_nonad0: Any
+    weight: Any
+    samp_back_weight: Any
+    n_cross: Any
+    xc: Any
+    kc: Any
+    tc: Any
+    dwc: Any
+    pc: Any
+    valid: Any
+    c_bck: Any
+    traj: Any
+    times: Any
+    x_end: Any
+    k_end: Any
+    raw_n_cross: Any
+    raw_tc: Any
+
+
+def backtrace(xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
+              tcfg: TreeConfig, *, lnt_end) -> BacktraceResult:
+    """Backtrace the sampled axion to every level crossing it met
+    (get_tree with -B0, -k, MainRunner.jl:581-589)."""
+    E = xpos.shape[0]
+    dev, dt = xpos.device, xpos.dtype
+    sc_b = _negate_b(sc)
+    k_back = -k_init
+    kw = dict(erg=erg_inf, delta_w=-torch.ones(E, dtype=dt, device=dev),
+              lnt0=torch.full((E,), float(cfg.ln_t_start), dtype=dt, device=dev),
+              lnt1=torch.full((E,), float(lnt_end), dtype=dt, device=dev),
+              is_photon=torch.zeros(E, dtype=torch.bool, device=dev), species="axion")
+    if cfg.engine == "mega":
+        from adiabatic_raytracer_tpu_torch.ops.megakernel import propagate_mega
+
+        res = propagate_mega(xpos, k_back, sc_b, cfg, max_crossings=cfg.max_crossings,
+                             with_prob=bool(cfg.in_kernel_prob), **kw)
+    else:
+        res = propagate(xpos, k_back, sc_b, cfg,
+                        max_crossings=torch.full((E,), cfg.max_crossings,
+                                                 dtype=torch.int64, device=dev), **kw)
+    return backtrace_from_result(xpos, k_back, erg_inf, res, sc, cfg)
+
+
+def backtrace_from_result(xpos, k_back, erg_inf, res, sc: Scene,
+                          cfg: NumericsConfig) -> BacktraceResult:
+    """Dedup, survival weights, fallback and time re-zeroing of a backtrace
+    PropagateResult (MainRunner.jl:227-245, 614-630)."""
+    E = xpos.shape[0]
+    dev = xpos.device
+    sc_b = _negate_b(sc)
+    prob0, p_nonad0 = _prob_batch(xpos, k_back, erg_inf, sc_b)
+    MAXC = cfg.max_crossings
+    ar = torch.arange(MAXC, device=dev)[None, :]
+    in_count = ar < res.n_cross[:, None]
+    # coincident-crossing dedup: of two consecutive crossings closer than
+    # 1e-5, drop the earlier one
+    d = torch.linalg.norm(res.xc[:, 1:, :] - res.xc[:, :-1, :], dim=-1)
+    next_valid = ar[:, 1:] < res.n_cross[:, None]
+    keep_front = torch.where(next_valid, d > 1e-5, torch.ones_like(next_valid))
+    valid = in_count & torch.cat([keep_front, torch.ones((E, 1), dtype=torch.bool,
+                                                         device=dev)], dim=1)
+    if res.pcx is not None:
+        pc = torch.where(valid, res.pcx, torch.zeros_like(res.pcx))
+    else:
+        pc = torch.zeros(valid.shape, dtype=xpos.dtype, device=dev)
+        if bool(valid.any()):
+            ei, si = valid.nonzero(as_tuple=True)
+            pc[ei, si] = _prob_batch(res.xc[ei, si], res.kc[ei, si],
+                                     erg_inf[ei] * torch.abs(res.dwc[ei, si]), sc_b)[0]
+    weight = torch.prod(torch.where(valid, 1.0 - pc, torch.ones_like(pc)), dim=1)
+
+    # fallback when no crossing was found: the MC point itself is the first
+    # conversion (MainRunner.jl:614-624)
+    none = res.n_cross == 0
+    xc, kc, tc, dwc = res.xc.clone(), res.kc.clone(), res.tc.clone(), res.dwc.clone()
+    xc[none, 0] = xpos[none]
+    kc[none, 0] = k_back[none]
+    tc[none, 0] = 0.0
+    dwc[none, 0] = -1.0
+    pc = pc.clone()
+    pc[none, 0] = prob0[none]
+    valid = torch.where(none[:, None], ar < 1, valid)
+    n_valid = valid.sum(dim=1)
+
+    # re-zero time at the last (earliest forward-time) crossing and flip sign
+    last_idx = torch.where(n_valid > 0,
+                           MAXC - 1 - torch.argmax(valid.flip(1).to(torch.int8), dim=1),
+                           torch.zeros_like(n_valid))
+    t_last = tc[torch.arange(E, device=dev), last_idx]
+    tc = torch.where(valid, -(tc - t_last[:, None]), torch.zeros_like(tc))
+    return BacktraceResult(
+        prob0=prob0, p_nonad0=p_nonad0, weight=weight, samp_back_weight=prob0 * weight,
+        n_cross=n_valid, xc=xc, kc=kc, tc=tc, dwc=dwc, pc=pc, valid=valid,
+        c_bck=torch.ones(E, dtype=torch.int64, device=dev), traj=res.traj,
+        times=res.times, x_end=res.traj[:, -1, :], k_end=res.mom[:, -1, :],
+        raw_n_cross=res.n_cross, raw_tc=res.tc)
+
+
+class TreePools(NamedTuple):
+    """Per-event node pools [E, P, ...] (updated in place)."""
+    pos: Any
+    k: Any
+    t: Any
+    dw: Any
+    is_photon: Any
+    prob: Any
+    weight: Any
+    parent_weight: Any
+    prob_conv: Any
+    prob_conv0: Any
+    status: Any        # 0 empty, 1 pending, 2 processed
+    is_final: Any
+    fpos: Any
+    fmom: Any
+    ferg: Any
+    ftime: Any
+    traj: Any          # [E, P, NS, 3]
+    mom: Any
+    times: Any         # [E, P, NS]
+    xc: Any
+    kc: Any
+    tcx: Any
+    dwcx: Any
+    pcx: Any
+    has_cross: Any
+    order: Any         # processing order (1-based; 0 = unprocessed)
+
+
+class TreeResult(NamedTuple):
+    pools: TreePools
+    count: Any
+    count_main: Any
+    info: Any
+    tot_prob: Any
+    n_alloc: Any
+    dw_anomalies: Any
+    n_iters: Any
+    done_it: Any
+
+
+def _alloc_pools(E, P, NS, dtype, dev):
+    z = lambda *s: torch.zeros(s, dtype=dtype, device=dev)
+    b = lambda *s: torch.zeros(s, dtype=torch.bool, device=dev)
+    i = lambda *s: torch.zeros(s, dtype=torch.int64, device=dev)
+    return TreePools(
+        pos=z(E, P, 3), k=z(E, P, 3), t=z(E, P), dw=z(E, P), is_photon=b(E, P),
+        prob=z(E, P), weight=z(E, P), parent_weight=z(E, P), prob_conv=z(E, P),
+        prob_conv0=z(E, P), status=i(E, P), is_final=b(E, P), fpos=z(E, P, 3),
+        fmom=z(E, P, 3), ferg=z(E, P), ftime=z(E, P), traj=z(E, P, NS, 3),
+        mom=z(E, P, NS, 3), times=z(E, P, NS), xc=z(E, P, 3), kc=z(E, P, 3),
+        tcx=z(E, P), dwcx=z(E, P), pcx=z(E, P), has_cross=b(E, P), order=i(E, P))
+
+
+def _stable_top(x, k):
+    """(values, indices) of the k largest along the last axis, ties to the
+    lower index (lax.top_k's order)."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def _event_keys(key, E, dev):
+    key = torch.as_tensor(key, device=dev)
+    if key.dim() == 2 and key.shape[0] == E:
+        return key
+    return rng.fold_in(key, torch.arange(E, device=dev))
+
+
+def forward_tree(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
+                 tcfg: TreeConfig, *, lnt_end) -> TreeResult:
+    """Forward branching tree from the MC-selected conversion point
+    (get_tree, MainRunner.jl:126-352; parent photon MainRunner.jl:653-664).
+    `key`: per-event keys [E, 2] or one key (per-event keys then fold in the
+    batch index).  Host work-queue engine without the streaming window."""
+    if cfg.tree_window > 0:
+        raise NotImplementedError("tree_window > 0 (streaming window) is not "
+                                  "ported (ROADMAP Queue 1, tree_window)")
+    if cfg.mc_chain:
+        raise NotImplementedError("mc_chain is left unported on purpose "
+                                  "(ROADMAP Queue 1, item 11)")
+    E = xpos.shape[0]
+    dev, dtype = xpos.device, xpos.dtype
+    P = 2 * tcfg.max_nodes + 4
+    NS = cfg.n_save
+    K = int(min(P, cfg.tree_k)) if cfg.tree_k > 0 else int(min(P, tcfg.mc_nodes + 2))
+    mega = cfg.engine == "mega"
+    if mega:
+        from adiabatic_raytracer_tpu_torch.ops.megakernel import can_prob, propagate_mega
+
+        mega_prob = bool(cfg.in_kernel_prob) and can_prob(sc)
+    keys = _event_keys(key, E, dev)
+    skey = torch.float32 if cfg.compute_dtype == "f32" else dtype
+
+    pl = _alloc_pools(E, P, NS, dtype, dev)
+    prob0, _ = _prob_batch(xpos, k_init, erg_inf, sc)
+    pl.pos[:, 0] = xpos
+    pl.k[:, 0] = k_init
+    pl.dw[:, 0] = -1.0
+    pl.is_photon[:, 0] = True
+    pl.prob[:, 0] = prob0
+    pl.weight[:, 0] = 1.0
+    pl.parent_weight[:, 0] = 1.0
+    pl.prob_conv[:, 0] = -1.0
+    pl.prob_conv0[:, 0] = -1.0
+    pl.status[:, 0] = 1
+
+    zi = lambda: torch.zeros(E, dtype=torch.int64, device=dev)
+    tot_prob = torch.zeros(E, dtype=dtype, device=dev)
+    count, count_main, dw_anom, done_it = zi(), zi(), zi(), zi()
+    info = torch.ones(E, dtype=torch.int64, device=dev)
+    n_alloc = torch.ones(E, dtype=torch.int64, device=dev)
+    done = torch.zeros(E, dtype=torch.bool, device=dev)
+    it = 0
+
+    W = max(((2 * E + 127) // 128) * 128, 128)
+    W = int(min(E * K, max(W, E)))
+    jr = torch.arange(K, device=dev)[None, :]
+    eK = torch.arange(E, device=dev)[:, None].expand(E, K)
+    ln_floor = math.exp(float(cfg.ln_t_start))
+
+    while bool((~done).any()) and it <= tcfg.max_nodes + 1:
+        pending = pl.status == 1
+        has_pending = pending.any(dim=1)
+        active = ~done & has_pending
+        wmask = torch.where(pending & active[:, None], pl.weight,
+                            torch.full_like(pl.weight, -math.inf)).to(skey)
+        top_w, top_idx = _stable_top(wmask, K)
+        valid = torch.isfinite(top_w)
+        g2 = lambda buf: buf[eK, top_idx]
+        w_node = g2(pl.weight)
+        is_ph = g2(pl.is_photon)
+        dw_node = torch.where(valid, g2(pl.dw), torch.full_like(w_node, -1.0))
+        prob_conv_parent = g2(pl.prob_conv)
+        count_now = count[:, None] + 1 + jr
+
+        if W < E * K:
+            # global work-queue compaction; every event's lead lane outranks
+            # all others so chains always progress
+            gkey = torch.where(valid, w_node.to(skey), torch.full_like(top_w, -math.inf))
+            gkey = gkey + torch.where(jr == 0, 4.0, 0.0).to(skey)
+            topv, gsel = _stable_top(gkey.reshape(E * K), W)
+            sel = torch.zeros(E * K, dtype=torch.bool, device=dev)
+            sel[gsel] = torch.isfinite(topv)
+            nsel = sel.reshape(E, K).sum(dim=1)
+            valid = valid & (jr < nsel[:, None])
+
+        ve, vj = valid.nonzero(as_tuple=True)          # event-major lane order
+        L = ve.shape[0]
+        slot = top_idx[ve, vj]
+        t_node = pl.t[ve, slot]
+        lnt0 = torch.log(torch.clamp(t_node, min=ln_floor))
+        erg_l = erg_inf[ve]
+        kw = dict(erg=erg_l, delta_w=dw_node[ve, vj], lnt0=lnt0,
+                  lnt1=torch.full((L,), float(lnt_end), dtype=dtype, device=dev),
+                  is_photon=is_ph[ve, vj], species="mixed")
+        pcx_l = None
+        if L == 0:
+            res = None
+        elif mega:
+            res = propagate_mega(pl.pos[ve, slot], pl.k[ve, slot], sc, cfg,
+                                 max_crossings=1, with_prob=bool(cfg.in_kernel_prob), **kw)
+            pcx_l = res.pcx[:, 0] if (mega_prob and res.pcx is not None) else None
+        else:
+            res = propagate(pl.pos[ve, slot], pl.k[ve, slot], sc, cfg,
+                            max_crossings=torch.ones(L, dtype=torch.int64, device=dev),
+                            **kw)
+
+        has_x = torch.zeros((E, K), dtype=torch.bool, device=dev)
+        rare = torch.zeros_like(has_x)
+        if L:
+            hx = res.n_cross >= 1
+            kc0 = res.kc[:, 0]
+            rr = hx & (torch.abs(kc0) > 1.0).any(dim=1)   # MainRunner.jl:213-224
+            has_x[ve, vj] = hx
+            rare[ve, vj] = rr
+            ok_l = hx & ~rr
+            pcx_lane = torch.zeros(L, dtype=dtype, device=dev)
+            if pcx_l is not None:
+                pcx_lane = torch.where(ok_l, pcx_l, pcx_lane)
+            elif bool(ok_l.any()):
+                oi = ok_l.nonzero().squeeze(1)
+                pcx_lane[oi] = _prob_batch(res.xc[oi, 0], kc0[oi],
+                                           erg_l[oi] * torch.abs(res.dwc[oi, 0]), sc)[0]
+            # record propagation results on the processed nodes
+            pl.status[ve, slot] = 2
+            pl.fpos[ve, slot] = res.traj[:, -1]
+            pl.fmom[ve, slot] = res.mom[:, -1]
+            pl.ferg[ve, slot] = res.erg[:, -1]
+            pl.ftime[ve, slot] = res.final_lnt
+            pl.traj[ve, slot] = res.traj
+            pl.mom[ve, slot] = res.mom
+            pl.times[ve, slot] = res.times
+            pl.has_cross[ve, slot] = ok_l
+            pl.order[ve, slot] = count_now[ve, vj]
+            oi = ok_l.nonzero().squeeze(1)
+            eo, so = ve[oi], slot[oi]
+            pl.xc[eo, so] = res.xc[oi, 0]
+            pl.kc[eo, so] = kc0[oi]
+            pl.tcx[eo, so] = res.tc[oi, 0]
+            pl.dwcx[eo, so] = res.dwc[oi, 0]
+            pl.pcx[eo, so] = pcx_lane[oi]
+            # no crossing: a final node (MainRunner.jl:200-207)
+            ni = (~hx).nonzero().squeeze(1)
+            r_end = torch.linalg.norm(res.traj[ni, -1], dim=-1)
+            pl.is_final[ve[ni], slot[ni]] = r_end > sc.r_ns * 1.1
+
+        cross_ok = has_x & ~rare
+        no_cross = valid & ~has_x
+        tot_prob = tot_prob + torch.where(no_cross | rare, w_node,
+                                          torch.zeros_like(w_node)).sum(dim=1)
+        count_main = count_main + no_cross.sum(dim=1)
+        dw_bad = valid & ((dw_node > -0.5) | (dw_node < -2.0))
+        dw_anom = dw_anom + dw_bad.sum(dim=1)
+
+        # spawn children (MainRunner.jl:278-305); the MC draw folds the
+        # per-event node index into the event key
+        pcx = torch.zeros((E, K), dtype=dtype, device=dev)
+        convert = torch.zeros_like(cross_ok)
+        if L:
+            pcx[ve, vj] = pcx_lane
+            ci = cross_ok.nonzero(as_tuple=True)
+            if ci[0].numel():
+                sub = rng.fold_in(keys[ci[0]], count_now[ci])
+                convert[ci] = rng.uniform(sub, dtype=dtype) < pcx[ci]
+        spawn = cross_ok
+        mc_mode = count_now > tcfg.mc_nodes
+        new_species = ~is_ph
+        a_species = torch.where(mc_mode, torch.where(convert, new_species, is_ph),
+                                new_species)
+        a_prob = torch.where(mc_mode, torch.where(convert, pcx, 1.0 - pcx), pcx)
+        a_weight = torch.where(mc_mode, w_node, pcx * w_node)
+        a_pc0 = torch.where(mc_mode, torch.where(convert, pcx, prob_conv_parent), pcx)
+        n_child = torch.where(spawn, torch.where(mc_mode, 1, 2), 0).to(torch.int64)
+        base = n_alloc[:, None] + torch.cumsum(n_child, dim=1) - n_child
+        write_a = spawn & (base < P)
+        write_b = spawn & ~mc_mode & (base + 1 < P)
+        g_xc = g2(pl.xc)
+        g_kc = g2(pl.kc)
+        g_tc = g2(pl.tcx)
+        g_dw = g2(pl.dwcx)
+        for wr, sl, species, prob, weight, pc0 in (
+                (write_a, base, a_species, a_prob, a_weight, a_pc0),
+                (write_b, base + 1, is_ph, 1.0 - pcx, (1.0 - pcx) * w_node,
+                 prob_conv_parent)):
+            we, wj = wr.nonzero(as_tuple=True)
+            s = sl[we, wj]
+            pl.pos[we, s] = g_xc[we, wj]
+            pl.k[we, s] = g_kc[we, wj]
+            pl.t[we, s] = g_tc[we, wj]
+            pl.dw[we, s] = g_dw[we, wj]
+            pl.is_photon[we, s] = species[we, wj]
+            pl.prob[we, s] = prob[we, wj]
+            pl.weight[we, s] = weight[we, wj]
+            pl.parent_weight[we, s] = w_node[we, wj]
+            pl.prob_conv[we, s] = pcx[we, wj]
+            pl.prob_conv0[we, s] = pc0[we, wj]
+            pl.status[we, s] = 1
+        n_alloc = n_alloc + write_a.sum(dim=1) + write_b.sum(dim=1)
+        count = count + valid.sum(dim=1)
+
+        # cutoffs (MainRunner.jl:324-339), checked once per iteration
+        hit2 = active & (tot_prob >= 1.0 - tcfg.prob_cutoff)
+        info = torch.where(hit2 & ~done, 2, info)
+        done = done | hit2
+        hit3 = active & (count_main >= tcfg.num_cutoff)
+        info = torch.where(hit3 & ~done, 3, info)
+        done = done | hit3
+        hit4 = active & (count > tcfg.max_nodes)
+        info = torch.where(hit4 & ~done, 4, info)
+        done = done | hit4 | ~has_pending
+        done_it = torch.where(done & (done_it == 0), it + 1, done_it)
+        it += 1
+
+    info = torch.where(count > tcfg.mc_nodes, -torch.abs(info), info)
+    return TreeResult(pools=pl, count=count, count_main=count_main, info=info,
+                      tot_prob=tot_prob, n_alloc=n_alloc, dw_anomalies=dw_anom,
+                      n_iters=torch.full((E,), it, dtype=torch.int64, device=dev),
+                      done_it=torch.where(done_it > 0, done_it, it))
+
+
+def compact_finals_global(pools: TreePools, cap: int, out_dtype=None,
+                          order_stride: int = 0):
+    """The batch's final nodes as one [cap+1, 14] pack, rows
+    [event, is_photon, ferg, weight, prob, prob_conv, prob_conv0, t, fpos(3),
+    fmom(3)] ordered by (event, processing order), the finals count in the
+    trailer row (tree.py:1053 of the reference)."""
+    d = out_dtype or pools.pos.dtype
+    E, P = pools.pos.shape[:2]
+    S = max(int(order_stride), P)
+    final = (pools.status == 2) & pools.is_final
+    fe, fp = final.nonzero(as_tuple=True)
+    order = torch.argsort(fe * S + pools.order[fe, fp], stable=True)
+    n = int(fe.shape[0])
+    fe, fp = fe[order][:cap], fp[order][:cap]
+    g = lambda a: a[fe, fp].to(d)[:, None]
+    rows = torch.cat([fe.to(d)[:, None], g(pools.is_photon), g(pools.ferg),
+                      g(pools.weight), g(pools.prob), g(pools.prob_conv),
+                      g(pools.prob_conv0), g(pools.t), pools.fpos[fe, fp].to(d),
+                      pools.fmom[fe, fp].to(d)], dim=1)
+    pack = torch.zeros((cap + 1, 14), dtype=d, device=pools.pos.device)
+    pack[: rows.shape[0]] = rows
+    pack[cap, 0] = n
+    return pack

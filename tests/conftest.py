@@ -28,3 +28,8 @@ jax.config.update("jax_enable_x64", True)
 _cache_dir = os.path.join(os.path.dirname(__file__), os.pardir, ".jax_cache")
 jax.config.update("jax_compilation_cache_dir", os.path.abspath(_cache_dir))
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (kernels of the torch port); skips without one")

@@ -1,0 +1,101 @@
+"""Port configs against the JAX classes; the import boundary; unported options."""
+
+import dataclasses
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from adiabatic_raytracer_tpu import config as jcfg
+from adiabatic_raytracer_tpu_torch import config as tcfg
+from adiabatic_raytracer_tpu_torch.driver import check_ported
+from adiabatic_raytracer_tpu_torch.utils import rng
+
+torch.set_num_threads(1)
+
+PAIRS = [(jcfg.Scene, tcfg.Scene), (jcfg.NumericsConfig, tcfg.NumericsConfig),
+         (jcfg.TreeConfig, tcfg.TreeConfig)]
+
+
+@pytest.mark.parametrize("jax_cls,port_cls", PAIRS, ids=lambda c: c.__name__)
+def test_fields_and_defaults_match(jax_cls, port_cls):
+    jf = [(f.name, f.default) for f in dataclasses.fields(jax_cls)]
+    pf = [(f.name, f.default) for f in dataclasses.fields(port_cls)]
+    assert jf == pf
+    assert port_cls.__dataclass_params__.frozen
+
+
+def test_from_jax_dict_round_trip():
+    sc = jcfg.Scene(mass_a=2e-6, theta_m=0.4, b0=3e13, v_ns=(0.1, 0.0, -0.2), flat=True)
+    nc = jcfg.NumericsConfig(rtol=1e-8, interp_coarse=8, engine="mega", pi_beta=0.04)
+    tc = jcfg.TreeConfig(num_cutoff=50, mc_nodes=8, prob_cutoff=1e-12)
+    d = {name: {k: np.asarray(v) for k, v in dataclasses.asdict(c).items()}
+         for name, c in (("scene", sc), ("numerics", nc), ("tree", tc))}
+    psc, pnc, ptc = tcfg.from_jax_dict(d)
+    for jc, pc in ((sc, psc), (nc, pnc), (tc, ptc)):
+        for f in dataclasses.fields(jc):
+            want = getattr(jc, f.name)
+            got = getattr(pc, f.name)
+            assert got == (tuple(want) if isinstance(want, (list, tuple)) else want), f.name
+    assert psc.mass_ns_eff == 0.0
+    with pytest.raises(ValueError):
+        tcfg.from_jax_dict({"scene": {"not_a_field": 1}})
+
+
+def test_jax_key_converter():
+    import jax
+
+    k = jax.random.fold_in(jax.random.PRNGKey(1769), 5)
+    kt = rng.key_from_jax(np.asarray(k))
+    assert kt.dtype == torch.int64 and kt.tolist() == np.asarray(k).astype(np.int64).tolist()
+    np.testing.assert_array_equal(rng.key_to_jax(kt), np.asarray(k))
+
+
+def test_port_never_imports_jax():
+    """Every module of the port imports with jax made unimportable."""
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "import adiabatic_raytracer_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')\n"
+        "         if not m.name.endswith('__main__')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "assert not any(k == 'jax' or k.startswith('jax.') for k, v in sys.modules.items()\n"
+        "               if v is not None)\n"
+        "assert 'adiabatic_raytracer_tpu' not in sys.modules\n"
+        "print(len(names))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15
+
+
+@pytest.mark.parametrize("kw", [
+    dict(cfg=dict(tree_engine="kernel")),
+    dict(cfg=dict(engine="pool_compact")),
+    dict(cfg=dict(tree_window=128)),
+    dict(cfg=dict(backtrace_chunk=64)),
+    dict(cfg=dict(mc_chain=1)),
+    dict(save_mode=2),
+    dict(mesh_devices=4),
+    dict(pipeline_depth=2),
+    dict(checkpoint=True),
+    dict(resume=True),
+], ids=lambda kw: str(kw))
+def test_unported_options_raise(kw):
+    cfg = tcfg.NumericsConfig(**kw.pop("cfg", {}))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        check_ported(cfg, **kw)
+
+
+def test_cuda_without_card_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from adiabatic_raytracer_tpu_torch.driver import run
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        run(tcfg.Scene(theta_m=0.2), tcfg.NumericsConfig(engine="mega"),
+            tcfg.TreeConfig(), 3, seed=1, dir_tag=str(tmp_path), device="cuda")

@@ -1,0 +1,105 @@
+"""K1 and K2 on the card against their plain versions.  Every test needs a
+CUDA device (the kernels have no CPU mode) and skips without one.  The file
+imports no JAX, so it runs on a GPU machine without it:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from adiabatic_raytracer_tpu_torch import config as tcfg
+from adiabatic_raytracer_tpu_torch.ops import line_scan
+from adiabatic_raytracer_tpu_torch.ops import megakernel as mk
+from adiabatic_raytracer_tpu_torch.ops.propagate import launch_state
+from adiabatic_raytracer_tpu_torch.ops.tree import _negate_b
+
+torch.set_num_threads(1)
+
+KW = dict(mass_a=1e-5, ax_g=1e-12, theta_m=0.2, omega_pul=1.0, b0=1e14, r_ns=10.0,
+          mass_ns=1.0)
+F64 = torch.float64
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def rays(B, seed, r_lo=15.0, r_hi=24.0):
+    rng = np.random.default_rng(seed)
+    r = rng.uniform(r_lo, r_hi, B)
+    th = np.arccos(rng.uniform(-0.9, 0.9, B))
+    ph = rng.uniform(-np.pi, np.pi, B)
+    x = torch.as_tensor(np.stack([r * np.sin(th) * np.cos(ph), r * np.sin(th) * np.sin(ph),
+                                  r * np.cos(th)], 1), dtype=F64)
+    k = torch.as_tensor(rng.normal(size=(B, 3)), dtype=F64)
+    erg = torch.full((B,), 1e-5 * (1 + 0.5 * (220 / 2.99792e5) ** 2), dtype=F64)
+    return x, k, erg
+
+
+@pytest.mark.cuda
+def test_line_scan_kernel_matches_plain(dev):
+    sc = tcfg.Scene(**KW)
+    rng = np.random.default_rng(1)
+    B, N = 256, 2221
+    vvec = rng.normal(size=(B, 3))
+    vvec /= np.linalg.norm(vvec, axis=1, keepdims=True)
+    vloc = rng.normal(size=(B, 3))
+    vloc /= np.linalg.norm(vloc, axis=1, keepdims=True)
+    T = lambda a: torch.as_tensor(a, dtype=F64, device=dev)
+    args = (T(rng.normal(size=(B, 3)) * 5.0 - vvec * 27.0), T(vvec), T(vloc),
+            T(np.full(B, 1.0000005e-5)), T(np.linspace(0.0, 55.0, N)), sc, sc.mass_ns)
+    got = line_scan.line_scan(*args)
+    torch.cuda.synchronize()
+    want = line_scan.line_scan_plain(*args)
+    assert got.dtype == torch.float32 and got.shape == (B, N)
+    # both f32; they differ only where the f32 evaluation is ill-conditioned
+    rel = torch.abs(got - want) / (1.0 + torch.abs(want))
+    assert torch.quantile(rel.flatten(), 0.999).item() < 1e-5
+    away = torch.abs(want) > 1e-3
+    assert bool((torch.sign(got) == torch.sign(want))[away].all())
+
+
+@pytest.mark.cuda
+def test_megakernel_matches_plain(dev):
+    """Dense scan (interp_coarse=0): the kernel and the pool engine run one
+    algorithm, so crossing counts agree and endpoints agree to rounding."""
+    x, k, erg = rays(256, seed=9)
+    sc_b = _negate_b(tcfg.Scene(**KW))
+    B = x.shape[0]
+    u0 = launch_state(x, -k, sc_b, erg, -torch.ones(B, dtype=F64))
+    d = lambda t: t.to(dev)
+    args = (d(u0), d(torch.full((B,), -30.0, dtype=F64)), d(torch.zeros(B, dtype=F64)),
+            d(erg), d(x), sc_b, tcfg.NumericsConfig(interp_coarse=0))
+    kw = dict(max_crossings=16, is_photon=d(torch.zeros(B, dtype=torch.bool)),
+              species="axion", with_prob=True)
+    got = mk.integrate_mega(*args, **kw)
+    torch.cuda.synchronize()
+    want = mk.integrate_mega_plain(*args, **kw)
+    assert (got[4] == want[4]).double().mean().item() >= 0.99
+    end = (got[3] == 1) & (want[3] == 1)
+    rel = ((got[0] - want[0]).abs() / want[0].abs().clamp(min=1e-300)).amax(dim=1)[end]
+    assert rel.median().item() < 1e-8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("species", ["photon", "axion", "mixed"])
+def test_probe_matches_twins(dev, species):
+    x, k, erg = rays(256, seed=4, r_lo=11.0, r_hi=45.0)
+    sc = tcfg.Scene(**KW)
+    B = x.shape[0]
+    u = launch_state(x, k, sc, erg, -torch.ones(B, dtype=F64))
+    gen = torch.Generator().manual_seed(0)
+    lnt = torch.rand(B, generator=gen, dtype=F64) * 10.0 - 10.0
+    is_ph = (torch.rand(B, generator=gen, dtype=F64) > 0.5).to(F64)
+    P = mk.mega_params(sc, tcfg.NumericsConfig(), species=species, with_prob=True)
+    whichs = mk.PROBE_FUNCS[:-1] if species == "photon" else ("rhs",)
+    for which in whichs:
+        got = mk.probe(P, which, u.to(dev), lnt.to(dev), erg.to(dev), is_ph.to(dev), 1e14)
+        want = mk.probe_plain(P, which, u, lnt, erg, is_ph, 1e14)
+        scale = want.abs().amax(dim=0, keepdim=True).clamp(min=1e-300)  # zero columns
+        assert ((got.cpu() - want).abs() / (want.abs() + scale)).max().item() < 1e-12, which

@@ -1,0 +1,198 @@
+"""K2's torch twins against the JAX megakernel's jnp device functions, the
+port's pool engine against the JAX pool, and integrate_mega_plain's output
+contract.  The kernel itself runs only on the card (tests/test_torch_cuda.py).
+
+The JAX device functions evaluate sin/cos/exp through Cody-Waite
+polynomials fitted for f32 (~1e-11 and ~1e-9 relative in f64); the twin
+comparison swaps those for exact jnp.sin/cos/exp, so the remaining slack
+(rtol 1e-10) is libm rounding."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from adiabatic_raytracer_tpu import config as jcfg
+from adiabatic_raytracer_tpu.ops import megakernel as jmk
+from adiabatic_raytracer_tpu.ops import propagate as jprop
+from adiabatic_raytracer_tpu_torch import config as tcfg
+from adiabatic_raytracer_tpu_torch.ops import megakernel as mk
+from adiabatic_raytracer_tpu_torch.ops import tree
+from adiabatic_raytracer_tpu_torch.ops.propagate import launch_state, make_rhs, propagate
+
+torch.set_num_threads(1)
+
+KW = dict(mass_a=1e-5, ax_g=1e-12, theta_m=0.2, omega_pul=1.0, b0=1e14, r_ns=10.0,
+          mass_ns=1.0)
+F64 = torch.float64
+
+
+@pytest.fixture
+def exact_jax_trig(monkeypatch):
+    monkeypatch.setattr(jmk, "_sincos", lambda x: (jnp.sin(x), jnp.cos(x)))
+    monkeypatch.setattr(jmk, "_exp32", jnp.exp)
+
+
+def states(B=64, seed=0, r_lo=11.0, r_hi=45.0, b0=1e14):
+    rng = np.random.default_rng(seed)
+    r = rng.uniform(r_lo, r_hi, B)
+    th = np.arccos(rng.uniform(-0.9, 0.9, B))
+    ph = rng.uniform(-np.pi, np.pi, B)
+    x = np.stack([r * np.sin(th) * np.cos(ph), r * np.sin(th) * np.sin(ph), r * np.cos(th)], 1)
+    k = rng.normal(size=(B, 3))
+    erg = np.full(B, 1e-5 * (1 + 0.5 * (220 / 2.99792e5) ** 2))
+    sc = tcfg.Scene(**dict(KW, b0=b0))
+    T = lambda a: torch.as_tensor(a, dtype=F64)
+    u = launch_state(T(x), T(k), sc, T(erg), -torch.ones(B, dtype=F64))
+    lnt = T(rng.uniform(-10.0, 0.0, B))
+    is_ph = T((rng.uniform(size=B) > 0.5).astype(np.float64))
+    return u, lnt, T(erg), is_ph
+
+
+def jax_consts(species):
+    C = jmk.SceneConsts(jcfg.Scene(**KW), jcfg.NumericsConfig())
+    C.species = species
+    return C
+
+
+def close(got, want, rtol=1e-10):
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float64)
+        np.testing.assert_allclose(np.asarray(g, np.float64), w, rtol=rtol,
+                                   atol=rtol * np.abs(w).max())
+
+
+def test_device_function_twins_match_jax(exact_jax_trig):
+    u, lnt, erg, is_ph = states()
+    ut = tuple(u[:, i] for i in range(7))
+    uj = tuple(jnp.asarray(c.numpy()) for c in ut)
+    lj, ej = jnp.asarray(lnt.numpy()), jnp.asarray(erg.numpy())
+    P = mk.mega_params(tcfg.Scene(**KW), tcfg.NumericsConfig(), species="photon",
+                       with_prob=True)
+    C = jax_consts("photon")
+    s, c = torch.sin(ut[1]), torch.cos(ut[1])
+    close(mk._metric(P, ut[0], s), jmk._metric(C, uj[0], jnp.sin(uj[1])))
+    t = torch.exp(lnt)
+    close(mk._dipole_unit(P, ut[0], c, s, torch.cos(ut[2]), torch.sin(ut[2]), t),
+          jmk._dipole_unit(C, uj[0], jnp.cos(uj[1]), jnp.sin(uj[1]), jnp.cos(uj[2]),
+                           jnp.sin(uj[2]), jnp.exp(lj), sincos=lambda x: (jnp.sin(x), jnp.cos(x))))
+    close([mk._condition(P, ut, lnt)], [jmk._condition(C, uj, lj)])
+    close([mk._prob_nd(P, ut, erg)], [jmk._prob_nd(C, uj, ej)], rtol=1e-9)
+    close(mk._hermite(ut, ut[::-1], ut, ut, 0.3, 0.7), jmk._hermite(uj, uj[::-1], uj, uj, 0.3, 0.7))
+    for species in ("photon", "axion", "mixed"):
+        P = mk.mega_params(tcfg.Scene(**KW), tcfg.NumericsConfig(), species=species)
+        C = jax_consts(species)
+        ph = is_ph if species == "mixed" else torch.full_like(is_ph, species == "photon")
+        close(mk._rhs(P, ut, lnt, erg, ph),
+              jmk._rhs(C, uj, lj, ej, jnp.asarray(ph.numpy())))
+
+
+@pytest.mark.parametrize("species", ["photon", "axion", "mixed"])
+def test_hand_rhs_matches_pool_rhs(species):
+    """The twin RHS (hand adjoint, what the kernel runs) against the pool's
+    autograd RHS, including axion states inside the star, where the TPU
+    kernel's r-clamped lapse factor differed from the pool."""
+    sc = tcfg.Scene(**KW)
+    u, lnt, erg, is_ph = states(r_lo=4.0, r_hi=45.0, seed=1)
+    ph = is_ph > 0.5 if species == "mixed" else torch.full(is_ph.shape, species == "photon")
+    want = make_rhs(sc, sc.mass_ns_eff, 0.0, species)(u, lnt, {"erg": erg, "is_photon": ph})
+    P = mk.mega_params(sc, tcfg.NumericsConfig(), species=species)
+    got = torch.stack(mk._rhs(P, tuple(u[:, i] for i in range(7)), lnt, erg, ph.double()), 1)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12,
+                               atol=1e-12 * want.abs().max().item())
+
+
+def test_pool_propagate_matches_jax_pool():
+    """Port pool vs JAX pool (f64), B=128 photons (tests/test_megakernel.py's
+    setup, 64 rays, 500-step cap): identical crossing topology and step
+    counts, endpoints rtol 1e-8 on every ray that ended by itself.  The RHS
+    agrees to ~1e-15 per evaluation (test_hand_rhs_matches_pool_rhs); over a
+    few hundred adaptive steps the libm rounding of the two frameworks grows
+    to ~2e-9 relative, hence 1e-8.  A step-capped ray grinds at dt_min in a
+    chaotic regime where rounding grows without bound, so it is not compared."""
+    B = 64
+    rng = np.random.default_rng(0)
+    r = rng.uniform(14.0, 24.0, B)
+    th = np.arccos(rng.uniform(-0.9, 0.9, B))
+    ph = rng.uniform(-np.pi, np.pi, B)
+    x = np.stack([r * np.sin(th) * np.cos(ph), r * np.sin(th) * np.sin(ph), r * np.cos(th)], 1)
+    v = rng.normal(size=(B, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    erg = np.full(B, 1e-5 * (1 + 0.5 * (220 / 2.99792e5) ** 2))
+    lnt1 = float(np.log(1e-3))
+    kw = dict(interp_points=8, max_steps=500)
+    ref = jprop.propagate(jnp.asarray(x), jnp.asarray(v), jcfg.Scene(**KW),
+                          jcfg.NumericsConfig(**kw), erg=jnp.asarray(erg),
+                          delta_w=-jnp.ones(B), lnt0=jnp.full(B, -30.0),
+                          lnt1=jnp.full(B, lnt1), is_photon=jnp.ones(B, bool),
+                          max_crossings=jnp.ones(B, jnp.int32), species="photon")
+    T = lambda a: torch.as_tensor(a, dtype=F64)
+    got = propagate(T(x), T(v), tcfg.Scene(**KW), tcfg.NumericsConfig(**kw), erg=T(erg),
+                    delta_w=-torch.ones(B, dtype=F64), lnt0=torch.full((B,), -30.0, dtype=F64),
+                    lnt1=torch.full((B,), lnt1, dtype=F64),
+                    is_photon=torch.ones(B, dtype=torch.bool),
+                    max_crossings=torch.ones(B, dtype=torch.int64), species="photon")
+    np.testing.assert_array_equal(got.n_cross.numpy(), np.asarray(ref.n_cross))
+    np.testing.assert_array_equal(got.steps.numpy(), np.asarray(ref.steps))
+    np.testing.assert_array_equal(got.ns_hit.numpy(), np.asarray(ref.ns_hit))
+    ok = ~np.asarray(ref.maxed)
+    assert ok.sum() >= B // 2
+    np.testing.assert_allclose(got.traj.numpy()[ok], np.asarray(ref.traj)[ok], rtol=1e-8,
+                               atol=1e-8 * np.abs(np.asarray(ref.traj)).max())
+    np.testing.assert_allclose(got.mom.numpy()[ok], np.asarray(ref.mom)[ok], rtol=1e-8,
+                               atol=1e-8 * np.abs(np.asarray(ref.mom)).max())
+    both = np.asarray(ref.n_cross) >= 1
+    assert both.sum() > 4
+    np.testing.assert_allclose(got.xc.numpy()[both, 0], np.asarray(ref.xc)[both, 0], rtol=1e-8)
+
+
+def backtrace_inputs(B=8, seed=5):
+    sc = tcfg.Scene(**KW)
+    rng = np.random.default_rng(seed)
+    r = rng.uniform(15.0, 24.0, B)
+    th = np.arccos(rng.uniform(-0.9, 0.9, B))
+    ph = rng.uniform(-np.pi, np.pi, B)
+    x = torch.as_tensor(np.stack([r * np.sin(th) * np.cos(ph), r * np.sin(th) * np.sin(ph),
+                                  r * np.cos(th)], 1), dtype=F64)
+    k = torch.as_tensor(rng.normal(size=(B, 3)), dtype=F64)
+    erg = torch.full((B,), 1e-5 * (1 + 0.5 * (220 / 2.99792e5) ** 2), dtype=F64)
+    sc_b = tree._negate_b(sc)
+    u0 = launch_state(x, k, sc_b, erg, -torch.ones(B, dtype=F64))
+    return sc_b, x, k, erg, u0
+
+
+def test_integrate_mega_plain_contract():
+    sc_b, x, k, erg, u0 = backtrace_inputs()
+    B = x.shape[0]
+    cfg = tcfg.NumericsConfig(interp_points=16, max_steps=4000)
+    lnt0 = torch.full((B,), -30.0, dtype=F64)
+    lnt1 = torch.zeros(B, dtype=F64)
+    kw = dict(max_crossings=16, is_photon=torch.zeros(B, dtype=torch.bool), species="axion",
+              with_prob=True)
+    out = mk.integrate_mega_plain(u0, lnt0, lnt1, erg, x, sc_b, cfg, **kw)
+    assert len(out) == 12
+    uf, lntf, steps, code, nc, cru, crlnt, save_mid, pcx, chain, isph, nfine = out
+    assert all(t.dtype == F64 for t in out)
+    assert uf.shape == (B, 7) and cru.shape == (B, 16, 7) and pcx.shape == (B, 16)
+    assert set(code.tolist()) <= {1.0, 2.0, 3.0, 4.0, 5.0}
+    assert (nc >= 1).sum() >= 2
+    used = torch.arange(16)[None, :] < nc[:, None]
+    assert bool((pcx[used] > 0).all() and (pcx[used] <= 1).all())
+    assert bool((pcx[~used] == 0).all() and (cru[~used] == 0).all())
+    mid_spanned = 0.5 * (lnt0 + lnt1) <= lntf
+    assert bool((save_mid[~mid_spanned] == 0).all() and (save_mid[mid_spanned, 0] > 0).all())
+    assert bool((chain == 0).all() and (isph == 0).all())
+    # the wrapper runs the plain version on CPU tensors
+    again = mk.integrate_mega(u0, lnt0, lnt1, erg, x, sc_b, cfg, **kw)
+    for a, b in zip(out, again):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    # in-kernel probability twin == the host chain (get_prob_nonad) at the
+    # same crossings
+    res = mk.propagate_mega(x, -k, sc_b, cfg, erg=erg, delta_w=-torch.ones(B, dtype=F64),
+                            lnt0=lnt0, lnt1=lnt1, is_photon=torch.zeros(B, dtype=torch.bool),
+                            max_crossings=16, species="axion", with_prob=True)
+    ei, si = (torch.arange(16)[None, :] < res.n_cross[:, None]).nonzero(as_tuple=True)
+    host = tree._prob_batch(res.xc[ei, si], res.kc[ei, si], erg[ei] * res.dwc[ei, si].abs(),
+                            sc_b)[0]
+    np.testing.assert_allclose(res.pcx[ei, si].numpy(), host.numpy(), rtol=1e-9)
