@@ -3,10 +3,15 @@
 
 Usage:  python -m adiabatic_raytracer_tpu_torch --device cuda --MassA 1e-5 ...
 
-Defaults by device: on cuda engine=mega (the K2 kernel), tree_engine=queue,
-event_batch=2048, sampler compute dtype f32 (the K1 kernel); on cpu those of
-the JAX package's CPU path (pool engine, event_batch=16, f64).  Options the
-port does not run yet raise NotImplementedError.
+The run goes to the card (`--device cuda`, the default) unless `--device
+cpu` asks for the CPU; without a card the default raises.  Defaults by
+device: on cuda engine=mega (the K2 kernel), event_batch=2048, sampler
+compute dtype f32 (the K1 kernel); on cpu those of the JAX package's CPU
+path (pool engine, event_batch=16, f64).  `--tree_engine auto` picks the
+in-kernel tree engine K3 (`kernel`) when the engine is mega, saveMode <= 1
+and the scene is one the in-kernel probability covers, else the host work
+queue (`queue`), as the JAX CLI does.  Options the port does not run yet
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -47,14 +52,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bndry_lyr", type=float, default=-1.0,
                    help="boundary-layer power-law index; negative disables")
     p.add_argument("--dir_tag", type=str, default="results")
-    p.add_argument("--device", choices=["cpu", "cuda"], default="cpu",
-                   help="torch device; 'cuda' without a card raises")
+    p.add_argument("--device", choices=["cpu", "cuda"], default="cuda",
+                   help="torch device; 'cuda' (the default) without a card raises")
     p.add_argument("--event_batch", type=int, default=0,
                    help="events per batch; 0 = auto (2048 on cuda, 16 on cpu)")
     p.add_argument("--tree_window", type=int, default=0,
                    help="forward-tree streaming window; only 0 (off) is ported")
     p.add_argument("--tree_engine", choices=["auto", "queue", "kernel"], default="auto",
-                   help="auto = queue (the in-kernel tree engine K3 is not ported)")
+                   help="auto = kernel (K3, whole trees in one kernel) when engine is "
+                        "mega, saveMode <= 1 and the scene is covered; else queue")
+    p.add_argument("--tree_kernel_chunk", type=int, default=64,
+                   help="K3 steps per event per launch before a staged relaunch; "
+                        "0 = one launch runs every tree to its end")
     p.add_argument("--scan_gate_check", type=int, default=-1,
                    help="events for the per-scene gated-scan census check; "
                         "-1 = config default (256), 0 disables")
@@ -96,10 +105,16 @@ def run_from_args(argv=None):
                      else args.computeDtype)
     engine = ("mega" if on_cuda else "pool") if args.engine == "auto" else args.engine
     event_batch = args.event_batch if args.event_batch > 0 else (2048 if on_cuda else 16)
-    tree_engine = "queue" if args.tree_engine == "auto" else args.tree_engine
+    tree_engine = args.tree_engine
+    if tree_engine == "auto":
+        from adiabatic_raytracer_tpu_torch.ops.megakernel import can_prob
+
+        tree_engine = ("kernel" if engine == "mega" and args.saveMode <= 1 and can_prob(sc)
+                       else "queue")
+        print(f"tree_engine auto -> {tree_engine}")
     cfg = NumericsConfig(atol=1e-6, rtol=1e-7, compute_dtype=compute_dtype,
                          engine=engine, tree_window=args.tree_window,
-                         tree_engine=tree_engine,
+                         tree_engine=tree_engine, tree_kernel_chunk=args.tree_kernel_chunk,
                          **({"scan_gate_check": args.scan_gate_check}
                             if args.scan_gate_check >= 0 else {}))
     tcfg = TreeConfig(prob_cutoff=args.probCutoff, num_cutoff=args.numCutoff,

@@ -26,273 +26,19 @@
 // Event semantics are the pool engine's (ops/integrator.py, this kernel's
 // plain version): on each accepted step the Hermite interpolant is scanned at
 // `interp` points and up to `max_roots` sign changes are bisected, in order.
-#include "physics.cuh"
+// The device functions and the step itself (art::dp5_step) live in
+// mega_device.cuh, which the K3 tree kernel (treekernel.cu) shares.
+#include "mega_device.cuh"
 
 using art::MegaParams;
 using art::Metric;
 
 namespace {
 
+using namespace art;
+
 constexpr int kThreads = 128;
 constexpr int kMaxSlots = 16;
-
-__constant__ double kC[7] = {0.0, 1.0 / 5, 3.0 / 10, 4.0 / 5, 8.0 / 9, 1.0, 1.0};
-__constant__ double kA[7][6] = {
-    {0, 0, 0, 0, 0, 0},
-    {1.0 / 5, 0, 0, 0, 0, 0},
-    {3.0 / 40, 9.0 / 40, 0, 0, 0, 0},
-    {44.0 / 45, -56.0 / 15, 32.0 / 9, 0, 0, 0},
-    {19372.0 / 6561, -25360.0 / 2187, 64448.0 / 6561, -212.0 / 729, 0, 0},
-    {9017.0 / 3168, -355.0 / 33, 46732.0 / 5247, 49.0 / 176, -5103.0 / 18656, 0},
-    {35.0 / 384, 0.0, 500.0 / 1113, 125.0 / 192, -2187.0 / 6784, 11.0 / 84}};
-__constant__ double kE[7] = {
-    35.0 / 384 - 5179.0 / 57600, 0.0 - 0.0, 500.0 / 1113 - 7571.0 / 16695,
-    125.0 / 192 - 393.0 / 640,   -2187.0 / 6784 - -92097.0 / 339200,
-    11.0 / 84 - 187.0 / 2100,    0.0 - 1.0 / 40};
-
-// d(g^tt, g^rr, g^thth, g^pp)/dr of art::metric, both branches.
-__device__ void dmetric_dr(double r, double sin_th, double rs0, double rn, double d[4]) {
-  if (r <= rn) {
-    const double rn2 = rn * rn, rn4 = rn2 * rn2, rn6 = rn4 * rn2;
-    const double a1 = 1.0 - rs0 * r * r * r / rn4;
-    const double a2 = 1.0 - rs0 * r * r * r * r * r / rn6;
-    const double s1 = sqrt(a1 > 1e-30 ? a1 : 1e-30);
-    const double s2 = sqrt(a2 > 1e-30 ? a2 : 1e-30);
-    const double da1 = a1 > 1e-30 ? -3.0 * rs0 * r * r / rn4 : 0.0;
-    const double da2 = -5.0 * rs0 * r * r * r * r / rn6;
-    const double dd = 3.0 * da1 / (2.0 * s1) - (a2 > 1e-30 ? da2 : 0.0) / (2.0 * s2);
-    const double den = 3.0 * s1 - s2;
-    d[0] = 8.0 / (den * den * den) * dd;
-    d[1] = da2;
-  } else {
-    const double one_m = 1.0 - rs0 / r;
-    d[0] = (rs0 / (r * r)) / (one_m * one_m);
-    d[1] = rs0 / (r * r);
-  }
-  d[2] = -2.0 / (r * r * r);
-  d[3] = -2.0 / (r * r * r * sin_th * sin_th);
-}
-
-// Hand adjoint of the nondimensionalized Hamiltonians: dH~/dx (3), dH~/dk~ (3),
-// dH~/dt.  Photon branch: Melrose form on the exterior metric; axion branch:
-// metric only.
-__device__ void grad_h_hand(const MegaParams& P, double x1, double x2, double x3, double kt1,
-                            double kt2, double kt3, double time, double ergt_ph,
-                            double ergt_ax, bool photon, double s_th, double c_th,
-                            double gx[3], double gk[3], double* gt) {
-  if (P.species == 1 || (P.species == 2 && !photon)) {
-    const Metric<double> g = art::metric<double>(x1, s_th, P.rs0, P.r_metric);
-    double d[4];
-    dmetric_dr(x1, s_th, P.rs0, P.r_metric, d);
-    gk[0] = g.rr * kt1;
-    gk[1] = g.thth * kt2;
-    gk[2] = g.pp * kt3;
-    gx[0] = 0.5 * (d[0] * ergt_ax * ergt_ax + d[1] * kt1 * kt1 + d[2] * kt2 * kt2 +
-                   d[3] * kt3 * kt3);
-    gx[1] = -g.pp * (c_th / s_th) * kt3 * kt3;
-    gx[2] = 0.0;
-    *gt = 0.0;
-    return;
-  }
-  double s_ph, c_ph, swt, cwt;
-  sincos(x3, &s_ph, &c_ph);
-  sincos(P.omega * time, &swt, &cwt);
-  const double r = x1 > P.r_ns ? x1 : P.r_ns;
-  const double inv_r = 1.0 / r;
-  const double A = 1.0 - P.rs0 * inv_r;
-  const double inv_A = 1.0 / A;
-  const double inv_s = 1.0 / s_th;
-  const double inv_r2 = inv_r * inv_r;
-  const double g_pp = inv_r2 * inv_s * inv_s;
-  const double dA_dr = P.rs0 * inv_r2;
-  const double E = 1.0 / (ergt_ph * ergt_ph);
-
-  const double cp = c_ph * cwt + s_ph * swt;
-  const double sp = s_ph * cwt - c_ph * swt;
-  const double q = P.r_ns * inv_r;
-  const double bnorm = P.b0_sign * 0.5 * (q * q * q);
-  const double m_r = P.cm * c_th + P.sm * s_th * cp;
-  const double m_t = P.cm * s_th - P.sm * c_th * cp;
-  const double br = 2.0 * bnorm * m_r;
-  const double bth = bnorm * m_t;
-  const double bph = bnorm * P.sm * sp;
-  const double bz = br * c_th - bth * s_th;
-  const double wp2 = P.wp2_scale * fabs(bz);
-  const double sgn = bz > 0.0 ? 1.0 : (bz < 0.0 ? -1.0 : 0.0);
-  const double w_fac = P.wp2_scale * sgn;
-
-  const double dksqr_r = (ergt_ph * ergt_ph * inv_A * inv_A + kt1 * kt1) * dA_dr -
-                         2.0 * inv_r2 * inv_r * (kt2 * kt2 + inv_s * inv_s * kt3 * kt3);
-  const double dinv_s = -inv_s * inv_s * c_th;
-  const double dksqr_th = 2.0 * inv_r2 * inv_s * dinv_s * kt3 * kt3;
-
-  const double sqA = sqrt(A);
-  const double q1 = sqA * kt1, q2 = inv_r * kt2, q3 = inv_r * inv_s * kt3;
-  const double n = q1 * br + q2 * bth + q3 * bph;
-  const double bm2 = br * br + bth * bth + bph * bph;
-  const double inv_bm2 = 1.0 / bm2;
-  const double kp2 = n * n * inv_bm2;
-  const double F = 1.0 - kp2 * A * E;
-  const double lam = wp2 * A * E * n * inv_bm2;
-  gk[0] = A * kt1 - lam * sqA * br;
-  gk[1] = inv_r2 * kt2 - lam * inv_r * bth;
-  gk[2] = g_pp * kt3 - lam * inv_r * inv_s * bph;
-  const double aE = A * E;
-
-  const double dn_r = (0.5 * dA_dr / sqA) * kt1 * br - 3.0 * inv_r * n -
-                      inv_r * (q2 * bth + q3 * bph);
-  const double dkp2_r = inv_bm2 * 2.0 * n * dn_r + 6.0 * kp2 * inv_r;
-  const double dwp2_r = -3.0 * wp2 * inv_r;
-  const double dF_r = -E * (dkp2_r * A + kp2 * dA_dr);
-  const double ph_r = 0.5 * (dksqr_r + dwp2_r * F + wp2 * dF_r);
-
-  const double dbr_th = -2.0 * bth, dbth_th = 0.5 * br;
-  const double dbz_th = -3.0 * bth * c_th - 1.5 * br * s_th;
-  const double dq3_th = inv_r * kt3 * dinv_s;
-  const double dn_th = q1 * dbr_th + q2 * dbth_th + dq3_th * bph;
-  const double dbm2_th = -3.0 * br * bth;
-  const double dkp2_th = inv_bm2 * (2.0 * n * dn_th - kp2 * dbm2_th);
-  gx[1] = 0.5 * (dksqr_th + w_fac * dbz_th * F - wp2 * aE * dkp2_th);
-
-  const double dbr_ph = -2.0 * s_th * bph, dbth_ph = c_th * bph, dbph_ph = bnorm * P.sm * cp;
-  const double dbz_ph = -3.0 * s_th * c_th * bph;
-  const double dn_ph = q1 * dbr_ph + q2 * dbth_ph + q3 * dbph_ph;
-  const double dbm2_ph = 2.0 * (br * dbr_ph + bth * dbth_ph + bph * dbph_ph);
-  const double dkp2_ph = inv_bm2 * (2.0 * n * dn_ph - kp2 * dbm2_ph);
-  gx[2] = 0.5 * (w_fac * dbz_ph * F - wp2 * aE * dkp2_ph);
-
-  const double bs = bnorm * P.sm;
-  const double wsp = P.omega * sp;
-  const double dbr_t = 2.0 * bs * s_th * wsp, dbth_t = -bs * c_th * wsp;
-  const double dbph_t = -bs * P.omega * cp;
-  const double dbz_t = 3.0 * bs * s_th * c_th * wsp;
-  const double dn_t = q1 * dbr_t + q2 * dbth_t + q3 * dbph_t;
-  const double dbm2_t = 2.0 * (br * dbr_t + bth * dbth_t + bph * dbph_t);
-  const double dkp2_t = inv_bm2 * (2.0 * n * dn_t - kp2 * dbm2_t);
-  *gt = 0.5 * (w_fac * dbz_t * F - wp2 * aE * dkp2_t);
-  gx[0] = x1 > P.r_ns ? ph_r : 0.0;
-}
-
-// Hamilton's equations in log time; g^rr at the ray's own r (pool semantics).
-__device__ void rhs(const MegaParams& P, const double* u, double lnt, double erg, bool photon,
-                    double* du) {
-  const double t = exp(lnt);
-  const double inv_ma = 1.0 / P.mass_a;
-  const double ek = erg * inv_ma;
-  double s_th, c_th;
-  sincos(u[1], &s_th, &c_th);
-  const double g_rr = art::metric<double>(u[0], s_th, P.rs0, P.r_metric).rr;
-  double gx[3], gk[3], gt;
-  grad_h_hand(P, u[0], u[1], u[2], u[3] * ek, u[4] * ek, u[5] * ek, t, -u[6] * inv_ma,
-              erg * inv_ma, photon, s_th, c_th, gx, gk, &gt);
-  const double ma2 = P.mass_a * P.mass_a;
-  const double denom = photon ? -u[6] : erg;
-  const double fac = art::C_KM * t * g_rr / denom;
-  const bool frozen = photon && u[0] <= P.r_ns * 1.01;
-  for (int i = 0; i < 3; ++i) {
-    du[i] = frozen ? 0.0 : gk[i] * P.mass_a * fac;
-    du[3 + i] = frozen ? 0.0 : -(gx[i] * ma2) * fac / erg;
-  }
-  du[6] = (frozen || !photon) ? 0.0 : gt * ma2 * t * g_rr / (-u[6]);
-}
-
-// Conversion probability p = 1 - exp(-P_nonAD) at a crossing state, with the
-// gradients of wp, |B| and k.B^i differentiated by hand (exterior point).
-__device__ double prob_nd(const MegaParams& P, const double* u, double erg) {
-  const double r = u[0];
-  double s_th, c_th, s_ph, c_ph;
-  sincos(u[1], &s_th, &c_th);
-  sincos(u[2], &s_ph, &c_ph);
-  const Metric<double> g = art::metric<double>(r, s_th, P.rs0_full, P.r_metric);
-  const double inv_ma = 1.0 / P.mass_a;
-  const double ek = erg * inv_ma;
-  const double kt1 = u[3] * ek, kt2 = u[4] * ek, kt3 = u[5] * ek;
-  const double lap = 1.0 - P.rs0_full / r;
-  const double wt = fabs(u[6]) * inv_ma / sqrt(lap > 1e-10 ? lap : 1e-10);
-
-  const double q = P.r_ns / r;
-  const double bnorm = P.b0_sign * (q * q * q) * 0.5;
-  const double br = 2.0 * bnorm * (P.cm * c_th + P.sm * s_th * c_ph);
-  const double bth = bnorm * (P.cm * s_th - P.sm * c_th * c_ph);
-  const double bph = bnorm * P.sm * s_ph;
-  const double inv_r = 1.0 / r;
-  const double abs_s = fabs(s_th);
-
-  const double bz = br * c_th - bth * s_th;
-  const double wp = sqrt(r <= P.r_ns ? 0.0 : P.wp2_scale * fabs(bz));
-  const double sgn = bz > 0.0 ? 1.0 : (bz < 0.0 ? -1.0 : 0.0);
-  const double dwp_fac = wp > 0.0 ? P.wp2_scale * sgn / (2.0 * wp) : 0.0;
-  const double dmu_wp[3] = {dwp_fac * (-3.0 * bz * inv_r),
-                            dwp_fac * (-3.0 * bth * c_th - 1.5 * br * s_th),
-                            dwp_fac * (-3.0 * s_th * c_th * bph)};
-
-  const double bmag = sqrt(br * br + bth * bth + bph * bph);
-  const double dbph_ph = bnorm * P.sm * c_ph;
-  const double dmu_b[3] = {
-      -3.0 * bmag * inv_r, -1.5 * br * bth / bmag,
-      (br * (-2.0 * s_th * bph) + bth * (c_th * bph) + bph * dbph_ph) / bmag};
-
-  const double sqA = sqrt(g.rr);
-  const double dsqA = 0.5 * (P.rs0_full * inv_r * inv_r) / sqA;
-  const double inv_rs = inv_r / abs_s;
-  const double term1[3] = {
-      kt1 * (-3.0 * br * inv_r * sqA + br * dsqA) +
-          kt2 * (-3.0 * bth * inv_r * inv_r - bth * inv_r * inv_r) +
-          kt3 * (-3.0 * bph * inv_r * inv_rs - bph * inv_r * inv_rs),
-      kt1 * (-2.0 * bth) * sqA + kt2 * (0.5 * br) * inv_r +
-          kt3 * bph * (-c_th * inv_r / (s_th * abs_s)),
-      kt1 * (-2.0 * s_th * bph) * sqA + kt2 * (c_th * bph) * inv_r + kt3 * dbph_ph * inv_rs};
-  const double kb = kt1 * br * sqA + kt2 * bth * inv_r + kt3 * bph * inv_rs;
-
-  const double bup1 = br * sqA, bup2 = bth * sqrt(g.thth), bup3 = bph * sqrt(g.pp);
-  const double gm = P.gm_full;
-  const double cot = c_th / s_th;
-  const double g_rrr = -gm / (r * (r - 2.0 * gm));
-  const double g_rtt = -(r - 2.0 * gm);
-  const double g_rpp = -(r - 2.0 * gm) * s_th * s_th;
-  const double kmag = sqrt(g.rr * kt1 * kt1 + g.thth * kt2 * kt2 + g.pp * kt3 * kt3);
-  const double ct = kb / (kmag * bmag);
-  const double st2r = 1.0 - ct * ct;
-  const double st2 = st2r > 0.0 ? st2r : 0.0;
-  const double t2b[3] = {
-      kt1 * bup1 * g_rrr + kt2 * inv_r * bup2 + kt3 * inv_r * bup3,
-      kt1 * bup2 * g_rtt + kt3 * cot * bup3 + kt2 * bup1 * inv_r,
-      kt1 * bup3 * g_rpp + kt2 * (-s_th * c_th) * bup3 + kt3 * inv_r * bup1 + kt3 * cot * bup2};
-
-  const double wp2 = wp * wp, wt2 = wt * wt;
-  const double pre_f = wp / fabs(wt2 * wt2 * wt + ct * ct * wt * (wp2 * wp2 - 2.0 * wp2 * wt2));
-  double dmu_e[3];
-  for (int i = 0; i < 3; ++i) {
-    const double dc = (term1[i] + t2b[i]) / (kmag * bmag) - ct * dmu_b[i] / bmag;
-    dmu_e[i] = pre_f * (wt2 * wt2 * st2 * dmu_wp[i] - wt2 * ct * wp * (wt2 - wp2) * dc);
-  }
-  const double vhat_grad_e =
-      (g.rr * kt1 * dmu_e[0] + g.thth * kt2 * dmu_e[1] + g.pp * kt3 * dmu_e[2]) / kmag;
-  const double vl = wt2 - 1.0;
-  const double vloc = sqrt(vl > 1e-12 ? vl : 1e-12) / wt;
-  const double prefactor = wt2 * wt2 * st2 / (ct * ct * wp2 * (wp2 - 2.0 * wt2) + wt2 * wt2);
-  const double p_nonad = P.prob_scale * prefactor * bmag * bmag / (fabs(vhat_grad_e) * vloc);
-  const double p = 1.0 - exp(-p_nonad);
-  return p < 0.0 ? 0.0 : (p > 1.0 ? 1.0 : p);
-}
-
-__device__ __forceinline__ void hermite(const double* u0, const double* u1, const double* f0,
-                                        const double* f1, double h, double tau, double* out) {
-  const double t2 = tau * tau, t3 = t2 * tau;
-  const double a = 2 * t3 - 3 * t2 + 1, b = t3 - 2 * t2 + tau;
-  const double c = -2 * t3 + 3 * t2, d = t3 - t2;
-  for (int i = 0; i < 7; ++i) out[i] = a * u0[i] + b * h * f0[i] + c * u1[i] + d * h * f1[i];
-}
-
-__device__ __forceinline__ bool flipped(double a, double b) {
-  const double sa = a > 0.0 ? 1.0 : (a < 0.0 ? -1.0 : 0.0);
-  const double sb = b > 0.0 ? 1.0 : (b < 0.0 ? -1.0 : 0.0);
-  return sa * sb < 0.0;
-}
-
-__device__ __forceinline__ double sgn(double a) {
-  return a > 0.0 ? 1.0 : (a < 0.0 ? -1.0 : 0.0);
-}
 
 __global__ void __launch_bounds__(kThreads)
     mega_kernel(const double* __restrict__ u_in, const double* __restrict__ aux, int B,
@@ -303,8 +49,8 @@ __global__ void __launch_bounds__(kThreads)
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= B) return;
   const int S = P.max_crossings;
-  double u[7];
-  for (int c = 0; c < 7; ++c) u[c] = u_in[(size_t)i * 7 + c];
+  Ray R;
+  for (int c = 0; c < 7; ++c) R.u[c] = u_in[(size_t)i * 7 + c];
   const double* a = aux + (size_t)i * 8;
   const double lnt0 = a[0], lnt1 = a[1], erg = a[2];
   const double x0c[3] = {a[3], a[4], a[5]};
@@ -315,195 +61,42 @@ __global__ void __launch_bounds__(kThreads)
     pcx[(size_t)i * S + s] = 0.0;
   }
 
-  double lnt = lnt0;
-  double k[7][7];
-  rhs(P, u, lnt, erg, photon, k[0]);
-  double g0 = art::condition(P, u, lnt);
+  R.lnt = lnt0;
+  rhs(P, R.u, R.lnt, erg, photon, R.f0);
+  R.g0 = condition(P, R.u, R.lnt);
   const double span = lnt1 - lnt0;
   bool done = span <= 0.0;
-  double dt;
-  {  // initial step (integrator._initial_dt)
-    double d0 = 0.0, d1 = 0.0;
-    for (int c = 0; c < 7; ++c) {
-      const double sc = P.atol + P.rtol * fabs(u[c]);
-      d0 += (u[c] / sc) * (u[c] / sc);
-      d1 += (k[0][c] / sc) * (k[0][c] / sc);
-    }
-    d0 = sqrt(d0 / 7.0);
-    d1 = sqrt(d1 / 7.0);
-    dt = (d0 < 1e-5 || d1 < 1e-5) ? 1e-6 : 0.01 * d0 / d1;
-    dt = fmin(dt, 0.1 * span);
-  }
+  R.dt = initial_dt(P, R.u, R.f0, span);
   const double lnt_mid = lnt0 + span * 0.5;
   double save_mid[7] = {0, 0, 0, 0, 0, 0, 0};
-  int n_cross = 0, steps = 0, code = 0, nfine = 0;
-  double lnt_ck = lnt0, errold = 1e-4;
-  const int K = P.interp;
-  const int Kc = P.interp_coarse;
-
+  R.steps = 0;
+  R.n_cross = 0;
+  R.nfine = 0;
+  R.nbisect = 0;
+  R.lnt_ck = lnt0;
+  R.errold = 1e-4;
+  int code = 0;
+  // every recorded crossing: its state, log time and (with_prob) probability
+  auto record = [&](const double* us, double lnt_s, int n) {
+    const size_t slot = (size_t)i * S + n;
+    for (int c = 0; c < 7; ++c) cru[slot * 7 + c] = us[c];
+    crlnt[slot] = lnt_s;
+    if (P.with_prob) pcx[slot] = prob_nd(P, us, erg);
+  };
   while (!done) {
-    double h = fmin(dt, lnt1 - lnt);
-    h = h > 0.0 ? h : 0.0;
-#pragma unroll 1
-    for (int s = 1; s < 7; ++s) {
-      double ui[7];
-      for (int c = 0; c < 7; ++c) {
-        double acc = 0.0;
-        for (int j = 0; j < s; ++j)
-          if (kA[s][j] != 0.0) acc += kA[s][j] * k[j][c];
-        ui[c] = u[c] + h * acc;
-      }
-      rhs(P, ui, lnt + kC[s] * h, erg, photon, k[s]);
-    }
-    double u_new[7];
-    double err = 0.0;
-    for (int c = 0; c < 7; ++c) {
-      double acc = 0.0, e = 0.0;
-      for (int j = 0; j < 7; ++j) {
-        if (j < 6 && kA[6][j] != 0.0) acc += kA[6][j] * k[j][c];
-        if (kE[j] != 0.0) e += kE[j] * k[j][c];
-      }
-      u_new[c] = u[c] + h * acc;
-      e = h * e;
-      const double sc = P.atol + P.rtol * fmax(fabs(u[c]), fabs(u_new[c]));
-      err += (e / sc) * (e / sc);
-    }
-    const double enorm = sqrt(err / 7.0);
-    const bool forced = dt <= P.dt_min * 1.0000001;
-    const bool accept = (enorm <= 1.0 || forced) && h > 0.0;
-    const double en_safe = enorm > 0.0 ? enorm : 1e-10;
-    double fac;
-    if (P.pi_beta != 0.0) {
-      fac = P.safety * pow(en_safe, -P.expo1) * pow(errold, P.pi_beta);
-      fac = fmin(fmax(fac, P.min_fac), P.max_fac);
-      if (!accept) fac = fmin(fac, 1.0);
-    } else {
-      fac = fmin(fmax(P.safety * pow(en_safe, -0.2), P.min_fac), P.max_fac);
-    }
-    const double dt_next = fmax(dt * fac, P.dt_min);
-    const double t1 = lnt + h;
-    if (accept && lnt_mid > lnt && lnt_mid <= t1)
-      hermite(u, u_new, k[0], k[6], h, (lnt_mid - lnt) / h, save_mid);
-    const double g_new = art::condition(P, u_new, t1);
-
-    // commit (the pool's order: the event scan below uses the step's start)
-    double u_prev[7];
-    for (int c = 0; c < 7; ++c) u_prev[c] = u[c];
-    const double lnt_prev = lnt, g_prev = g0;
-    if (accept) {
-      for (int c = 0; c < 7; ++c) u[c] = u_new[c];
-      lnt = t1;
-      g0 = g_new;
-      errold = fmax(enorm, 1e-4);
-    }
-    dt = dt_next;
-    steps += 1;
-
-    if (accept) {
-      // gate: coarse pass, then the dense pass only if this ray needs it
-      bool dense = true;
-      if (Kc > 0) {
-        bool flip_c = false;
-        double gmin = fabs(g_prev), gp = g_prev;
-        for (int j = 1; j <= Kc; ++j) {
-          const double tau = (double)j / Kc;
-          double gj = g_new;
-          if (j < Kc) {
-            double uj[7];
-            hermite(u_prev, u_new, k[0], k[6], h, tau, uj);
-            gj = art::condition(P, uj, lnt_prev + tau * h);
-          }
-          flip_c = flip_c || flipped(gp, gj);
-          gmin = fmin(gmin, fabs(gj));
-          gp = gj;
-        }
-        dense = flip_c || gmin < P.gate_theta;
-      }
-      if (dense) {
-        nfine += 1;
-        int roots = 0;
-        double gp = g_prev;
-        for (int j = 1; j <= K && roots < P.max_roots && !done; ++j) {
-          const double tau_j = (double)j / K;
-          double gj = g_new;
-          if (j < K) {
-            double uj[7];
-            hermite(u_prev, u_new, k[0], k[6], h, tau_j, uj);
-            gj = art::condition(P, uj, lnt_prev + tau_j * h);
-          }
-          if (flipped(gp, gj)) {
-            roots += 1;
-            double tlo = (double)(j - 1) / K, thi = (double)j / K, glo = gp;
-            double um[7];
-            for (int it = 0; it < P.bisect; ++it) {
-              const double tm = 0.5 * (tlo + thi);
-              hermite(u_prev, u_new, k[0], k[6], h, tm, um);
-              const double gm = art::condition(P, um, lnt_prev + tm * h);
-              if (sgn(gm) == sgn(glo)) {
-                tlo = tm;
-                glo = gm;
-              } else {
-                thi = tm;
-              }
-            }
-            const double ts = 0.5 * (tlo + thi);
-            double us[7];
-            hermite(u_prev, u_new, k[0], k[6], h, ts, us);
-            const double lnt_s = lnt_prev + ts * h;
-            double sth, cth, sph, cph;
-            sincos(us[1], &sth, &cth);
-            sincos(us[2], &sph, &cph);
-            const double pc[3] = {us[0] * sth * cph, us[0] * sth * sph, us[0] * cth};
-            bool within = true;
-            for (int c = 0; c < 3; ++c)
-              within = within && fabs(pc[c]) < fabs(x0c[c]) * 1.0001 &&
-                       fabs(pc[c]) > fabs(x0c[c]) / 1.0001;
-            const bool start_dup = within && n_cross == 0;
-            const bool below = us[0] < P.r_ns * 1.01;
-            if (!start_dup && !below && n_cross < S) {
-              const size_t slot = (size_t)i * S + n_cross;
-              for (int c = 0; c < 7; ++c) cru[slot * 7 + c] = us[c];
-              crlnt[slot] = lnt_s;
-              if (P.with_prob) pcx[slot] = prob_nd(P, us, erg);
-              n_cross += 1;
-              if (n_cross >= S) {  // crossing cap: stop at the crossing
-                for (int c = 0; c < 7; ++c) u[c] = us[c];
-                lnt = lnt_s;
-                code = 3;
-                done = true;
-              }
-            }
-          }
-          gp = gj;
-        }
-      }
-    }
-
-    if (accept)  // FSAL: the accepted step's last stage starts the next step
-      for (int c = 0; c < 7; ++c) k[0][c] = k[6][c];
-    if (!done) {
-      const bool ns = accept && photon && u[0] < P.r_ns * 1.01;
-      const bool reached = accept && t1 >= lnt1 - 1e-14;
-      const bool maxed = steps >= P.max_steps;
-      bool stalled = false;
-      if (P.stall_window > 0 && steps % P.stall_window == 0) {
-        stalled = lnt - lnt_ck < P.stall_min;
-        lnt_ck = lnt;
-      }
-      code = ns ? 2 : reached ? 1 : maxed ? 4 : stalled ? 5 : 0;
-      done = code != 0;
-    }
+    code = dp5_step(P, R, lnt1, erg, photon, x0c, lnt_mid, save_mid, record);
+    done = code != 0;
   }
 
   for (int c = 0; c < 7; ++c) {
-    uf[(size_t)i * 7 + c] = u[c];
-    save_out[(size_t)i * 7 + c] = lnt_mid <= lnt ? save_mid[c] : 0.0;
+    uf[(size_t)i * 7 + c] = R.u[c];
+    save_out[(size_t)i * 7 + c] = lnt_mid <= R.lnt ? save_mid[c] : 0.0;
   }
-  lntf[i] = lnt;
-  diag[(size_t)i * 4 + 0] = steps;
+  lntf[i] = R.lnt;
+  diag[(size_t)i * 4 + 0] = R.steps;
   diag[(size_t)i * 4 + 1] = code;
-  diag[(size_t)i * 4 + 2] = n_cross;
-  diag[(size_t)i * 4 + 3] = nfine;
+  diag[(size_t)i * 4 + 2] = R.n_cross;
+  diag[(size_t)i * 4 + 3] = R.nfine;
 }
 
 // One device function at a time on [B] states (for the card-side checks of

@@ -62,11 +62,13 @@ class RunStats:
 
 def check_ported(cfg: NumericsConfig, *, save_mode: int = 0, mesh_devices: int = 0,
                  pipeline_depth: int = 0, checkpoint: bool = False,
-                 resume: bool = False):
+                 resume: bool = False, sc: Optional[Scene] = None):
     """Raise NotImplementedError on options the port does not run yet, naming
-    the ROADMAP item; none of them quietly runs something else."""
+    the ROADMAP item; none of them quietly runs something else.  With `sc`,
+    also a tree_engine='kernel' configuration K3 does not cover."""
+    if sc is not None:
+        tree.check_tree_engine(sc, cfg)
     todo = [
-        (cfg.tree_engine == "kernel", "tree_engine='kernel' (K3, ROADMAP Queue 2)"),
         (cfg.engine == "pool_compact", "engine='pool_compact' (ROADMAP Queue 1, item 14)"),
         (cfg.engine not in ("pool", "mega", "pool_compact"), f"engine={cfg.engine!r}"),
         (cfg.tree_window > 0, "tree_window > 0 (ROADMAP Queue 1, tree_window)"),
@@ -269,13 +271,14 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
         ntimes: int = 3, verbose: bool = True, mesh_devices: int = 0,
         checkpoint: bool = False, resume: bool = False,
         max_batches: Optional[int] = None, pipeline_depth: int = 0,
-        device="cpu") -> Optional[tuple]:
-    """Run the pipeline on `device`; returns (rows, output path, stats), or
-    None when the conversion surface lies inside the star
-    (MainRunner.jl:389-396).  `device` is used as given: "cuda" without a
-    card raises."""
+        device="cuda") -> Optional[tuple]:
+    """Run the pipeline on `device` (the card unless the caller asks for the
+    CPU); returns (rows, output path, stats), or None when the conversion
+    surface lies inside the star (MainRunner.jl:389-396).  `device` is used
+    as given: "cuda" without a card raises."""
     check_ported(cfg, save_mode=save_mode, mesh_devices=mesh_devices,
-                 pipeline_depth=pipeline_depth, checkpoint=checkpoint, resume=resume)
+                 pipeline_depth=pipeline_depth, checkpoint=checkpoint, resume=resume,
+                 sc=sc)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() "

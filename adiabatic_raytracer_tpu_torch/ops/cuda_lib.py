@@ -22,13 +22,13 @@ import tempfile
 import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = ("line_scan.cu", "megakernel.cu")
-HEADERS = ("physics.cuh",)
+SOURCES = ("line_scan.cu", "megakernel.cu", "treekernel.cu")
+HEADERS = ("physics.cuh", "mega_device.cuh")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"line_scan": 0, "megakernel": 0, "probe": 0}
+LAUNCHES = {"line_scan": 0, "megakernel": 0, "treekernel": 0, "probe": 0}
 
 _lib = None
 BUILD_LOG = ""
@@ -86,11 +86,12 @@ def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
-        from adiabatic_raytracer_tpu_torch.ops import line_scan, megakernel
+        from adiabatic_raytracer_tpu_torch.ops import line_scan, megakernel, treekernel
 
         handle = ctypes.CDLL(build())
         line_scan.bind(handle)
         megakernel.bind(handle)
+        treekernel.bind(handle)
         _lib = handle
     return _lib
 

@@ -19,10 +19,11 @@ ray's own `interp_coarse`-point pass flipped sign or dipped below
 `scan_gate_theta`; interp_coarse=0 always runs the dense pass, which is
 then the pool's algorithm exactly.
 
-This module also holds the torch twins of the kernel's device functions
-(_metric, _dipole_unit, _omega_p, _condition, _grad_h_hand, _rhs, _prob_nd,
-_hermite), written on tuples of [B] tensors against the same MegaParams
-struct the kernel receives; the card checks each one through `probe`.
+This module also holds the torch twins of the device functions K2 and K3
+share (_metric, _dipole_unit, _omega_p, _condition, _grad_h_hand, _rhs,
+_prob_nd, _hermite; csrc/physics.cuh, csrc/mega_device.cuh), written on
+tuples of [B] tensors against the same MegaParams struct the kernels
+receive; the card checks each one through `probe`.
 """
 
 from __future__ import annotations

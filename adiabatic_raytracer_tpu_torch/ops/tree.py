@@ -3,7 +3,8 @@
 Port of adiabatic_raytracer_tpu/ops/tree.py (get_tree, MainRunner.jl:
 126-352): the backtrace (`backtrace`, `backtrace_from_result`), the host
 work-queue forward tree (`forward_tree`, unwindowed; K lanes per event per
-iteration) and the global finals pack (`compact_finals_global`).
+iteration; `tree_engine='kernel'` dispatches to K3, ops/treekernel.py) and
+the global finals pack (`compact_finals_global`).
 
 Each iteration selects, per event, the K heaviest pending nodes, propagates
 all selected nodes as one batch (pool engine or K2), and spawns children.
@@ -216,12 +217,40 @@ def _event_keys(key, E, dev):
     return rng.fold_in(key, torch.arange(E, device=dev))
 
 
+def check_tree_engine(sc: Scene, cfg: NumericsConfig):
+    """Raise on a tree_engine='kernel' configuration K3 does not cover: it
+    needs the mega engine with the in-kernel probability, on a scene
+    megakernel.can_prob covers (treekernel.py:43-46 of the reference)."""
+    if cfg.tree_engine != "kernel":
+        return
+    from adiabatic_raytracer_tpu_torch.ops.megakernel import can_prob
+
+    if cfg.engine != "mega" or not cfg.in_kernel_prob or not can_prob(sc):
+        raise NotImplementedError(
+            "tree_engine='kernel' covers engine='mega' with in_kernel_prob on an "
+            "anisotropic Melrose, curved-space scene without boundary layer; other "
+            "configurations run --tree_engine queue (ROADMAP Queue 2, K3)")
+
+
 def forward_tree(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
-                 tcfg: TreeConfig, *, lnt_end) -> TreeResult:
+                 tcfg: TreeConfig, *, lnt_end, skip=None) -> TreeResult:
     """Forward branching tree from the MC-selected conversion point
     (get_tree, MainRunner.jl:126-352; parent photon MainRunner.jl:653-664).
     `key`: per-event keys [E, 2] or one key (per-event keys then fold in the
-    batch index).  Host work-queue engine without the streaming window."""
+    batch index).  Host work-queue engine without the streaming window, or,
+    at cfg.tree_engine='kernel', the in-kernel tree engine K3
+    (ops/treekernel.forward_tree_kernel).
+
+    `skip`: optional [E] bool; events marked True start done (their pools
+    hold only the seeded root).  K3's host replay uses it to run only the
+    events that overflowed the kernel's finals slots (tree.py:282-287 of the
+    reference)."""
+    if cfg.tree_engine == "kernel" and skip is None:
+        check_tree_engine(sc, cfg)
+        from adiabatic_raytracer_tpu_torch.ops.treekernel import forward_tree_kernel
+
+        return forward_tree_kernel(key, xpos, k_init, erg_inf, sc, cfg, tcfg,
+                                   lnt_end=lnt_end)
     if cfg.tree_window > 0:
         raise NotImplementedError("tree_window > 0 (streaming window) is not "
                                   "ported (ROADMAP Queue 1, tree_window)")
@@ -259,7 +288,8 @@ def forward_tree(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
     count, count_main, dw_anom, done_it = zi(), zi(), zi(), zi()
     info = torch.ones(E, dtype=torch.int64, device=dev)
     n_alloc = torch.ones(E, dtype=torch.int64, device=dev)
-    done = torch.zeros(E, dtype=torch.bool, device=dev)
+    done = (torch.zeros(E, dtype=torch.bool, device=dev) if skip is None
+            else skip.to(device=dev, dtype=torch.bool).clone())
     it = 0
 
     W = max(((2 * E + 127) // 128) * 128, 128)

@@ -10,15 +10,33 @@ its CLI entry point at the production default scene and checks the output.
 Phases (each prints one line of findings; any failure raises and exits
 non-zero):
   1. device: torch.cuda must be available; nvidia-smi name and power limit
-  2. build:  nvcc the kernel library (registers / spills from ptxas)
+  2. build:  nvcc the kernel library, K1-K3 (registers / spills from ptxas)
   3. K1 line scan vs its plain version on a sampler chunk (16384 lines x the
      production grid): g to f32 rounding, sampled roots within 2e-3 km
-  4. device functions of K2 (probe) vs their torch twins, f64, rtol 1e-12
+  4. device functions of K2/K3 (probe) vs their torch twins, f64, rtol 1e-12
   5. K2 vs integrate_mega_plain on a 2048-event production backtrace
-  6. the slice: cli with --device cuda --event_batch 2048 --Nts 4097
-     --saveMode 1 (two full batches), cold, then warm under torch.profiler
-     with the launch counters reset just before it
-  7. the kernels' JSON line, the nvidia-smi line, the result line
+  6. K3 vs tree_kernel_launch_plain on 512 production events (one launch,
+     default cutoffs): counters identical on >= 99% of events, finals median
+     relative error < 1e-8; then K3 on 2048 events (tree_kernel_chunk 0 and
+     64) against the host engine at tree_k=1 on K2, counters on >= 99%
+  7. the kernel path: cli with --device cuda --event_batch 2048 --Nts 4097
+     --saveMode 1 (two full batches; --tree_engine auto -> kernel), cold in a
+     fresh process, then warm under torch.profiler in this one, launch
+     counters reset just before it;
+     K1, K2 and K3 must each have launched
+  8. the queue path (--tree_engine queue), one batch of 2048, counters reset
+     just before it; K1 and K2 must have launched
+  9. the kernels' JSON line (times, launches on the kernel path, bounds), the
+     nvidia-smi line, the result line
+
+Bounds: the least time the card could take for a kernel's work, the larger
+of its bytes (each input read once, each output written once) over 3.35
+TB/s and its operations over the peak rate of their type (67 TFLOP/s f32,
+34 TFLOP/s f64, both outside the tensor cores; NVIDIA H100 SXM data sheet).
+Operations are counted from the sources (FLOP_* below: + - * / sqrt and
+each transcendental as one) times the work this run's data needed: K2's
+steps, dense passes and crossings from its diagnostics, K3's per-event step,
+dense-pass and bisection totals.
 
 Writes its npy output, the build log and the profiler table under
 chiprun_out/chip_smoke/.
@@ -36,6 +54,38 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 SCENE_ARGS = ["--MassA", "1e-5", "--B0", "1e14", "--ThetaM", "0.2"]
+
+HBM_BYTES_PER_S = 3.35e12
+F32_PER_S = 67e12
+F64_PER_S = 34e12
+# operations per evaluation, counted from csrc/ (see the module docstring)
+FLOP_LINE_POINT = 130      # K1: one grid point of line_condition, f32
+FLOP_RHS = {"photon": 290, "axion": 90}   # rhs + grad_h_hand, f64
+FLOP_COND = 70             # art::condition
+FLOP_HERMITE = 71          # one interpolant point, 7 components
+FLOP_STEP_FIXED = 520      # stage sums, 5th-order update, error norm, controller
+FLOP_PROB = 250            # prob_nd at a recorded crossing
+
+
+def flop_step(species, interp_coarse):
+    """Every attempted DP5 step: 6 new RHS (FSAL), the condition at the new
+    point, the coarse gate's interior points."""
+    return (6 * FLOP_RHS[species] + FLOP_STEP_FIXED + FLOP_COND
+            + max(interp_coarse - 1, 0) * (FLOP_HERMITE + FLOP_COND))
+
+
+def flop_dense(interp):
+    return (interp - 1) * (FLOP_HERMITE + FLOP_COND)
+
+
+def flop_bisect(bisect):
+    return (bisect + 1) * (FLOP_HERMITE + FLOP_COND)
+
+
+def bound(nbytes, nflop, rate):
+    """(bound_ms, bound_by) of work moving nbytes and doing nflop at rate."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, nflop / rate * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
 def log(phase, msg):
@@ -85,10 +135,23 @@ def phase_build():
     os.makedirs(OUT, exist_ok=True)
     with open(os.path.join(OUT, "build_log.txt"), "w") as f:
         f.write(cuda_lib.BUILD_LOG)
-    used = [ln.strip() for ln in cuda_lib.BUILD_LOG.splitlines()
-            if "registers" in ln or "spill" in ln]
-    log(2, f"built {os.path.relpath(path, ROOT)} in {time.time() - t0:.1f} s; "
-           f"ptxas: {' | '.join(used[-6:])}")
+    log(2, f"built {os.path.relpath(path, ROOT)} in {time.time() - t0:.1f} s; ptxas: "
+           + " | ".join(f"{k}: {v}" for k, v in ptxas_summary(cuda_lib.BUILD_LOG).items()))
+
+
+def ptxas_summary(build_log):
+    """{kernel: 'stack/spill; registers'} from nvcc -Xptxas -v output."""
+    out, name = {}, None
+    for ln in build_log.splitlines():
+        if "Function properties for" in ln:
+            name = next((k for k in ("line_scan", "mega_kernel", "probe_kernel", "tree_kernel")
+                         if k in ln), None)
+            if name:
+                out[name] = ""
+        elif name and ("registers" in ln or "spill" in ln):
+            part = ln.split(":", 1)[-1].strip()
+            out[name] = f"{out[name]}; {part}" if out[name] else part
+    return out
 
 
 def scene_setup(device):
@@ -155,12 +218,16 @@ def phase_line_scan(device, n_lines):
                              f"root err {root_err:.3g} km")
     ms = cuda_ms(lambda: line_scan.line_scan(*args), 20)
     plain_ms = cuda_ms(lambda: line_scan.line_scan_plain(*args), 20)
+    b_ms, b_by = bound(4 * (n_lines * 10 + n_grid + n_lines * n_grid),
+                       FLOP_LINE_POINT * n_lines * n_grid, F32_PER_S)
     log(3, f"K1 [{n_lines} x {n_grid}] rel err vs f64: max {rel:.3g} (plain f32 "
            f"{rel_plain:.3g}), p99.9 {k999:.3g} (plain {p999:.3g}); kernel-plain max "
            f"abs {max_abs:.3g}, sign flips away from roots 0; sampling: "
            f"{int(rk.success.sum())} successes, {n_diff} flips, root err "
-           f"{root_err:.3g} km (bar 2e-3); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+           f"{root_err:.3g} km (bar 2e-3); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+           f"bound {b_ms:.4f} ms ({b_by})")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
 
 
 def sample_events(n, device, sc, cfg, maxR, n_grid, seed):
@@ -299,6 +366,14 @@ def phase_megakernel(device, n_events):
                f"crossing-state rel gap {state_gap[j].item():.2g}")
     gate_same = (nc_g == nc_p).double().mean().item()
     fine = (out_g[11] / torch.clamp(out_g[2], min=1)).mean().item()
+    # the gated run's own work: steps, dense passes, crossings (each bisected,
+    # with its probability); inputs u0 + aux, outputs uf, lntf, diag, cru,
+    # crlnt, save_mid, pcx
+    S = cfg.max_crossings
+    nflop = (out_g[2].sum().item() * flop_step("axion", cfg.interp_coarse)
+             + out_g[11].sum().item() * flop_dense(cfg.interp_points)
+             + out_g[4].sum().item() * (flop_bisect(cfg.bisect_iters) + FLOP_PROB))
+    b_ms, b_by = bound(8 * B * (7 + 8 + 7 + 1 + 4 + 7 * S + S + 7 + S), nflop, F64_PER_S)
     log(5, f"K2 backtrace {B} rays (species axion, 16 slots, in-kernel prob): dense-scan "
            f"kernel vs plain: identical crossing counts {frac:.4f} (bar 0.99), endpoint "
            f"median rel err {med:.3g} (bar 1e-8) on {int(end.sum())} end-reached rays, "
@@ -306,17 +381,123 @@ def phase_megakernel(device, n_events):
            f"crossing states through the torch twin: max rel {own_rel:.2g}); gated kernel (coarse "
            f"{cfg.interp_coarse}, theta {cfg.scan_gate_theta}) vs plain dense scan: "
            f"identical counts {gate_same:.4f}, dense-pass share of steps {fine:.3f}; "
-           f"kernel {ms:.3f} ms gated / {ms_dense:.3f} ms dense, plain {plain_ms:.1f} ms")
+           f"kernel {ms:.3f} ms gated / {ms_dense:.3f} ms dense, plain {plain_ms:.1f} ms; "
+           f"steps {int(out_g[2].sum().item())}, bound {b_ms:.4f} ms ({b_by})")
     if not (frac >= 0.99 and med < 1e-8 and pcx_bad <= 0.01 * int(used.sum())
             and own_rel < 1e-10 and gate_same >= 0.99):
         raise AssertionError("K2 disagrees with its plain version")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
 
 
-def phase_slice(device, n_events, batch):
-    """The main path through the CLI, twice in one process: a cold run (what
-    one CLI invocation costs) and a warm run (steady state, under
-    torch.profiler, launch counters reset just before it)."""
+def phase_treekernel(device, n_plain, n_tree):
+    """K3 against its plain version on the same blocks (one launch), then the
+    tree engine around it against the host engine at tree_k=1."""
+    import dataclasses
+
+    import torch
+
+    from adiabatic_raytracer_tpu_torch.ops import cuda_lib, tree
+    from adiabatic_raytracer_tpu_torch.ops import treekernel as tk
+    from adiabatic_raytracer_tpu_torch.utils import rng
+
+    sc, cfg, tcfg, maxR, n_grid = scene_setup(device)
+    cfg = dataclasses.replace(cfg, tree_engine="kernel")
+    lnt_end = 0.0   # log(1 / omega_pul) at the production scene
+    nf = int(min(cfg.tree_kernel_finals, tcfg.num_cutoff))
+    qd = tcfg.mc_nodes + 2
+    it_full = (tcfg.max_nodes + 2) * (cfg.max_steps + 2)
+
+    # --- kernel vs plain on the same blocks, one launch ---
+    x, k, e = sample_events(n_plain, device, sc, cfg, maxR, n_grid, seed=13)
+    keys = rng.fold_in(rng.PRNGKey(2027, device=device), torch.arange(n_plain, device=device))
+    blocks = tk.tree_inputs(keys, x, k, e, sc, cfg, tcfg, lnt_end=lnt_end)
+    launch = lambda: tk.tree_kernel_launch(*blocks, sc, cfg, tcfg, nf=nf, qd=qd, it_cap=it_full)
+    _, a_k, _, f_k = launch()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _, a_p, _, f_p = tk.tree_kernel_launch_plain(*blocks, sc, cfg, tcfg, nf=nf, qd=qd,
+                                                 it_cap=it_full)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3   # host clock around one synced run
+    ms = cuda_ms(launch, 3)
+    rows = [tk.A_COUNT, tk.A_CMAIN, tk.A_INFO, tk.A_NALLOC, tk.A_ANOM]
+    same = (a_k[:, rows] == a_p[:, rows]).all(dim=1) & (a_k[:, tk.A_DONE] == 1)
+    frac = same.double().mean().item()
+    for i in (~same).nonzero().squeeze(1).tolist()[:10]:
+        log(6, f"  counter mismatch event {i}: kernel {a_k[i, rows].tolist()} plain "
+               f"{a_p[i, rows].tolist()}")
+    fk = f_k.reshape(n_plain, nf, tk.ROWS)
+    fp = f_p.reshape(n_plain, nf, tk.ROWS)
+    slots = same[:, None] & (fk[..., tk.F_VALID] > 0.5) & (fp[..., tk.F_VALID] > 0.5)
+    cols = [tk.F_W, tk.F_PROB, tk.F_PCONV, tk.F_PCONV0, tk.F_TB] + list(range(tk.F_U0, 16))
+    a, b = fk[slots][:, cols], fp[slots][:, cols]
+    rel = (torch.abs(a - b) / torch.abs(b).clamp(min=1e-300)).amax(dim=1)
+    med = rel.median().item()
+    max_abs = torch.abs(a - b).max().item()
+    orders_same = bool((fk[slots][:, tk.F_ORD] == fp[slots][:, tk.F_ORD]).all())
+    steps = a_k[:, tk.A_STEPTOT]
+    nflop = (steps.sum().item() * flop_step("photon", cfg.interp_coarse)
+             + a_k[:, tk.A_NFINE].sum().item() * flop_dense(cfg.interp_points)
+             + a_k[:, tk.A_NBISECT].sum().item() * (flop_bisect(cfg.bisect_iters) + FLOP_PROB))
+    # inputs uin, aux, uni, qin; outputs uout, auxout, qout, fin
+    nbytes = 8 * n_plain * 2 * (tk.U_ROWS + tk.AUX_ROWS + qd * tk.ROWS) \
+        + 8 * n_plain * (blocks[2].shape[1] + nf * tk.ROWS)
+    b_ms, b_by = bound(nbytes, nflop, F64_PER_S)
+    log(6, f"K3 vs plain on {n_plain} events, one launch (default cutoffs, NF {nf}, QD {qd}): "
+           f"identical counters {frac:.4f} (bar 0.99), finals on those events: {int(slots.sum())} "
+           f"records, orders identical {orders_same}, median rel err {med:.3g} (bar 1e-8), max "
+           f"abs {max_abs:.3g}; steps per event mean {steps.mean().item():.1f} max "
+           f"{int(steps.max().item())}, dense passes {int(a_k[:, tk.A_NFINE].sum().item())}, "
+           f"bisections {int(a_k[:, tk.A_NBISECT].sum().item())}; kernel {ms:.3f} ms, plain "
+           f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by})")
+    if not (frac >= 0.99 and med < 1e-8 and orders_same):
+        raise AssertionError("K3 disagrees with its plain version")
+
+    # --- the tree engine on 2048 events vs the host engine at tree_k=1 ---
+    x, k, e = sample_events(n_tree, device, sc, cfg, maxR, n_grid, seed=17)
+    keys = rng.fold_in(rng.PRNGKey(2028, device=device), torch.arange(n_tree, device=device))
+    host_cfg = dataclasses.replace(cfg, tree_engine="queue", tree_k=1, compute_dtype="state")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    host = tree.forward_tree(keys, x, k, e, sc, host_cfg, tcfg, lnt_end=lnt_end)
+    torch.cuda.synchronize()
+    host_ms = (time.time() - t0) * 1e3
+    parts = []
+    for chunk in (0, 64):
+        kc = dataclasses.replace(cfg, tree_kernel_chunk=chunk)
+        run = lambda: tree.forward_tree(keys, x, k, e, sc, kc, tcfg, lnt_end=lnt_end)
+        run()
+        torch.cuda.synchronize()
+        n0 = cuda_lib.LAUNCHES["treekernel"]
+        t0 = time.time()
+        kern = run()
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+        n_launch = cuda_lib.LAUNCHES["treekernel"] - n0
+        same = torch.ones(n_tree, dtype=torch.bool, device=device)
+        for name in ("count", "count_main", "info", "n_alloc", "dw_anomalies"):
+            same &= getattr(kern, name) == getattr(host, name)
+        frac_h = same.double().mean().item()
+        blocks = tk.tree_inputs(keys, x, k, e, sc, kc, tcfg, lnt_end=lnt_end)
+        st = tk.run_tree_kernel(*blocks, sc, kc, tcfg, nf=nf, qd=qd)[0][:, tk.A_STEPTOT]
+        parts.append(f"chunk {chunk}: forward_tree {wall:.1f} ms host clock ({n_launch} "
+                     f"launches), identical counters "
+                     f"vs host {frac_h:.4f}, steps/event mean {st.mean().item():.1f} max "
+                     f"{int(st.max().item())} total {int(st.sum().item())}")
+        if frac_h < 0.99:
+            raise AssertionError(f"K3 (chunk {chunk}) disagrees with the host engine: {frac_h}")
+    log(6, f"K3 tree engine on {n_tree} events vs host engine at tree_k=1 on K2 "
+           f"({host_ms:.1f} ms, host clock): " + "; ".join(parts))
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
+
+
+def phase_slice(device, n_events, batch, tree_engine, phase, cold_run=True):
+    """The main path through the CLI: a cold run when asked (one CLI
+    invocation in a fresh process, what a user's call costs), then a warm run
+    in this process under torch.profiler, with the launch counters reset just
+    before it and read just after."""
     import numpy as np
     import torch
 
@@ -326,49 +507,61 @@ def phase_slice(device, n_events, batch):
     def argv(tag):
         return (["--device", "cuda", "--event_batch", str(batch), "--Nts",
                  str(n_events + 1), "--saveMode", "1", "--seed", "1769", "--dir_tag",
-                 os.path.join(OUT, "slice"), "--ftag", tag] + SCENE_ARGS)
+                 os.path.join(OUT, "slice"), "--ftag", tag, "--tree_engine", tree_engine]
+                + SCENE_ARGS)
 
-    t0 = time.time()
-    _, _, cold = cli.run_from_args(argv("cold"))
-    cold_wall = time.time() - t0
+    cold_msg = ""
+    if cold_run:   # one CLI invocation in a fresh process: imports and warm-up included
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, "-m", "adiabatic_raytracer_tpu_torch",
+                               *argv(f"cold_{tree_engine}")], cwd=ROOT, capture_output=True,
+                              text=True, timeout=900)
+        cold_wall = time.time() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"cold CLI run failed:\n{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+        summary = next(ln for ln in proc.stdout.splitlines() if ln.startswith("events="))
+        cold_msg = (f"cold run (a fresh process) {cold_wall:.2f} s = "
+                    f"{n_events / cold_wall:.1f} events/s ({summary.split(' -> ')[0]}); ")
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         cuda_lib.reset_launch_counts()
         t0 = time.time()
-        rows, path, stats = cli.run_from_args(argv("smoke"))
+        rows, path, stats = cli.run_from_args(argv(f"smoke_{tree_engine}"))
         wall = time.time() - t0
         launches = dict(cuda_lib.LAUNCHES)
-    write_profile(prof, wall)
+    write_profile(prof, wall, phase, tree_engine)
     rows = np.load(path)
     if not (rows.ndim == 2 and rows.shape[1] == 29 and rows.shape[0] > 0):
         raise AssertionError(f"slice output has shape {rows.shape}")
     if not np.all(np.isfinite(rows)) or not np.all(rows[:, 8] > 0):
         raise AssertionError("slice rows not finite or weights not positive")
-    if not (launches["line_scan"] > 0 and launches["megakernel"] > 0):
+    need = ("line_scan", "megakernel") + (("treekernel",) if tree_engine == "auto" else ())
+    if not all(launches[n] > 0 for n in need):
         raise AssertionError(f"main path did not launch every kernel: {launches}")
+    if tree_engine == "queue" and launches["treekernel"]:
+        raise AssertionError(f"the queue path launched K3: {launches}")
     if stats.scan_gate == "off":
         raise AssertionError("scan-gate census check did not run")
-    log(6, f"slice {stats.events} events, {rows.shape[0]} rows; cold run {cold_wall:.2f} s = "
-           f"{cold.events / cold_wall:.1f} events/s (gate check {cold.t_gate:.2f} s, sample "
-           f"{cold.t_sample:.2f} s, pipeline {cold.t_pipeline:.2f} s); warm run {wall:.2f} s "
-           f"= {stats.events / wall:.1f} events/s (gate check {stats.t_gate:.2f} s, sample "
-           f"{stats.t_sample:.2f} s, pipeline {stats.t_pipeline:.2f} s, rows "
-           f"{stats.t_rows:.2f} s, tree iterations {stats.tree_iters}); "
-           f"scan_gate={stats.scan_gate}; info {stats.info_hist}; launches {launches}")
-    return launches
+    log(phase, f"slice --tree_engine {tree_engine}: {stats.events} events, {rows.shape[0]} rows; "
+               f"{cold_msg}warm run {wall:.2f} s = {stats.events / wall:.1f} events/s (gate "
+               f"check {stats.t_gate:.2f} s, sample {stats.t_sample:.2f} s, pipeline "
+               f"{stats.t_pipeline:.2f} s, rows {stats.t_rows:.2f} s, tree iterations or "
+               f"launches {stats.tree_iters}); scan_gate={stats.scan_gate}; info "
+               f"{stats.info_hist}; launches {launches}")
+    return launches, rows
 
 
-def write_profile(prof, wall):
+def write_profile(prof, wall, phase, tag):
     """Device busy share and the top operators of the profiled warm run."""
     ka = prof.key_averages()
     rows = sorted(ka, key=lambda e: getattr(e, "self_device_time_total", 0.0), reverse=True)
     busy_us = sum(getattr(e, "self_device_time_total", 0.0) for e in ka)
     os.makedirs(OUT, exist_ok=True)
-    with open(os.path.join(OUT, "profile.txt"), "w") as f:
+    with open(os.path.join(OUT, f"profile_{tag}.txt"), "w") as f:
         f.write(ka.table(sort_by="self_cuda_time_total", row_limit=40))
     top = ", ".join(f"{e.key[:40]} {getattr(e, 'self_device_time_total', 0.0) / 1e3:.1f} ms"
                     f" x{e.count}" for e in rows[:8])
-    log(6, f"profile: device busy {busy_us / 1e3:.1f} ms of {wall * 1e3:.1f} ms wall "
+    log(phase, f"profile ({tag}): device busy {busy_us / 1e3:.1f} ms of {wall * 1e3:.1f} ms wall "
            f"({100 * busy_us / 1e6 / wall:.1f}% busy, summed kernel time); top: {top}")
 
 
@@ -381,7 +574,9 @@ def main():
     k1 = phase_line_scan(device, 16384)
     phase_probe(device)
     k2 = phase_megakernel(device, 2048)
-    launches = phase_slice(device, 4096, 2048)
+    k3 = phase_treekernel(device, 512, 2048)
+    launches, _ = phase_slice(device, 4096, 2048, "auto", 7)
+    phase_slice(device, 2048, 2048, "queue", 8, cold_run=False)
     kernels = [
         {"name": "line_scan", "route": "cuda",
          "source": "adiabatic_raytracer_tpu_torch/csrc/line_scan.cu",
@@ -391,6 +586,10 @@ def main():
          "source": "adiabatic_raytracer_tpu_torch/csrc/megakernel.cu",
          "replaces": "adiabatic_raytracer_tpu/ops/megakernel.py:1436",
          "launches": launches["megakernel"], **k2},
+        {"name": "treekernel", "route": "cuda",
+         "source": "adiabatic_raytracer_tpu_torch/csrc/treekernel.cu",
+         "replaces": "adiabatic_raytracer_tpu/ops/treekernel.py:775",
+         "launches": launches["treekernel"], **k3},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -74,7 +74,7 @@ def test_port_never_imports_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(cfg=dict(tree_engine="kernel")),
+    dict(cfg=dict(tree_engine="kernel", tree_refill=128)),
     dict(cfg=dict(engine="pool_compact")),
     dict(cfg=dict(tree_window=128)),
     dict(cfg=dict(backtrace_chunk=64)),
@@ -91,6 +91,25 @@ def test_unported_options_raise(kw):
         check_ported(cfg, **kw)
 
 
+def test_from_jax_dict_carries_tree_kernel_fields():
+    nc = jcfg.NumericsConfig(tree_engine="kernel", tree_kernel_finals=7, tree_kernel_chunk=32)
+    d = {"numerics": {k: np.asarray(v) for k, v in dataclasses.asdict(nc).items()}}
+    _, pnc, _ = tcfg.from_jax_dict(d)
+    assert (pnc.tree_engine, pnc.tree_kernel_finals, pnc.tree_kernel_chunk) == ("kernel", 7, 32)
+
+
+def test_kernel_tree_engine_needs_covered_scene():
+    """tree_engine='kernel' raises, naming the ROADMAP item, on what K3 does
+    not cover: another engine, or a scene without the in-kernel probability."""
+    kern = dict(tree_engine="kernel", engine="mega")
+    for sc, cfg in ((tcfg.Scene(), dict(kern, engine="pool")),
+                    (tcfg.Scene(bndry_lyr=1.0), kern), (tcfg.Scene(isotropic=True), kern),
+                    (tcfg.Scene(), dict(kern, in_kernel_prob=0))):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            check_ported(tcfg.NumericsConfig(**cfg), sc=sc)
+    check_ported(tcfg.NumericsConfig(**kern), sc=tcfg.Scene(theta_m=0.2))
+
+
 def test_cuda_without_card_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -99,3 +118,17 @@ def test_cuda_without_card_raises(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         run(tcfg.Scene(theta_m=0.2), tcfg.NumericsConfig(engine="mega"),
             tcfg.TreeConfig(), 3, seed=1, dir_tag=str(tmp_path), device="cuda")
+
+
+def test_cli_default_device_is_cuda(tmp_path):
+    """With no --device flag the CLI runs on the card: without one it raises
+    naming cuda and runs nothing on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from adiabatic_raytracer_tpu_torch.cli import build_parser, run_from_args
+
+    assert build_parser().parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_from_args(["--Nts", "4", "--seed", "1", "--ThetaM", "0.2",
+                       "--dir_tag", str(tmp_path)])
+    assert not list((tmp_path / "npy").glob("*.npy"))

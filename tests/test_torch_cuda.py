@@ -1,4 +1,4 @@
-"""K1 and K2 on the card against their plain versions.  Every test needs a
+"""K1, K2 and K3 on the card against their plain versions.  Every test needs a
 CUDA device (the kernels have no CPU mode) and skips without one.  The file
 imports no JAX, so it runs on a GPU machine without it:
 
@@ -12,6 +12,7 @@ import torch
 from adiabatic_raytracer_tpu_torch import config as tcfg
 from adiabatic_raytracer_tpu_torch.ops import line_scan
 from adiabatic_raytracer_tpu_torch.ops import megakernel as mk
+from adiabatic_raytracer_tpu_torch.ops import treekernel as tk
 from adiabatic_raytracer_tpu_torch.ops.propagate import launch_state
 from adiabatic_raytracer_tpu_torch.ops.tree import _negate_b
 
@@ -103,3 +104,43 @@ def test_probe_matches_twins(dev, species):
         want = mk.probe_plain(P, which, u, lnt, erg, is_ph, 1e14)
         scale = want.abs().amax(dim=0, keepdim=True).clamp(min=1e-300)  # zero columns
         assert ((got.cpu() - want).abs() / (want.abs() + scale)).max().item() < 1e-12, which
+
+
+@pytest.mark.cuda
+def test_treekernel_matches_plain(dev):
+    """K3 and tree_kernel_launch_plain on the same blocks (128 production
+    events, default cutoffs, one launch): counters identical on >= 99% of
+    events, their finals' records to median relative error 1e-8."""
+    from adiabatic_raytracer_tpu_torch.models.magnetosphere import conversion_surface_radius
+    from adiabatic_raytracer_tpu_torch.ops import sampler
+    from adiabatic_raytracer_tpu_torch.ops.dispersion import k_norm_cart
+    from adiabatic_raytracer_tpu_torch.utils import rng
+
+    sc = tcfg.Scene(**KW)
+    cfg = tcfg.NumericsConfig(engine="mega", tree_engine="kernel")
+    tc = tcfg.TreeConfig()
+    maxR = conversion_surface_radius(sc.mass_a, sc.theta_m, sc.omega_pul, sc.b0, sc.r_ns)
+    r = sampler.sample_batch(rng.PRNGKey(5, device=dev), 4096, maxR, sc, sc.mass_ns,
+                             n_grid=sampler.default_n_grid(maxR), compute_dtype="f32",
+                             line_engine="kernel")
+    ok = r.success.nonzero().squeeze(1)[:128]
+    E = ok.shape[0]
+    x, v, e = r.xpos[ok].double(), r.v_loc[ok].double(), r.erg_inf[ok].double()
+    k = k_norm_cart(x, v, 0.0, e, sc, sc.mass_ns, is_photon=True, ax_fix=True)
+    keys = rng.fold_in(rng.PRNGKey(9, device=dev), torch.arange(E, device=dev))
+    blocks = tk.tree_inputs(keys, x, k, e, sc, cfg, tc, lnt_end=0.0)
+    kw = dict(nf=tc.num_cutoff, qd=tc.mc_nodes + 2, it_cap=10**8)
+    _, a_k, _, f_k = tk.tree_kernel_launch(*blocks, sc, cfg, tc, **kw)
+    torch.cuda.synchronize()
+    _, a_p, _, f_p = tk.tree_kernel_launch_plain(*blocks, sc, cfg, tc, **kw)
+    rows = [tk.A_COUNT, tk.A_CMAIN, tk.A_INFO, tk.A_NALLOC, tk.A_ANOM]
+    same = (a_k[:, rows] == a_p[:, rows]).all(dim=1) & (a_k[:, tk.A_DONE] == 1)
+    assert E >= 100 and same.double().mean().item() >= 0.99
+    fk = f_k.reshape(E, tc.num_cutoff, tk.ROWS)
+    fp = f_p.reshape(E, tc.num_cutoff, tk.ROWS)
+    slots = same[:, None] & (fk[..., tk.F_VALID] > 0.5)
+    assert bool((fp[..., tk.F_VALID] > 0.5)[slots].all())
+    cols = [tk.F_W, tk.F_PROB, tk.F_PCONV, tk.F_PCONV0, tk.F_TB] + list(range(tk.F_U0, 16))
+    a, b = fk[slots][:, cols], fp[slots][:, cols]
+    rel = ((a - b).abs() / b.abs().clamp(min=1e-300)).amax(dim=1)
+    assert rel.median().item() < 1e-8

@@ -45,16 +45,40 @@ def test_golden_pinned_rows(tmp_path):
 def test_mega_engine_on_cpu_reproduces_golden(tmp_path):
     """engine=mega on CPU tensors runs K2's plain version (pool + the
     in-kernel probability twin) and the scan-gate census: same rows."""
-    rows, _, stats = run_from_args(GOLDEN_ARGS + ["--engine", "mega", "--scan_gate_check",
-                                                  "8", "--dir_tag", str(tmp_path),
-                                                  "--ftag", "mega"])
+    rows, _, stats = run_from_args(GOLDEN_ARGS + ["--engine", "mega", "--tree_engine", "queue",
+                                                  "--scan_gate_check", "8", "--dir_tag",
+                                                  str(tmp_path), "--ftag", "mega"])
     _check_golden(rows)
     assert stats.scan_gate == "ok"
 
 
+def test_kernel_tree_engine_matches_host_k1(tmp_path):
+    """--tree_engine kernel (K3's plain version on CPU) through the CLI gives
+    the rows and counters of driver.run with the host engine at tree_k=1,
+    K3's reference.  Two events; rtol 1e-6: the weights multiply crossing
+    probabilities, which near-tangent roots move by up to ~1e-7 between the
+    pool's autodiff RHS and the kernel's hand adjoint (7e-8 measured)."""
+    from adiabatic_raytracer_tpu_torch import config as tcfg
+    from adiabatic_raytracer_tpu_torch.driver import run
+
+    two = ["--Nts", "3", "--scan_gate_check", "0", "--dir_tag", str(tmp_path)]
+    rows, _, st = run_from_args(GOLDEN_ARGS + two + ["--engine", "mega", "--tree_engine",
+                                                     "kernel", "--ftag", "kern"])
+    cfg = tcfg.NumericsConfig(atol=1e-6, rtol=1e-7, engine="mega", tree_k=1,
+                              scan_gate_check=0)
+    rows_h, _, st_h = run(tcfg.Scene(theta_m=0.2), cfg, tcfg.TreeConfig(), 3, seed=1769,
+                          save_mode=1, event_batch=3, dir_tag=str(tmp_path), file_tag="host",
+                          device="cpu", verbose=False)
+    assert rows.shape == rows_h.shape == (5, 29)
+    np.testing.assert_array_equal(rows[:, [0, 1, 20, 21]], rows_h[:, [0, 1, 20, 21]])
+    np.testing.assert_allclose(rows, rows_h, rtol=1e-6, atol=0)
+    assert (st.finals, st.tot_nodes, st.info_hist) == (st_h.finals, st_h.tot_nodes, st_h.info_hist)
+
+
 def test_unported_cli_options_raise(tmp_path):
-    for extra in (["--saveMode", "2"], ["--tree_engine", "kernel"], ["--tree_window", "128"],
-                  ["--pipeline_depth", "2"], ["--mesh", "4"], ["--checkpoint"]):
+    for extra in (["--saveMode", "2"], ["--tree_engine", "kernel", "--bndry_lyr", "1.0"],
+                  ["--tree_window", "128"], ["--pipeline_depth", "2"], ["--mesh", "4"],
+                  ["--checkpoint"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run_from_args(GOLDEN_ARGS + ["--dir_tag", str(tmp_path)] + extra)
     assert not glob.glob(str(tmp_path / "npy" / "*.npy"))
