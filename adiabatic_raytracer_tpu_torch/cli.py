@@ -17,6 +17,7 @@ raise NotImplementedError.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
@@ -105,18 +106,17 @@ def run_from_args(argv=None):
                      else args.computeDtype)
     engine = ("mega" if on_cuda else "pool") if args.engine == "auto" else args.engine
     event_batch = args.event_batch if args.event_batch > 0 else (2048 if on_cuda else 16)
-    tree_engine = args.tree_engine
-    if tree_engine == "auto":
-        from adiabatic_raytracer_tpu_torch.ops.megakernel import can_prob
-
-        tree_engine = ("kernel" if engine == "mega" and args.saveMode <= 1 and can_prob(sc)
-                       else "queue")
-        print(f"tree_engine auto -> {tree_engine}")
     cfg = NumericsConfig(atol=1e-6, rtol=1e-7, compute_dtype=compute_dtype,
                          engine=engine, tree_window=args.tree_window,
-                         tree_engine=tree_engine, tree_kernel_chunk=args.tree_kernel_chunk,
+                         tree_engine=args.tree_engine, tree_kernel_chunk=args.tree_kernel_chunk,
                          **({"scan_gate_check": args.scan_gate_check}
                             if args.scan_gate_check >= 0 else {}))
+    if args.tree_engine == "auto":
+        from adiabatic_raytracer_tpu_torch.ops.tree import kernel_covers
+
+        kernel = args.saveMode <= 1 and kernel_covers(sc, cfg)
+        cfg = dataclasses.replace(cfg, tree_engine="kernel" if kernel else "queue")
+        print(f"tree_engine auto -> {cfg.tree_engine}")
     tcfg = TreeConfig(prob_cutoff=args.probCutoff, num_cutoff=args.numCutoff,
                       mc_nodes=args.MCNodes, max_nodes=args.maxNodes)
 

@@ -61,7 +61,7 @@ constexpr int A_LNT = 0, A_ERROLD = 1, A_DT = 2, A_STEPS = 3, A_LNTCK = 4, A_ISP
               A_NALLOC = 12, A_WCUR = 13, A_PROB = 14, A_PCONV = 15, A_PCONV0 = 16,
               A_TB = 17, A_DW = 18, A_ORD = 19, A_X0X = 20, A_X0Y = 21, A_X0Z = 22,
               A_ITERS = 23, A_ERG = 24, A_LNT1 = 25, A_STEPTOT = 26, A_NFINE = 27,
-              A_NBISECT = 28, AUX_ROWS = 32;
+              A_NBISECT = 28, A_STEPS_PH = 29, A_NCROSS = 30, A_NACC = 31, AUX_ROWS = 32;
 // queue slot rows
 constexpr int Q_U0 = 0, Q_LNT = 7, Q_ISPH = 8, Q_W = 9, Q_PROB = 10, Q_PCONV = 11,
               Q_PCONV0 = 12, Q_DW = 13, Q_SLOT = 14, Q_ST = 15, Q_ROWS = 16;
@@ -137,19 +137,26 @@ __global__ void __launch_bounds__(kThreads)
   R.g0 = condition(P, R.u, R.lnt);
   R.dt = a[A_DT] > 0.0 ? a[A_DT] : initial_dt(P, R.u, R.f0, lnt1 - R.lnt);
 
+  // work of this launch for the bound: photon steps, accepted steps,
+  // recorded crossings (each evaluates prob_nd once)
+  int n_ph = 0, n_acc = 0, n_rec = 0;
   double ustar[7], lnt_star = 0.0, p_star = 0.0;
   auto record = [&](const double* us, double lnt_s, int) {
     for (int c = 0; c < 7; ++c) ustar[c] = us[c];
     lnt_star = lnt_s;
     p_star = P.with_prob ? prob_nd(P, us, erg) : 0.0;
+    n_rec += 1;
   };
 
   bool done = false;
   for (int it = 0; it < T.it_cap && !done; ++it) {
     int code = 1;  // a node born at or after lnt1 ends at once, without a crossing
     if (R.lnt < lnt1) {
+      const double lnt_prev = R.lnt;  // an accepted step always advances lnt
       code = dp5_step(P, R, lnt1, erg, photon, x0c, 0.0, nullptr, record);
       steptot += 1.0;
+      n_ph += photon ? 1 : 0;
+      n_acc += R.lnt != lnt_prev ? 1 : 0;
     }
     if (code == 0) continue;
 
@@ -303,6 +310,9 @@ __global__ void __launch_bounds__(kThreads)
   a[A_STEPTOT] = steptot;
   a[A_NFINE] += R.nfine;
   a[A_NBISECT] += R.nbisect;
+  a[A_STEPS_PH] += n_ph;
+  a[A_NCROSS] += n_rec;
+  a[A_NACC] += n_acc;
 }
 
 }  // namespace

@@ -62,12 +62,11 @@ class RunStats:
 
 def check_ported(cfg: NumericsConfig, *, save_mode: int = 0, mesh_devices: int = 0,
                  pipeline_depth: int = 0, checkpoint: bool = False,
-                 resume: bool = False, sc: Optional[Scene] = None):
+                 resume: bool = False):
     """Raise NotImplementedError on options the port does not run yet, naming
-    the ROADMAP item; none of them quietly runs something else.  With `sc`,
-    also a tree_engine='kernel' configuration K3 does not cover."""
-    if sc is not None:
-        tree.check_tree_engine(sc, cfg)
+    the ROADMAP item; none of them quietly runs something else.  A
+    tree_engine='kernel' configuration K3 does not cover raises in
+    tree.forward_tree."""
     todo = [
         (cfg.engine == "pool_compact", "engine='pool_compact' (ROADMAP Queue 1, item 14)"),
         (cfg.engine not in ("pool", "mega", "pool_compact"), f"engine={cfg.engine!r}"),
@@ -277,8 +276,7 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
     surface lies inside the star (MainRunner.jl:389-396).  `device` is used
     as given: "cuda" without a card raises."""
     check_ported(cfg, save_mode=save_mode, mesh_devices=mesh_devices,
-                 pipeline_depth=pipeline_depth, checkpoint=checkpoint, resume=resume,
-                 sc=sc)
+                 pipeline_depth=pipeline_depth, checkpoint=checkpoint, resume=resume)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() "

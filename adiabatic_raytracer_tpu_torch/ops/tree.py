@@ -217,15 +217,18 @@ def _event_keys(key, E, dev):
     return rng.fold_in(key, torch.arange(E, device=dev))
 
 
-def check_tree_engine(sc: Scene, cfg: NumericsConfig):
-    """Raise on a tree_engine='kernel' configuration K3 does not cover: it
-    needs the mega engine with the in-kernel probability, on a scene
-    megakernel.can_prob covers (treekernel.py:43-46 of the reference)."""
-    if cfg.tree_engine != "kernel":
-        return
+def kernel_covers(sc: Scene, cfg: NumericsConfig) -> bool:
+    """Whether K3 runs this configuration: the mega engine with the in-kernel
+    probability, on a scene megakernel.can_prob covers (treekernel.py:43-46
+    of the reference)."""
     from adiabatic_raytracer_tpu_torch.ops.megakernel import can_prob
 
-    if cfg.engine != "mega" or not cfg.in_kernel_prob or not can_prob(sc):
+    return cfg.engine == "mega" and bool(cfg.in_kernel_prob) and can_prob(sc)
+
+
+def check_tree_engine(sc: Scene, cfg: NumericsConfig):
+    """Raise on a tree_engine='kernel' configuration K3 does not cover."""
+    if cfg.tree_engine == "kernel" and not kernel_covers(sc, cfg):
         raise NotImplementedError(
             "tree_engine='kernel' covers engine='mega' with in_kernel_prob on an "
             "anisotropic Melrose, curved-space scene without boundary layer; other "

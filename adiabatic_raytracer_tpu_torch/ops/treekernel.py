@@ -58,7 +58,9 @@ A_LNT, A_ERROLD, A_DT, A_STEPS, A_LNTCK, A_ISPH, A_DONE, A_INFO = range(8)
 A_COUNT, A_CMAIN, A_TOTP, A_ANOM, A_NALLOC = range(8, 13)
 A_WCUR, A_PROB, A_PCONV, A_PCONV0, A_TB, A_DW, A_ORD = range(13, 20)
 A_X0X, A_X0Y, A_X0Z, A_ITERS, A_ERG, A_LNT1, A_STEPTOT = range(20, 27)
-A_NFINE, A_NBISECT = 27, 28   # work done: dense scan passes, bisected roots
+# work done: dense scan passes, bisected roots, photon steps, recorded
+# crossings (one prob_nd each), accepted steps
+A_NFINE, A_NBISECT, A_STEPS_PH, A_NCROSS, A_NACC = 27, 28, 29, 30, 31
 AUX_ROWS = 32
 U_ROWS = 16   # uin [B, 16]: u in rows 0..6
 # queue slot rows (16 per slot): u(7), lnt, is_ph, weight, prob, pconv,
@@ -399,7 +401,8 @@ _REGS = {"lnt": A_LNT, "errold": A_ERROLD, "dt": A_DT, "steps": A_STEPS, "lnt_ck
          "is_ph": A_ISPH, "info": A_INFO, "count": A_COUNT, "cmain": A_CMAIN, "totp": A_TOTP,
          "anom": A_ANOM, "nall": A_NALLOC, "w": A_WCUR, "prob": A_PROB, "pconv": A_PCONV,
          "pconv0": A_PCONV0, "tb": A_TB, "dw": A_DW, "ord": A_ORD, "steptot": A_STEPTOT,
-         "nfine": A_NFINE, "nbisect": A_NBISECT}
+         "nfine": A_NFINE, "nbisect": A_NBISECT, "steps_ph": A_STEPS_PH, "ncross": A_NCROSS,
+         "nacc": A_NACC}
 
 
 def tree_kernel_launch_plain(uin, aux, uni, qin, sc: Scene, cfg: NumericsConfig,
@@ -439,7 +442,11 @@ def tree_kernel_launch_plain(uin, aux, uni, qin, sc: Scene, cfg: NumericsConfig,
         nostep = active & (S["lnt"] >= lnt1)     # born at or after lnt1: ends at once
         run = active & ~nostep
         S["steptot"] = S["steptot"] + run.to(f64)
+        S["steps_ph"] = S["steps_ph"] + (run & (S["is_ph"] > 0.5)).to(f64)
+        lnt_prev = S["lnt"]   # an accepted step always advances lnt
         seg_end, crossed, u_root, lnt_root = _step(P, S, run, lnt1, erg, x0)
+        S["nacc"] = S["nacc"] + (run & (S["lnt"] != lnt_prev)).to(f64)
+        S["ncross"] = S["ncross"] + crossed.to(f64)
         ends = (seg_end & run) | nostep
         if not bool(ends.any()):
             continue

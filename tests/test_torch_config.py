@@ -101,13 +101,18 @@ def test_from_jax_dict_carries_tree_kernel_fields():
 def test_kernel_tree_engine_needs_covered_scene():
     """tree_engine='kernel' raises, naming the ROADMAP item, on what K3 does
     not cover: another engine, or a scene without the in-kernel probability."""
+    from adiabatic_raytracer_tpu_torch.ops.tree import check_tree_engine, kernel_covers
+
     kern = dict(tree_engine="kernel", engine="mega")
     for sc, cfg in ((tcfg.Scene(), dict(kern, engine="pool")),
                     (tcfg.Scene(bndry_lyr=1.0), kern), (tcfg.Scene(isotropic=True), kern),
                     (tcfg.Scene(), dict(kern, in_kernel_prob=0))):
+        assert not kernel_covers(sc, tcfg.NumericsConfig(**cfg))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            check_ported(tcfg.NumericsConfig(**cfg), sc=sc)
-    check_ported(tcfg.NumericsConfig(**kern), sc=tcfg.Scene(theta_m=0.2))
+            check_tree_engine(sc, tcfg.NumericsConfig(**cfg))
+    assert kernel_covers(tcfg.Scene(theta_m=0.2), tcfg.NumericsConfig(**kern))
+    check_tree_engine(tcfg.Scene(theta_m=0.2), tcfg.NumericsConfig(**kern))
+    check_ported(tcfg.NumericsConfig(**kern))
 
 
 def test_cuda_without_card_raises(tmp_path):

@@ -161,7 +161,8 @@ def test_tree_kernel_launch_plain_resumes(events, port_kernel):
     """(d) The block contract: one launch cut short at it_cap leaves every
     event live with its steps counted; a second launch resumes it and ends
     where the single uncut launch of forward_tree_kernel ended (counters
-    exact, records to 1e-10)."""
+    exact, records to 1e-10), with the work counters the bound reads summed
+    over both launches."""
     x, k, e = (torch.as_tensor(a) for a in events)
     keys = tree._event_keys(rng.PRNGKey(SEED), 3, x.device)
     uin, aux, uni, qin = tk.tree_inputs(keys, x, k, e, SC, CFG, TC, lnt_end=0.0)
@@ -189,3 +190,14 @@ def test_tree_kernel_launch_plain_resumes(events, port_kernel):
                       (tk.F_PCONV, pl.prob_conv), (tk.F_PCONV0, pl.prob_conv0),
                       (tk.F_TB, pl.t), (tk.F_U0 + 6, pl.ferg)):
         torch.testing.assert_close(fin[..., row][ok], want[ok], rtol=1e-10, atol=0)
+    # work counters: the two launches add up to one uncut launch
+    _, a_one, _, _ = tk.tree_kernel_launch_plain(uin, aux, uni, qin, SC, CFG, TC, it_cap=10**6,
+                                                 **kw)
+    work = [tk.A_STEPTOT, tk.A_STEPS_PH, tk.A_NACC, tk.A_NFINE, tk.A_NBISECT, tk.A_NCROSS]
+    torch.testing.assert_close(a2[:, work], a_one[:, work], rtol=0, atol=0)
+    ph, acc = a_one[:, tk.A_STEPS_PH], a_one[:, tk.A_NACC]
+    assert torch.all(ph > 0) and bool(torch.any(ph < a_one[:, tk.A_STEPTOT]))  # both species
+    assert torch.all(acc <= a_one[:, tk.A_STEPTOT]) and torch.all(acc > 0)
+    assert torch.all(a_one[:, tk.A_NCROSS] <= a_one[:, tk.A_NBISECT])
+    # every popped node was pushed by a crossing, which pushes one or two
+    assert torch.all(2 * a_one[:, tk.A_NCROSS] >= a_one[:, tk.A_COUNT] - 1)
