@@ -1,0 +1,313 @@
+// One event's forward branching tree, f64, in one thread: the body shared by
+// K3 (treekernel.cu, one thread per event) and K4 (treerefill.cu, threads
+// pulling events from a per-block queue).
+//
+// Transcribed from the JAX reference's step body (adiabatic_raytracer_tpu/
+// ops/treekernel.py _make_step_body), with the host engine's semantics where
+// the two differ (ops/treekernel.py of the port says which).  `tree_run`
+// integrates the event's current node with the shared DP5 step
+// (art::dp5_step, species mixed, one crossing slot, in-kernel probability),
+// and at each segment end
+//   * an exit without a recorded crossing writes a final record into the
+//     event's row of `fin` (or flags an overflow once count_main >= NF);
+//   * a recorded crossing passes the rare-fail guard, then pushes its
+//     children onto the event's pending queue: both in the branching phase,
+//     the drawn one in MC mode (MainRunner.jl:278-305), the draw being the
+//     pre-drawn uniform of this node's index;
+//   * the per-node cutoffs run in the reference's order (overflow, 2
+//     prob_cutoff, 3 num_cutoff, 4 max_nodes);
+//   * the max-weight pending node is popped (ties to the lower pool slot)
+//     and integrated from its birth state with a fresh initial step.
+// It stops when the tree is done or after `budget` iterations (a step, or a
+// node born at or after lnt1); then the event's whole state is in its rows,
+// and a later call resumes it (f0 and g0 are recomputed from the committed
+// state, which is what FSAL carried).
+//
+// Layout: every block is row-major per event, the JAX wrapper's own API
+// layout (ops/treekernel.py holds the row indices): uio [E, 16] (u in 0..6),
+// aux [E, 32] (integrator and node registers), uni [E, UU] (uniform of node
+// index n at n - 1), q [E, QD, 16] (the pending queue) and fin [E, NF, 16]
+// (final records).  uio, aux, q and fin are updated in place.  The queue and
+// fin are touched at segment ends only, a few times per node, so the strided
+// rows cost nothing next to the steps.
+//
+// Everything here has internal linkage or is inline (no anonymous namespace
+// inside `art`: nvcc's generated stubs reject it in a shared header).
+#pragma once
+
+#include "mega_device.cuh"
+
+// Tree scalars passed by value at launch (ops/treekernel.py TreeParams).
+// it_cap is K3's step budget per event per launch; K4 takes its own.
+struct TreeParams {
+  double prob_cutoff;
+  int mc_nodes, num_cutoff, max_nodes, nf, qd, uu, it_cap;
+};
+
+namespace art {
+
+// aux rows
+constexpr int A_LNT = 0, A_ERROLD = 1, A_DT = 2, A_STEPS = 3, A_LNTCK = 4, A_ISPH = 5,
+              A_DONE = 6, A_INFO = 7, A_COUNT = 8, A_CMAIN = 9, A_TOTP = 10, A_ANOM = 11,
+              A_NALLOC = 12, A_WCUR = 13, A_PROB = 14, A_PCONV = 15, A_PCONV0 = 16,
+              A_TB = 17, A_DW = 18, A_ORD = 19, A_X0X = 20, A_X0Y = 21, A_X0Z = 22,
+              A_ITERS = 23, A_ERG = 24, A_LNT1 = 25, A_STEPTOT = 26, A_NFINE = 27,
+              A_NBISECT = 28, A_STEPS_PH = 29, A_NCROSS = 30, A_NACC = 31, AUX_ROWS = 32;
+// queue slot rows
+constexpr int Q_U0 = 0, Q_LNT = 7, Q_ISPH = 8, Q_W = 9, Q_PROB = 10, Q_PCONV = 11,
+              Q_PCONV0 = 12, Q_DW = 13, Q_SLOT = 14, Q_ST = 15, Q_ROWS = 16;
+// final slot rows
+constexpr int F_VALID = 0, F_ISFIN = 1, F_ISPH = 2, F_ORD = 3, F_W = 4, F_PROB = 5,
+              F_PCONV = 6, F_PCONV0 = 7, F_TB = 8, F_U0 = 9, F_ROWS = 16;
+constexpr int U_ROWS = 16;
+constexpr double INFO_OVERFLOW = 9.0;  // needs the host replay
+
+// Rare-fail guard (MainRunner.jl:213-224): a Cartesian proper-velocity
+// component above 1 at the crossing (geometry.celerity_to_cart_vel).
+static __device__ bool rare_velocity(const MegaParams& P, const double* u, double erg) {
+  const double r = u[0];
+  double sth, cth, sph, cph;
+  sincos(u[1], &sth, &cth);
+  sincos(u[2], &sph, &cph);
+  const double a = 1.0 - P.rs0 / r;
+  const double v_r = u[3] * erg * sqrt(a) * a;
+  const double v_t = u[4] * erg / r * a;
+  const double v_p = u[5] * erg / (r * sth) * a;
+  const double v_tmp = sth * v_r + cth * v_t;
+  const double vx = cph * v_tmp - sph * v_p;
+  const double vy = sph * v_tmp + cph * v_p;
+  const double vz = cth * v_r - sth * v_t;
+  return fabs(vx) > 1.0 || fabs(vy) > 1.0 || fabs(vz) > 1.0;
+}
+
+static __device__ void write_slot(double* q, const double* u, double lnt, double is_ph,
+                                  double w, double prob, double pconv, double pconv0, double dw,
+                                  double slot) {
+  for (int c = 0; c < 7; ++c) q[Q_U0 + c] = u[c];
+  q[Q_LNT] = lnt;
+  q[Q_ISPH] = is_ph;
+  q[Q_W] = w;
+  q[Q_PROB] = prob;
+  q[Q_PCONV] = pconv;
+  q[Q_PCONV0] = pconv0;
+  q[Q_DW] = dw;
+  q[Q_SLOT] = slot;
+  q[Q_ST] = 1.0;
+}
+
+// Runs event i's tree (its aux row must have A_DONE clear) for at most
+// `budget` iterations.  Writes every row of its state back, A_ITERS excepted
+// (each kernel keeps its own count there), adds this call's work to the
+// work counters (rows 27-31; row 26 is the event's running step total), and
+// returns whether the tree is done; *used gets the iterations it ran.
+__device__ __forceinline__ bool tree_run(const MegaParams& P, const TreeParams& T, double* uio,
+                                         double* aux, const double* uni, double* q,
+                                         double* fin, size_t i, int budget, int* used) {
+  double* a = aux + i * AUX_ROWS;
+  double* qs = q + i * T.qd * Q_ROWS;
+  double* fs = fin + i * T.nf * F_ROWS;
+  const double* un = uni + i * T.uu;
+  double* uu = uio + i * U_ROWS;
+
+  const double erg = a[A_ERG], lnt1 = a[A_LNT1];
+  bool photon = a[A_ISPH] > 0.5;
+  double x0c[3] = {a[A_X0X], a[A_X0Y], a[A_X0Z]};
+  double count = a[A_COUNT], cmain = a[A_CMAIN], totp = a[A_TOTP], anom = a[A_ANOM];
+  double nall = a[A_NALLOC], info = a[A_INFO], w = a[A_WCUR], prob = a[A_PROB];
+  double pconv = a[A_PCONV], pconv0 = a[A_PCONV0], tb = a[A_TB], dw = a[A_DW];
+  double ord = a[A_ORD], steptot = a[A_STEPTOT];
+
+  Ray R;
+  for (int c = 0; c < 7; ++c) R.u[c] = uu[c];
+  R.lnt = a[A_LNT];
+  R.errold = a[A_ERROLD];
+  R.steps = (int)a[A_STEPS];
+  R.lnt_ck = a[A_LNTCK];
+  R.n_cross = 0;  // a segment ends at its first recorded crossing
+  R.nfine = 0;
+  R.nbisect = 0;
+  rhs(P, R.u, R.lnt, erg, photon, R.f0);
+  R.g0 = condition(P, R.u, R.lnt);
+  R.dt = a[A_DT] > 0.0 ? a[A_DT] : initial_dt(P, R.u, R.f0, lnt1 - R.lnt);
+
+  // work of this call for the bound: photon steps, accepted steps,
+  // recorded crossings (each evaluates prob_nd once)
+  int n_ph = 0, n_acc = 0, n_rec = 0;
+  double ustar[7], lnt_star = 0.0, p_star = 0.0;
+  auto record = [&](const double* us, double lnt_s, int) {
+    for (int c = 0; c < 7; ++c) ustar[c] = us[c];
+    lnt_star = lnt_s;
+    p_star = P.with_prob ? prob_nd(P, us, erg) : 0.0;
+    n_rec += 1;
+  };
+
+  bool done = false;
+  int it = 0;
+  for (; it < budget && !done; ++it) {
+    int code = 1;  // a node born at or after lnt1 ends at once, without a crossing
+    if (R.lnt < lnt1) {
+      const double lnt_prev = R.lnt;  // an accepted step always advances lnt
+      code = dp5_step(P, R, lnt1, erg, photon, x0c, 0.0, nullptr, record);
+      steptot += 1.0;
+      n_ph += photon ? 1 : 0;
+      n_acc += R.lnt != lnt_prev ? 1 : 0;
+    }
+    if (code == 0) continue;
+
+    // ---- segment end ----
+    const bool cross = code == 3;
+    const bool rare = cross && rare_velocity(P, ustar, erg);
+    bool overflow = false;
+    if (!cross || rare) totp += w;
+    if (!cross) {  // final node (MainRunner.jl:200-207)
+      if (cmain < T.nf - 0.5) {
+        double* f = fs + (int)cmain * F_ROWS;
+        f[F_VALID] = 1.0;
+        f[F_ISFIN] = R.u[0] > P.r_ns * 1.1 ? 1.0 : 0.0;
+        f[F_ISPH] = photon ? 1.0 : 0.0;
+        f[F_ORD] = ord;
+        f[F_W] = w;
+        f[F_PROB] = prob;
+        f[F_PCONV] = pconv;
+        f[F_PCONV0] = pconv0;
+        f[F_TB] = tb;
+        for (int c = 0; c < 7; ++c) f[F_U0 + c] = R.u[c];
+      } else {
+        overflow = true;
+      }
+      cmain += 1.0;
+    } else if (!rare) {  // children (MainRunner.jl:278-305)
+      const bool mc = ord > T.mc_nodes + 0.5;
+      const int ix = (int)ord - 1;  // node index n draws fold_in(event_key, n)
+      const double u_draw = (ix >= 0 && ix < T.uu) ? un[ix] : 0.0;
+      const bool conv = u_draw < p_star;
+      // birth state: the crossing's momenta renormalized onto the axion
+      // shell at the event energy, in place (the host's launch_state does a
+      // Cartesian round trip; in f64 the two differ by rounding)
+      const double r_s = ustar[0] > P.r_ns ? ustar[0] : P.r_ns;
+      const Metric<double> g = metric<double>(r_s, sin(ustar[1]), P.rs0_full, P.r_metric);
+      const double wsq =
+          g.rr * ustar[3] * ustar[3] + g.thth * ustar[4] * ustar[4] + g.pp * ustar[5] * ustar[5];
+      const double et = erg / P.mass_a;
+      const double nn = (-g.tt * et * et - 1.0) / (et * et * wsq);
+      const double nrm = sqrt(nn > 0.0 ? nn : 0.0);
+      const double uc[7] = {ustar[0], ustar[1], ustar[2], ustar[3] * nrm,
+                            ustar[4] * nrm, ustar[5] * nrm, ustar[6]};
+      const double dw_child = ustar[6] / erg;
+      const double is_ph = photon ? 1.0 : 0.0, flip = photon ? 0.0 : 1.0;
+      const double spA = mc ? (conv ? flip : is_ph) : flip;
+      const double wA = mc ? w : p_star * w;
+      const double probA = mc ? (conv ? p_star : 1.0 - p_star) : p_star;
+      const double pconv0A = mc ? (conv ? p_star : pconv) : p_star;
+      const bool push_b = !mc;
+      bool pushed_a = false, pushed_b = false;
+      for (int s = 0; s < T.qd && !(pushed_a && (pushed_b || !push_b)); ++s) {
+        double* qsl = qs + s * Q_ROWS;
+        if (qsl[Q_ST] > 0.5) continue;
+        if (!pushed_a) {
+          write_slot(qsl, uc, lnt_star, spA, wA, probA, p_star, pconv0A, dw_child, nall);
+          pushed_a = true;
+        } else {
+          write_slot(qsl, uc, lnt_star, is_ph, (1.0 - p_star) * w, 1.0 - p_star, p_star,
+                     pconv, dw_child, nall + 1.0);
+          pushed_b = true;
+        }
+      }
+      // QD = mc_nodes + 2 bounds the pending count, so a failed push means
+      // a shrunk queue: the host replays the event
+      if (!pushed_a || (push_b && !pushed_b)) overflow = true;
+      nall += mc ? 1.0 : 2.0;
+    }
+
+    // per-node cutoffs (MainRunner.jl:324-339); an overflow goes first, since
+    // the host replay recomputes the whole event
+    bool stop = true;
+    if (overflow) info = INFO_OVERFLOW;
+    else if (totp >= 1.0 - T.prob_cutoff) info = 2.0;
+    else if (cmain >= T.num_cutoff - 0.5) info = 3.0;
+    else if (count > T.max_nodes + 0.5) info = 4.0;
+    else stop = false;
+
+    if (!stop) {  // pop the max-weight pending node, ties to the lower pool slot
+      int best = -1;
+      double bw = 0.0, bslot = 0.0;
+      for (int s = 0; s < T.qd; ++s) {
+        const double* qsl = qs + s * Q_ROWS;
+        if (qsl[Q_ST] < 0.5) continue;
+        const double ws = qsl[Q_W], sl = qsl[Q_SLOT];
+        if (best < 0 || ws > bw || (ws == bw && sl < bslot)) {
+          best = s;
+          bw = ws;
+          bslot = sl;
+        }
+      }
+      if (best < 0) {
+        stop = true;  // worklist exhausted: info stays 1
+      } else {
+        double* qb = qs + best * Q_ROWS;
+        qb[Q_ST] = 0.0;
+        count += 1.0;
+        ord = count;
+        dw = qb[Q_DW];
+        if (dw > -0.5 || dw < -2.0) anom += 1.0;
+        for (int c = 0; c < 7; ++c) R.u[c] = qb[Q_U0 + c];
+        R.lnt = qb[Q_LNT];
+        photon = qb[Q_ISPH] > 0.5;
+        w = qb[Q_W];
+        prob = qb[Q_PROB];
+        pconv = qb[Q_PCONV];
+        pconv0 = qb[Q_PCONV0];
+        tb = exp(R.lnt);
+        rhs(P, R.u, R.lnt, erg, photon, R.f0);
+        R.g0 = condition(P, R.u, R.lnt);
+        R.dt = initial_dt(P, R.u, R.f0, lnt1 - R.lnt);
+        R.steps = 0;
+        R.lnt_ck = R.lnt;
+        R.errold = 1e-4;
+        R.n_cross = 0;
+        double st, ct, sp, cp;
+        sincos(R.u[1], &st, &ct);
+        sincos(R.u[2], &sp, &cp);
+        x0c[0] = R.u[0] * st * cp;
+        x0c[1] = R.u[0] * st * sp;
+        x0c[2] = R.u[0] * ct;
+      }
+    }
+    done = stop;
+  }
+
+  for (int c = 0; c < 7; ++c) uu[c] = R.u[c];
+  a[A_LNT] = R.lnt;
+  a[A_ERROLD] = R.errold;
+  a[A_DT] = R.dt;
+  a[A_STEPS] = R.steps;
+  a[A_LNTCK] = R.lnt_ck;
+  a[A_ISPH] = photon ? 1.0 : 0.0;
+  a[A_DONE] = done ? 1.0 : 0.0;
+  a[A_INFO] = info;
+  a[A_COUNT] = count;
+  a[A_CMAIN] = cmain;
+  a[A_TOTP] = totp;
+  a[A_ANOM] = anom;
+  a[A_NALLOC] = nall;
+  a[A_WCUR] = w;
+  a[A_PROB] = prob;
+  a[A_PCONV] = pconv;
+  a[A_PCONV0] = pconv0;
+  a[A_TB] = tb;
+  a[A_DW] = dw;
+  a[A_ORD] = ord;
+  a[A_X0X] = x0c[0];
+  a[A_X0Y] = x0c[1];
+  a[A_X0Z] = x0c[2];
+  a[A_STEPTOT] = steptot;
+  a[A_NFINE] += R.nfine;
+  a[A_NBISECT] += R.nbisect;
+  a[A_STEPS_PH] += n_ph;
+  a[A_NCROSS] += n_rec;
+  a[A_NACC] += n_acc;
+  *used = it;
+  return done;
+}
+
+}  // namespace art

@@ -73,7 +73,6 @@ def check_ported(cfg: NumericsConfig, *, save_mode: int = 0, mesh_devices: int =
         (cfg.tree_window > 0, "tree_window > 0 (ROADMAP Queue 1, tree_window)"),
         (cfg.backtrace_chunk > 0, "backtrace_chunk > 0 (ROADMAP Queue 2, K2 chunked)"),
         (bool(cfg.mc_chain), "mc_chain (ROADMAP Queue 1, item 11)"),
-        (cfg.tree_refill > 0, "tree_refill (K4, ROADMAP Queue 2)"),
         (cfg.rhs_mode != "hand" or cfg.cond_mode != "fast" or cfg.gate_trig != "precise",
          "rhs_mode='vjp' / cond_mode='canonical' / gate_trig='native' (ROADMAP Queue 1, "
          "item 11)"),

@@ -3,7 +3,8 @@
 The kernels are compiled at first use with nvcc into one shared library with
 a plain C interface (no PyTorch headers, so the build takes seconds), keyed
 by a hash of the sources, under <checkout>/build/torch_kernels/, and bound
-with ctypes.  Every C entry point launches on the stream it is given and
+with ctypes.  Every source compiles in its own nvcc process, all started
+together, and one more links them.  Every C entry point launches on the stream it is given and
 returns cudaGetLastError(); `check` raises on a non-zero code.
 
 LAUNCHES counts kernel launches per wrapper; a wrapper adds one where it
@@ -22,13 +23,14 @@ import tempfile
 import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = ("line_scan.cu", "megakernel.cu", "treekernel.cu")
-HEADERS = ("physics.cuh", "mega_device.cuh")
+SOURCES = ("line_scan.cu", "megakernel.cu", "treekernel.cu", "treerefill.cu", "refill_probe.cu")
+HEADERS = ("physics.cuh", "mega_device.cuh", "tree_device.cuh")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"line_scan": 0, "megakernel": 0, "treekernel": 0, "probe": 0}
+LAUNCHES = {"line_scan": 0, "megakernel": 0, "treekernel": 0, "treerefill": 0, "probe": 0,
+            "refill_probe": 0}
 
 _lib = None
 BUILD_LOG = ""
@@ -69,16 +71,28 @@ def build() -> str:
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
-           *[os.path.join(CSRC, s) for s in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.remove(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
-    os.replace(tmp, lib_path)   # atomic: concurrent builders agree
+    work = tempfile.mkdtemp(dir=out_dir)
+    try:
+        nvcc = _nvcc()
+        objs = [os.path.join(work, s + ".o") for s in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", o,
+                                   os.path.join(CSRC, s)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        BUILD_LOG = "".join(f"== {s}\n{lg}" for s, lg in zip(SOURCES, logs))
+        failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{BUILD_LOG}")
+        tmp = os.path.join(work, "libart_kernels.so")
+        proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objs], capture_output=True,
+                              text=True)
+        BUILD_LOG += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{BUILD_LOG}")
+        os.replace(tmp, lib_path)   # atomic: concurrent builders agree
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return lib_path
 
 
@@ -86,12 +100,12 @@ def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
-        from adiabatic_raytracer_tpu_torch.ops import line_scan, megakernel, treekernel
+        from adiabatic_raytracer_tpu_torch.ops import (line_scan, megakernel, refill_probe,
+                                                       treekernel)
 
         handle = ctypes.CDLL(build())
-        line_scan.bind(handle)
-        megakernel.bind(handle)
-        treekernel.bind(handle)
+        for mod in (line_scan, megakernel, treekernel, refill_probe):
+            mod.bind(handle)
         _lib = handle
     return _lib
 

@@ -1,6 +1,7 @@
-"""K3: whole forward branching trees in one CUDA kernel (csrc/treekernel.cu).
+"""K3 and K4: whole forward branching trees in CUDA kernels
+(csrc/treekernel.cu, csrc/treerefill.cu, both on csrc/tree_device.cuh).
 
-Replaces the Pallas tree kernel (adiabatic_raytracer_tpu/ops/treekernel.py:
+K3 replaces the Pallas tree kernel (adiabatic_raytracer_tpu/ops/treekernel.py:
 _tree_kernel via tree_kernel_launch).  Every CUDA thread is one event and
 runs the event's complete tree: it integrates each node's segment with the
 DP5 step it shares with K2 (csrc/mega_device.cuh), records finals, pushes
@@ -9,23 +10,29 @@ children onto a per-event pending queue, applies the per-node cutoffs
 This is the reference's exact per-node semantics, i.e. the host work-queue
 engine at tree_k=1 (ops/tree.forward_tree), which is K3's reference.
 
-Where the TPU kernel and the host engine differ, the port follows the host
+K4 replaces the Pallas refill kernel (_tree_kernel_refill via
+tree_refill_launch): the same tree body, but each block's threads serve a
+partition of events from a queue, a thread taking the next unstarted event
+when its tree ends.  Per event it writes what K3 writes, into the same rows.
+
+Where the TPU kernels and the host engine differ, the port follows the host
 engine and K2 (ROADMAP Queue 3): every sign change of a step is scanned (up
 to max_roots_per_step), not only the first; "reached" is lnt >= lnt1 - 1e-14;
 the MC uniforms are f64; the prob cutoff is tot_prob >= 1 - prob_cutoff.
 The child birth state is renormalized onto the axion shell in place, as the
 TPU kernel does (the host engine's Cartesian round trip differs by rounding).
 
-`tree_kernel_launch` launches the kernel on CUDA tensors and runs
-`tree_kernel_launch_plain` (the same blocks, PyTorch, one DP5 step of all
-lanes per loop iteration, K2's torch twins) on CPU tensors.
-`forward_tree_kernel` is the tree engine around it (treekernel.py:1066 of
-the reference, without the refill kernel K4): root state, pre-drawn
-uniforms, one launch or bounded relaunches with staged straggler
-compaction, the exact host replay of overflow events, and finals-only pools.
+`tree_kernel_launch` and `tree_refill_launch` launch the kernels on CUDA
+tensors and run `tree_kernel_launch_plain` and `tree_refill_launch_plain`
+(the same blocks, PyTorch, one DP5 step of all lanes per loop iteration,
+K2's torch twins) on CPU tensors.  `forward_tree_kernel` is the tree engine
+around them (treekernel.py:1066 of the reference): root state, pre-drawn
+uniforms, then K4 (tree_refill > 0), or K3 in one launch or in bounded
+relaunches with staged straggler compaction; the exact host replay of
+overflow events, and finals-only pools.
 
-Blocks are row-major per event (csrc/treekernel.cu documents the layout);
-the row indices below are the kernel's.
+Blocks are row-major per event (csrc/tree_device.cuh documents the layout);
+the row indices below are the kernels'.
 """
 
 from __future__ import annotations
@@ -77,7 +84,7 @@ INFO_OVERFLOW = 9.0   # the event needs the host replay
 
 
 class TreeParams(ctypes.Structure):
-    """Tree scalars passed by value at launch (csrc/treekernel.cu)."""
+    """Tree scalars passed by value at launch (csrc/tree_device.cuh)."""
 
     _fields_ = [("prob_cutoff", ctypes.c_double)] + [(n, ctypes.c_int) for n in (
         "mc_nodes", "num_cutoff", "max_nodes", "nf", "qd", "uu", "it_cap")]
@@ -99,6 +106,9 @@ def bind(lib):
     p = ctypes.c_void_p
     lib.art_treekernel.argtypes = [p, p, p, p, p, ctypes.c_int, MegaParams, TreeParams, p]
     lib.art_treekernel.restype = ctypes.c_int
+    i = ctypes.c_int
+    lib.art_treerefill.argtypes = [p, p, p, p, p, i, i, i, i, i, MegaParams, TreeParams, p]
+    lib.art_treerefill.restype = ctypes.c_int
 
 
 # ---------------------------------------------------------------------------
@@ -396,13 +406,75 @@ def _segment_end(P, T: TreeParams, S, ends, crossed, u_root, lnt_root, p_root, l
     return stop
 
 
-# aux rows carried as per-lane state by the plain version
+# aux rows carried as per-lane state by the plain versions
 _REGS = {"lnt": A_LNT, "errold": A_ERROLD, "dt": A_DT, "steps": A_STEPS, "lnt_ck": A_LNTCK,
          "is_ph": A_ISPH, "info": A_INFO, "count": A_COUNT, "cmain": A_CMAIN, "totp": A_TOTP,
          "anom": A_ANOM, "nall": A_NALLOC, "w": A_WCUR, "prob": A_PROB, "pconv": A_PCONV,
          "pconv0": A_PCONV0, "tb": A_TB, "dw": A_DW, "ord": A_ORD, "steptot": A_STEPTOT,
          "nfine": A_NFINE, "nbisect": A_NBISECT, "steps_ph": A_STEPS_PH, "ncross": A_NCROSS,
          "nacc": A_NACC}
+
+
+def _load(P, uin, aux, uni, qin, ev, nf: int, qd: int):
+    """Per-lane state of the plain versions for the events `ev` [n] (a
+    thread reading its event's rows): the registers, the integrator state
+    with f0, g0 and, where aux holds none, the initial step, the event's
+    energy, end time, uniforms and queue, and empty finals."""
+    a = aux[ev]
+    L = {k: a[:, r].clone() for k, r in _REGS.items()}
+    L["u"] = uin[ev, 0:7].clone()
+    L["erg"], L["lnt1"] = a[:, A_ERG], a[:, A_LNT1]
+    L["x0"] = a[:, A_X0X:A_X0Z + 1].clone()
+    L["un"] = uni[ev]
+    L["q"] = qin[ev].reshape(-1, qd, ROWS).clone()
+    L["fl"] = torch.zeros((ev.shape[0], nf, ROWS), dtype=torch.float64, device=uin.device)
+    L["f0"] = _f(P, L["u"], L["lnt"], L["erg"], L["is_ph"])
+    L["g0"] = _g(P, L["u"], L["lnt"])
+    L["dt"] = torch.where(L["dt"] > 0.0, L["dt"],
+                          _initial_dt(P, L["u"], L["f0"], L["lnt1"] - L["lnt"]))
+    return L
+
+
+def _store(L, lanes, ev, uout, auxout, qout, fin, done, iters):
+    """Write the state of `lanes` back into the rows of their events `ev`
+    (a thread writing its event out), with A_DONE = done and A_ITERS =
+    iters."""
+    n = ev.shape[0]
+    a = auxout[ev]
+    for k, r in _REGS.items():
+        a[:, r] = L[k][lanes]
+    a[:, A_X0X:A_X0Z + 1] = L["x0"][lanes]
+    a[:, A_DONE] = done.to(a.dtype)
+    a[:, A_ITERS] = iters
+    auxout[ev] = a
+    uout[ev, 0:7] = L["u"][lanes]
+    qout[ev] = L["q"][lanes].reshape(n, -1)
+    fin[ev] = L["fl"][lanes].reshape(n, -1)
+
+
+def _advance(P, T: TreeParams, L, active, mass_eff):
+    """One lockstep iteration of the lanes `active`: a DP5 step of each whose
+    node starts before lnt1, then the segment ends (a node born at or after
+    lnt1 ends at once).  Updates L in place; returns the lanes whose tree
+    stopped."""
+    f64 = L["u"].dtype
+    nostep = active & (L["lnt"] >= L["lnt1"])
+    run = active & ~nostep
+    L["steptot"] = L["steptot"] + run.to(f64)
+    L["steps_ph"] = L["steps_ph"] + (run & (L["is_ph"] > 0.5)).to(f64)
+    lnt_prev = L["lnt"]   # an accepted step always advances lnt
+    seg_end, crossed, u_root, lnt_root = _step(P, L, run, L["lnt1"], L["erg"], L["x0"])
+    L["nacc"] = L["nacc"] + (run & (L["lnt"] != lnt_prev)).to(f64)
+    L["ncross"] = L["ncross"] + crossed.to(f64)
+    ends = (seg_end & run) | nostep
+    if not bool(ends.any()):
+        return torch.zeros_like(active)
+    p_root = torch.zeros_like(lnt_root)
+    ci = crossed.nonzero().squeeze(1)
+    if ci.numel():
+        p_root[ci] = _prob_nd(P, u_root[ci].unbind(1), L["erg"][ci])
+    return _segment_end(P, T, L, ends, crossed, u_root, lnt_root, p_root, L["lnt1"], L["erg"],
+                        L["x0"], L["un"], L["q"], L["fl"], mass_eff)
 
 
 def tree_kernel_launch_plain(uin, aux, uni, qin, sc: Scene, cfg: NumericsConfig,
@@ -413,61 +485,19 @@ def tree_kernel_launch_plain(uin, aux, uni, qin, sc: Scene, cfg: NumericsConfig,
     tree_kernel_launch."""
     P = kernel_params(sc, cfg)
     B = uin.shape[0]
-    uu = uni.shape[1]
-    T = tree_params(tcfg, nf=nf, qd=qd, uu=uu, it_cap=it_cap)
-    f64 = torch.float64
+    T = tree_params(tcfg, nf=nf, qd=qd, uu=uni.shape[1], it_cap=it_cap)
     uout, auxout, qout = uin.clone(), aux.clone(), qin.clone()
-    fin = torch.zeros((B, nf * ROWS), dtype=f64, device=uin.device)
+    fin = torch.zeros((B, nf * ROWS), dtype=torch.float64, device=uin.device)
     li = (aux[:, A_DONE] < 0.5).nonzero().squeeze(1)
     if li.numel() == 0 or it_cap <= 0:
         return uout, auxout, qout, fin
-    a = aux[li]
-    S = {k: a[:, r].clone() for k, r in _REGS.items()}
-    S["u"] = uin[li, 0:7].clone()
-    erg, lnt1 = a[:, A_ERG], a[:, A_LNT1]
-    x0 = a[:, A_X0X:A_X0Z + 1].clone()
-    un = uni[li]
-    q = qin[li].reshape(-1, qd, ROWS).clone()
-    fl = torch.zeros((li.shape[0], nf, ROWS), dtype=f64, device=uin.device)
-    S["f0"] = _f(P, S["u"], S["lnt"], erg, S["is_ph"])
-    S["g0"] = _g(P, S["u"], S["lnt"])
-    S["dt"] = torch.where(S["dt"] > 0.0, S["dt"],
-                          _initial_dt(P, S["u"], S["f0"], lnt1 - S["lnt"]))
-    mass_eff = sc.mass_ns_eff
+    L = _load(P, uin, aux, uni, qin, li, nf, qd)
     done = torch.zeros(li.shape[0], dtype=torch.bool, device=uin.device)
     it = 0
     while it < it_cap and not bool(done.all()):
         it += 1
-        active = ~done
-        nostep = active & (S["lnt"] >= lnt1)     # born at or after lnt1: ends at once
-        run = active & ~nostep
-        S["steptot"] = S["steptot"] + run.to(f64)
-        S["steps_ph"] = S["steps_ph"] + (run & (S["is_ph"] > 0.5)).to(f64)
-        lnt_prev = S["lnt"]   # an accepted step always advances lnt
-        seg_end, crossed, u_root, lnt_root = _step(P, S, run, lnt1, erg, x0)
-        S["nacc"] = S["nacc"] + (run & (S["lnt"] != lnt_prev)).to(f64)
-        S["ncross"] = S["ncross"] + crossed.to(f64)
-        ends = (seg_end & run) | nostep
-        if not bool(ends.any()):
-            continue
-        p_root = torch.zeros_like(lnt_root)
-        ci = crossed.nonzero().squeeze(1)
-        if ci.numel():
-            p_root[ci] = _prob_nd(P, u_root[ci].unbind(1), erg[ci])
-        stop = _segment_end(P, T, S, ends, crossed, u_root, lnt_root, p_root, lnt1, erg, x0,
-                            un, q, fl, mass_eff)
-        done = done | stop
-
-    a = auxout[li]
-    for k, r in _REGS.items():
-        a[:, r] = S[k]
-    a[:, A_X0X:A_X0Z + 1] = x0
-    a[:, A_DONE] = done.to(f64)
-    a[:, A_ITERS] = a[:, A_ITERS] + 1.0
-    auxout[li] = a
-    uout[li, 0:7] = S["u"]
-    qout[li] = q.reshape(li.shape[0], -1)
-    fin[li] = fl.reshape(li.shape[0], -1)
+        done = done | _advance(P, T, L, ~done, sc.mass_ns_eff)
+    _store(L, slice(None), li, uout, auxout, qout, fin, done, aux[li, A_ITERS] + 1.0)
     return uout, auxout, qout, fin
 
 
@@ -486,12 +516,9 @@ def tree_kernel_launch(uin, aux, uni, qin, sc: Scene, cfg: NumericsConfig, tcfg:
     lib = cuda_lib.lib()
     B = uin.shape[0]
     uu = uni.shape[1]
-    f64 = torch.float64
-    for t, name, shape in ((uin, "uin", (B, U_ROWS)), (aux, "aux", (B, AUX_ROWS)),
-                           (uni, "uni", (B, uu)), (qin, "qin", (B, qd * ROWS))):
-        cuda_lib.require(t, name, f64, shape)
+    _require_blocks(uin, aux, uni, qin, qd)
     uout, auxout, qout = uin.clone(), aux.clone(), qin.clone()
-    fin = torch.zeros((B, nf * ROWS), dtype=f64, device=uin.device)
+    fin = torch.zeros((B, nf * ROWS), dtype=torch.float64, device=uin.device)
     code = lib.art_treekernel(uout.data_ptr(), auxout.data_ptr(), uni.data_ptr(),
                               qout.data_ptr(), fin.data_ptr(), B, kernel_params(sc, cfg),
                               tree_params(tcfg, nf=nf, qd=qd, uu=uu, it_cap=it_cap),
@@ -501,8 +528,121 @@ def tree_kernel_launch(uin, aux, uni, qin, sc: Scene, cfg: NumericsConfig, tcfg:
     return uout, auxout, qout, fin
 
 
+def _require_blocks(uin, aux, uni, qin, qd):
+    B, uu = uin.shape[0], uni.shape[1]
+    for t, name, shape in ((uin, "uin", (B, U_ROWS)), (aux, "aux", (B, AUX_ROWS)),
+                           (uni, "uni", (B, uu)), (qin, "qin", (B, qd * ROWS))):
+        cuda_lib.require(t, name, torch.float64, shape)
+
+
+def _check_refill(epart, refill_k, it_cap, lanes):
+    if not (epart >= 1 and refill_k >= 1 and 0 <= it_cap < 2**31 and 1 <= lanes <= 128):
+        raise ValueError(f"K4 takes epart >= 1, refill_k >= 1, 0 <= it_cap < 2**31 and "
+                         f"1 <= lanes <= 128; got {epart}, {refill_k}, {it_cap}, {lanes}")
+
+
+def tree_refill_launch_plain(uin, aux, uni, qin, sc: Scene, cfg: NumericsConfig,
+                             tcfg: TreeConfig, *, nf: int, qd: int, epart: int, refill_k: int,
+                             it_cap: int, lanes: int = 128):
+    """K4's plain version on the same blocks: each partition's threads as
+    lockstep lanes, one DP5 step (or segment end) of every busy lane per
+    loop iteration.  At iteration 0, and whenever the iteration count is a
+    multiple of refill_k, the idle lanes of a partition take its next live
+    events in lane order; a lane whose tree stops writes its event's rows at
+    once, with A_ITERS = the iteration count.  A partition with nv live
+    events runs min(lanes, nv) lanes (the others would never get one).
+    Same contract as tree_refill_launch."""
+    _check_refill(epart, refill_k, it_cap, lanes)
+    P = kernel_params(sc, cfg)
+    E = uin.shape[0]
+    dev = uin.device
+    T = tree_params(tcfg, nf=nf, qd=qd, uu=uni.shape[1], it_cap=it_cap)
+    uout, auxout, qout = uin.clone(), aux.clone(), qin.clone()
+    fin = torch.zeros((E, nf * ROWS), dtype=torch.float64, device=dev)
+    live = aux[:, A_DONE] < 0.5
+    queues = [live[p0:p0 + epart].nonzero().squeeze(1) + p0 for p0 in range(0, E, epart)]
+    n_lanes = [min(lanes, int(qq.numel())) for qq in queues]
+    first = [0]
+    for n in n_lanes:
+        first.append(first[-1] + n)
+    if first[-1] == 0 or it_cap <= 0:
+        return uout, auxout, qout, fin
+    heads = list(n_lanes)
+    lane_ev = torch.cat([qq[:n] for qq, n in zip(queues, n_lanes)])
+    L = _load(P, uin, aux, uni, qin, lane_ev, nf, qd)
+    busy = torch.ones(first[-1], dtype=torch.bool, device=dev)
+    it = 0
+    while it < it_cap:
+        if it % refill_k == 0:
+            new_l, new_e = [], []
+            for p, qq in enumerate(queues):
+                k = qq.numel() - heads[p]
+                if k <= 0:
+                    continue
+                idle = (~busy[first[p]:first[p + 1]]).nonzero().squeeze(1) + first[p]
+                k = min(k, idle.numel())
+                if k:
+                    new_l.append(idle[:k])
+                    new_e.append(qq[heads[p]:heads[p] + k])
+                    heads[p] += k
+            if new_l:
+                ln, ev = torch.cat(new_l), torch.cat(new_e)
+                for key, val in _load(P, uin, aux, uni, qin, ev, nf, qd).items():
+                    L[key][ln] = val
+                lane_ev[ln] = ev
+                busy[ln] = True
+        if not bool(busy.any()):
+            if all(h >= qq.numel() for h, qq in zip(heads, queues)):
+                break
+            it = (it // refill_k + 1) * refill_k   # every lane waits for the next refill
+            continue
+        stop = _advance(P, T, L, busy, sc.mass_ns_eff)
+        it += 1
+        si = stop.nonzero().squeeze(1)
+        if si.numel():
+            _store(L, si, lane_ev[si], uout, auxout, qout, fin,
+                   torch.ones(si.shape[0], dtype=torch.bool, device=dev), float(it))
+            busy[si] = False
+    bi = busy.nonzero().squeeze(1)   # budget spent: these events stay live
+    if bi.numel():
+        _store(L, bi, lane_ev[bi], uout, auxout, qout, fin,
+               torch.zeros(bi.shape[0], dtype=torch.bool, device=dev), float(it))
+    return uout, auxout, qout, fin
+
+
+def tree_refill_launch(uin, aux, uni, qin, sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig,
+                       *, nf: int, qd: int, epart: int, refill_k: int, it_cap: int,
+                       lanes: int = 128):
+    """One K4 launch over [E] events in partitions of `epart` (the last may
+    be short), each served by one block of `lanes` threads.  Same blocks as
+    tree_kernel_launch; returns (uout, auxout, qout, fin [E, NF*16]).  Every
+    event with aux[A_DONE] clear runs until its tree is done, unless its
+    thread's it_cap iterations run out first (then its A_DONE stays clear);
+    aux[A_ITERS] gets the serving thread's iteration count when the event
+    stopped.  CPU tensors run tree_refill_launch_plain."""
+    if uin.device.type == "cpu":
+        return tree_refill_launch_plain(uin, aux, uni, qin, sc, cfg, tcfg, nf=nf, qd=qd,
+                                        epart=epart, refill_k=refill_k, it_cap=it_cap,
+                                        lanes=lanes)
+    _check_refill(epart, refill_k, it_cap, lanes)
+    check_supported(sc, cfg, 1)
+    lib = cuda_lib.lib()
+    E = uin.shape[0]
+    _require_blocks(uin, aux, uni, qin, qd)
+    uout, auxout, qout = uin.clone(), aux.clone(), qin.clone()
+    fin = torch.zeros((E, nf * ROWS), dtype=torch.float64, device=uin.device)
+    code = lib.art_treerefill(uout.data_ptr(), auxout.data_ptr(), uni.data_ptr(),
+                              qout.data_ptr(), fin.data_ptr(), E, epart, lanes, refill_k, it_cap,
+                              kernel_params(sc, cfg),
+                              tree_params(tcfg, nf=nf, qd=qd, uu=uni.shape[1], it_cap=it_cap),
+                              cuda_lib.stream_ptr(uin))
+    cuda_lib.check(code, "treerefill launch")
+    cuda_lib.LAUNCHES["treerefill"] += 1
+    return uout, auxout, qout, fin
+
+
 # ---------------------------------------------------------------------------
-# forward_tree_kernel: the tree engine around K3
+# forward_tree_kernel: the tree engine around K3 and K4
 # ---------------------------------------------------------------------------
 
 
@@ -565,21 +705,44 @@ def _launch_packed(st, sc, cfg, tcfg, NF, QD, it_cap):
     return dict(idx=st["idx"], uni=st["uni"], uin=uo, aux=ao, qin=qo, fin=fin)
 
 
+def refill_partition(E: int, refill: int) -> int:
+    """Events per K4 partition (treekernel.py:1164-1165 of the reference):
+    1024 at tree_refill=1, else tree_refill but at least 128, rounded up to
+    a multiple of 128 and no wider than the batch so rounded."""
+    epc = 1024 if refill == 1 else max(int(refill), 128)
+    return min(_ceil_to(E, 128), _ceil_to(epc, 128))
+
+
 def run_tree_kernel(uin, aux, uni, qin, sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, *,
-                    nf: int, qd: int):
-    """Every event's tree to its end: one launch (tree_kernel_chunk = 0), or
-    bounded relaunches of tree_kernel_chunk steps with staged straggler
-    compaction (treekernel.py:1209-1290 of the reference): every launch packs
-    the live events first; each stage runs until the live events fit the
-    next, 4x narrower buffer, then cuts to it, and the step budget grows 4x.
-    Returns (auxout, fin) in input order."""
+                    nf: int, qd: int, lanes: int = 128):
+    """Every event's tree to its end.  tree_refill > 0: one K4 launch over
+    partitions of refill_partition(E, tree_refill) events, `lanes` threads
+    each (128; tests serve several events per lane with fewer), refill
+    period tree_refill_k, it_cap per thread as at treekernel.py:1189 of the
+    reference; an event left unfinished raises.  Else K3: one launch
+    (tree_kernel_chunk = 0), or bounded relaunches of tree_kernel_chunk steps
+    with staged straggler compaction (treekernel.py:1209-1290 of the
+    reference): every launch packs the live events first; each stage runs
+    until the live events fit the next, 4x narrower buffer, then cuts to it,
+    and the step budget grows 4x.  Returns (auxout, fin) in input order."""
     it_full = (int(tcfg.max_nodes) + 2) * (int(cfg.max_steps) + 2)
+    E = uin.shape[0]
+    if int(cfg.tree_refill) > 0:
+        ep = refill_partition(E, int(cfg.tree_refill))
+        cap = min(it_full * ep, 2**31 - 2)
+        _, auxout, _, fin = tree_refill_launch(uin, aux, uni, qin, sc, cfg, tcfg, nf=nf, qd=qd,
+                                               epart=ep, refill_k=max(int(cfg.tree_refill_k), 1),
+                                               it_cap=cap, lanes=lanes)
+        left = int((auxout[:, A_DONE] < 0.5).sum())
+        if left:
+            raise RuntimeError(f"K4 left {left} of {E} events unfinished within {cap} "
+                               f"iterations per thread")
+        return auxout, fin
     chunk = int(cfg.tree_kernel_chunk)
     if chunk <= 0:
         _, auxout, _, fin = tree_kernel_launch(uin, aux, uni, qin, sc, cfg, tcfg, nf=nf, qd=qd,
                                                it_cap=it_full)
         return auxout, fin
-    E = uin.shape[0]
     st = dict(idx=torch.arange(E, device=uin.device), uin=uin, aux=aux, qin=qin, uni=uni,
               fin=torch.zeros((E, nf * ROWS), dtype=uin.dtype, device=uin.device))
     acc_aux, acc_fin = aux.clone(), st["fin"].clone()
@@ -601,9 +764,10 @@ def run_tree_kernel(uin, aux, uni, qin, sc: Scene, cfg: NumericsConfig, tcfg: Tr
 
 
 def forward_tree_kernel(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
-                        tcfg: TreeConfig, *, lnt_end):
+                        tcfg: TreeConfig, *, lnt_end, lanes: int = 128):
     """tree.forward_tree on the production (saveMode <= 1) contract through
-    K3: whole trees in the kernel, then the exact host replay of the events
+    K3 or K4 (run_tree_kernel; `lanes` is K4's threads per partition): whole
+    trees in the kernel, then the exact host replay of the events
     that overflowed the NF finals slots (MC draws are keyed by event and node
     index, so the replay is the host engine's own result), merged.  The
     returned TreeResult's pools hold only the final nodes of the kernel's
@@ -625,7 +789,7 @@ def forward_tree_kernel(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConf
     keys = _event_keys(key, E, dev)
     uin, aux, uni, qin = tree_inputs(keys, xpos, k_init, erg_inf, sc, cfg, tcfg,
                                      lnt_end=lnt_end)
-    auxout, fin = run_tree_kernel(uin, aux, uni, qin, sc, cfg, tcfg, nf=NF, qd=QD)
+    auxout, fin = run_tree_kernel(uin, aux, uni, qin, sc, cfg, tcfg, nf=NF, qd=QD, lanes=lanes)
     incomplete = auxout[:, A_INFO] == INFO_OVERFLOW
     complete = ~incomplete
     tr_fb = None
@@ -664,7 +828,8 @@ def forward_tree_kernel(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConf
     count = i64(A_COUNT)
     info = i64(A_INFO)
     info = torch.where(count > tcfg.mc_nodes, -torch.abs(info), info)
-    # the kernel has no host iterations: report the launches each event ran in
+    # the kernels have no host iterations: K3 reports the launches each event
+    # ran in, K4 its thread's iteration count when the event stopped
     launches = i64(A_ITERS)
     out = dict(count=count, count_main=i64(A_CMAIN), info=info,
                tot_prob=auxout[:, A_TOTP].to(dtype), n_alloc=i64(A_NALLOC),

@@ -10,7 +10,8 @@ its CLI entry point at the production default scene and checks the output.
 Phases (each prints one line of findings; any failure raises and exits
 non-zero):
   1. device: torch.cuda must be available; nvidia-smi name and power limit
-  2. build:  nvcc the kernel library, K1-K3 (registers / spills from ptxas)
+  2. build:  nvcc the kernel library, one process per source, all started
+     together: K1-K4 and P1 (registers / spills from ptxas)
   3. K1 line scan vs its plain version on a sampler chunk (16384 lines x the
      production grid): g to f32 rounding, sampled roots within 2e-3 km
   4. device functions of K2/K3 (probe) vs their torch twins, f64, rtol 1e-12
@@ -30,8 +31,21 @@ non-zero):
      K1, K2 and K3 must each have launched
   8. the queue path (--tree_engine queue), one batch of 2048, counters reset
      just before it; K1 and K2 must have launched
-  9. the kernels' JSON line (times, launches on the kernel path, bounds), the
-     nvidia-smi line, the result line
+  9. P1 vs refill_probe_plain at the probe's shapes (512 events, 128 lanes):
+     ids, steps and write counts identical, the probe's own checks, and its
+     entry point (refill_probe.main) with the counters reset just before it
+ 10. K4 vs tree_refill_launch_plain on 24 production events served by 8
+     threads in one 128-event partition: phase 6's bars
+ 11. K4 against K3 (one launch) on 2048 events at tree_refill 128 and 1,
+     at the default cutoffs and at the reference's production cutoffs
+     (num_cutoff 50, mc_nodes 10, max_nodes 100): phase 6's bars, whether
+     bitwise; host-clock times and launches of K3 one launch, K3 chunk 64,
+     K4 at 128 and K4 at 1
+ 12. the refill path: driver.run with engine mega, tree_engine kernel,
+     tree_refill 1, 2 x 2048 events, saveMode 1, warm under torch.profiler,
+     counters reset just before it; K1, K2 and K4 must have launched, K3 not
+ 13. the kernels' JSON line (times, launches on each kernel's path, bounds),
+     the nvidia-smi line, the result line
 
 Bounds: the least time the card could take for a kernel's work, the larger
 of its bytes (each input read once, each output written once) over 3.35
@@ -41,7 +55,7 @@ Operations are counted from the sources (FLOP_* below: + - * / sqrt and
 each transcendental as one) times the work this run's data needed: K2's
 steps, dense passes and crossings from its diagnostics, K3's per-event work
 counters (photon and axion steps, accepted steps, dense passes, bisected
-roots, recorded crossings).
+roots, recorded crossings), the same for K4.
 
 Writes its npy output, the build log and the profiler table under
 chiprun_out/chip_smoke/.
@@ -50,8 +64,11 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -107,7 +124,7 @@ REC_P99 = 1e-6
 REC_WORST = 1e-5
 
 
-def compare_records(fa, fb, slots, tag):
+def compare_records(fa, fb, slots, tag, phase=6):
     """Relative error of each K3 final record of fa against fb ([E, NF, 16]
     fin blocks) on `slots`, the worst over its REC_NAMES columns: each
     column relative to its own size, the angles relative to max(|value|,
@@ -131,7 +148,7 @@ def compare_records(fa, fb, slots, tag):
         if rel[j] == 0:
             break
         c = int(col[j])
-        log(6, f"  {tag} worst record: event {int(ev[j])} slot {int(sl[j])} order "
+        log(phase, f"  {tag} worst record: event {int(ev[j])} slot {int(sl[j])} order "
                f"{int(fa[ev[j], sl[j], tk.F_ORD])} column {REC_NAMES[c]}: {x[j, c].item():.12g} "
                f"vs {y[j, c].item():.12g} (rel {rel[j].item():.2g})")
     q = torch.quantile(rel, torch.tensor([0.5, 0.99], dtype=rel.dtype, device=rel.device))
@@ -195,13 +212,35 @@ def phase_build():
            + " | ".join(f"{k}: {v}" for k, v in ptxas_summary(cuda_lib.BUILD_LOG).items()))
 
 
+KERNEL_NAMES = ("line_scan_kernel", "mega_kernel", "probe_kernel", "tree_kernel",
+                "tree_refill_kernel", "refill_probe_kernel")
+
+
+def source_names(symbol):
+    """The names in a symbol: the length-prefixed source names of an
+    Itanium-mangled _Z... symbol, else the symbol itself."""
+    if not symbol.startswith("_Z"):
+        return {symbol}
+    names, i = set(), 2
+    while i < len(symbol):
+        m = re.match(r"[1-9][0-9]*", symbol[i:])
+        if not m:
+            i += 1
+            continue
+        j = i + len(m.group())
+        names.add(symbol[j:j + int(m.group())])
+        i = j + int(m.group())
+    return names
+
+
 def ptxas_summary(build_log):
-    """{kernel: 'stack/spill; registers'} from nvcc -Xptxas -v output."""
+    """{kernel: 'stack/spill; registers'} from nvcc -Xptxas -v output; a
+    kernel is matched by its whole name."""
     out, name = {}, None
     for ln in build_log.splitlines():
         if "Function properties for" in ln:
-            name = next((k for k in ("line_scan", "mega_kernel", "probe_kernel", "tree_kernel")
-                         if k in ln), None)
+            names = source_names(ln.split("Function properties for", 1)[1].strip())
+            name = next((k for k in KERNEL_NAMES if k in names), None)
             if name:
                 out[name] = ""
         elif name and ("registers" in ln or "spill" in ln):
@@ -479,53 +518,24 @@ def phase_treekernel(device, n_plain, n_tree):
     torch.cuda.synchronize()
     plain_ms = (time.time() - t0) * 1e3   # host clock around one synced run
     ms = cuda_ms(launch, 3)
-    rows = [tk.A_COUNT, tk.A_CMAIN, tk.A_INFO, tk.A_NALLOC, tk.A_ANOM]
-    same = (a_k[:, rows] == a_p[:, rows]).all(dim=1) & (a_k[:, tk.A_DONE] == 1)
-    frac = same.double().mean().item()
-    for i in (~same).nonzero().squeeze(1).tolist()[:10]:
-        log(6, f"  counter mismatch event {i}: kernel {a_k[i, rows].tolist()} plain "
-               f"{a_p[i, rows].tolist()}")
-    fk = f_k.reshape(n_plain, nf, tk.ROWS)
-    fp = f_p.reshape(n_plain, nf, tk.ROWS)
-    slots = same[:, None] & (fk[..., tk.F_VALID] > 0.5) & (fp[..., tk.F_VALID] > 0.5)
-    cols = [tk.F_W, tk.F_PROB, tk.F_PCONV, tk.F_PCONV0, tk.F_TB] + list(range(tk.F_U0, 16))
-    max_abs = torch.abs(fk[slots][:, cols] - fp[slots][:, cols]).max().item()
-    med, p99, worst = compare_records(fk, fp, slots, "K3 vs plain")
-    orders_same = bool((fk[slots][:, tk.F_ORD] == fp[slots][:, tk.F_ORD]).all())
-    # the same steps: attempted (and photon), accepted, dense passes, recorded
-    # crossings.  Bisected roots may differ: a child is born at a root, where
-    # the sign of the condition is rounding noise, and a flip there is
-    # bisected and then filtered as the start point
-    work = [tk.A_STEPTOT, tk.A_STEPS_PH, tk.A_NACC, tk.A_NFINE, tk.A_NCROSS]
-    work_same = (a_k[:, work] == a_p[:, work]).all(dim=1)[same].double().mean().item()
+    r = tree_agreement(a_k, f_k, a_p, f_p, nf, "K3 vs plain", 6)
+    same = (a_k[:, [tk.A_COUNT, tk.A_CMAIN, tk.A_INFO, tk.A_NALLOC, tk.A_ANOM]]
+            == a_p[:, [tk.A_COUNT, tk.A_CMAIN, tk.A_INFO, tk.A_NALLOC, tk.A_ANOM]]).all(dim=1)
     bis_same = (a_k[:, tk.A_NBISECT] == a_p[:, tk.A_NBISECT])[same].double().mean().item()
-    # this launch's work by species: attempted steps (photon steps at the
-    # photon RHS, the rest at the axion RHS), the coarse gate of accepted
-    # steps, dense passes, bisected roots, one prob_nd per recorded crossing
     tot = lambda r: a_k[:, r].sum().item()
     steps = a_k[:, tk.A_STEPTOT]
     n_ph = tot(tk.A_STEPS_PH)
-    nflop = (n_ph * flop_step("photon") + (tot(tk.A_STEPTOT) - n_ph) * flop_step("axion")
-             + tot(tk.A_NACC) * flop_gate(cfg.interp_coarse)
-             + tot(tk.A_NFINE) * flop_dense(cfg.interp_points)
-             + tot(tk.A_NBISECT) * flop_bisect(cfg.bisect_iters) + tot(tk.A_NCROSS) * FLOP_PROB)
-    # inputs uin, aux, uni, qin; outputs uout, auxout, qout, fin
-    nbytes = 8 * n_plain * 2 * (tk.U_ROWS + tk.AUX_ROWS + qd * tk.ROWS) \
-        + 8 * n_plain * (blocks[2].shape[1] + nf * tk.ROWS)
-    b_ms, b_by = bound(nbytes, nflop, F64_PER_S)
+    b_ms, b_by = tree_bound(a_k, blocks[2].shape[1], nf, qd, cfg)
     log(6, f"K3 vs plain on {n_plain} events, one launch (default cutoffs, NF {nf}, QD {qd}): "
-           f"identical counters {frac:.4f} (bar 0.99), work counters identical on those "
-           f"{work_same:.4f} (bar 0.99; bisection counts {bis_same:.4f}); finals on those events: {int(slots.sum())} records, orders "
-           f"identical {orders_same}, per-record rel err median {med:.3g} (bar 1e-8), p99 "
-           f"{p99:.3g} (bar {REC_P99:g}), worst {worst:.3g} (bar {REC_WORST:g}), max abs "
-           f"{max_abs:.3g}; steps per event mean {steps.mean().item():.1f} max "
-           f"{int(steps.max().item())}, photon steps {int(n_ph)} of {int(tot(tk.A_STEPTOT))}, "
-           f"accepted {int(tot(tk.A_NACC))}, dense passes {int(tot(tk.A_NFINE))}, bisections "
-           f"{int(tot(tk.A_NBISECT))}, recorded crossings {int(tot(tk.A_NCROSS))}; kernel "
-           f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by})")
-    if not (frac >= 0.99 and work_same >= 0.99 and med < 1e-8 and p99 < REC_P99
-            and worst < REC_WORST and orders_same):
+           f"{r['text']}; bisection counts identical {bis_same:.4f}; steps per event mean "
+           f"{steps.mean().item():.1f} max {int(steps.max().item())}, photon steps {int(n_ph)} "
+           f"of {int(tot(tk.A_STEPTOT))}, accepted {int(tot(tk.A_NACC))}, dense passes "
+           f"{int(tot(tk.A_NFINE))}, bisections {int(tot(tk.A_NBISECT))}, recorded crossings "
+           f"{int(tot(tk.A_NCROSS))}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+           f"{b_ms:.4f} ms ({b_by})")
+    if not r["ok"]:
         raise AssertionError("K3 disagrees with its plain version")
+    max_abs = r["max_abs"]
 
     # --- the tree engine on 2048 events vs the host engine at tree_k=1 ---
     x, k, e = sample_events(n_tree, device, sc, cfg, maxR, n_grid, seed=17)
@@ -563,23 +573,281 @@ def phase_treekernel(device, n_plain, n_tree):
             raise AssertionError(f"K3 (chunk {chunk}) disagrees with the host engine: {frac_h}")
     # a cut launch resumes: the relaunched events' counters and finals
     # against those of one launch
-    (a0, f0), (a64, f64) = ends[0], ends[64]
-    f0, f64 = f0.reshape(n_tree, nf, tk.ROWS), f64.reshape(n_tree, nf, tk.ROWS)
-    crow = [tk.A_COUNT, tk.A_CMAIN, tk.A_INFO, tk.A_NALLOC, tk.A_ANOM, tk.A_STEPTOT]
-    same = (a0[:, crow] == a64[:, crow]).all(dim=1)
-    frac_c = same.double().mean().item()
-    slots = same[:, None] & (f0[..., tk.F_VALID] > 0.5)
-    bitwise = bool((f64[slots] == f0[slots]).all()) and bool(same.all())
-    med_c, p99_c, worst_c = compare_records(f64, f0, slots, "chunk 64 vs one launch")
+    rc = tree_agreement(*ends[64], *ends[0], nf, "chunk 64 vs one launch", 6)
     log(6, f"K3 tree engine on {n_tree} events vs host engine at tree_k=1 on K2 "
            f"({host_ms:.1f} ms, host clock): " + "; ".join(parts) + f"; chunk 64 vs one "
-           f"launch: identical counters {frac_c:.4f} (bar 0.99), {int(slots.sum())} records, "
-           f"per-record rel err median {med_c:.3g} p99 {p99_c:.3g} worst {worst_c:.3g} (bars "
-           f"as above), bitwise identical {bitwise}")
-    if not (frac_c >= 0.99 and med_c < 1e-8 and p99_c < REC_P99 and worst_c < REC_WORST):
+           f"launch: {rc['text']}")
+    if not (rc["frac"] >= 0.99 and rc["med"] < 1e-8 and rc["p99"] < REC_P99
+            and rc["worst"] < REC_WORST):
         raise AssertionError("K3's relaunch disagrees with one launch")
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None}
+
+
+def tree_bound(a, uu, nf, qd, cfg):
+    """(bound_ms, bound_by) of one K3 or K4 run whose aux output is a: the
+    run's work by species (attempted steps, photon steps at the photon RHS,
+    the rest at the axion RHS), the coarse gate of accepted steps, dense
+    passes, bisected roots, one prob_nd per recorded crossing; the bytes of
+    its inputs uin, aux, uni, qin and outputs uout, auxout, qout, fin."""
+    from adiabatic_raytracer_tpu_torch.ops import treekernel as tk
+
+    tot = lambda r: a[:, r].sum().item()
+    n_ph = tot(tk.A_STEPS_PH)
+    nflop = (n_ph * flop_step("photon") + (tot(tk.A_STEPTOT) - n_ph) * flop_step("axion")
+             + tot(tk.A_NACC) * flop_gate(cfg.interp_coarse)
+             + tot(tk.A_NFINE) * flop_dense(cfg.interp_points)
+             + tot(tk.A_NBISECT) * flop_bisect(cfg.bisect_iters) + tot(tk.A_NCROSS) * FLOP_PROB)
+    n = a.shape[0]
+    nbytes = 8 * n * 2 * (tk.U_ROWS + tk.AUX_ROWS + qd * tk.ROWS) + 8 * n * (uu + nf * tk.ROWS)
+    return bound(nbytes, nflop, F64_PER_S)
+
+
+def tree_agreement(a_k, f_k, a_r, f_r, nf, tag, phase):
+    """Phase 6's comparison of a kernel run (a_k, f_k: aux and fin blocks)
+    with a reference run of the same events: counters identical (tree done)
+    on >= 99% of events; on those the steps, photon steps, accepted steps,
+    dense passes and recorded crossings on >= 99% (bisected roots may
+    differ: a child is born at a root, where the sign of the condition is
+    rounding noise, and a flip there is bisected and then filtered as the
+    start point), orders identical, and the per-record relative error of
+    their finals (compare_records) median < 1e-8, p99 < REC_P99, worst <
+    REC_WORST.  Returns a dict with "ok", "text" and the numbers; "bitwise"
+    says whether every row but A_ITERS and every finals slot is
+    identical."""
+    import torch
+
+    from adiabatic_raytracer_tpu_torch.ops import treekernel as tk
+
+    n = a_k.shape[0]
+    rows = [tk.A_COUNT, tk.A_CMAIN, tk.A_INFO, tk.A_NALLOC, tk.A_ANOM]
+    work = [tk.A_STEPTOT, tk.A_STEPS_PH, tk.A_NACC, tk.A_NFINE, tk.A_NCROSS]
+    same = (a_k[:, rows] == a_r[:, rows]).all(dim=1) & (a_k[:, tk.A_DONE] == 1)
+    for i in (~same).nonzero().squeeze(1).tolist()[:10]:
+        log(phase, f"  {tag} counter mismatch event {i}: {a_k[i, rows].tolist()} vs "
+                   f"{a_r[i, rows].tolist()}")
+    fk, fr = f_k.reshape(n, nf, tk.ROWS), f_r.reshape(n, nf, tk.ROWS)
+    slots = same[:, None] & (fk[..., tk.F_VALID] > 0.5) & (fr[..., tk.F_VALID] > 0.5)
+    med, p99, worst = compare_records(fk, fr, slots, tag, phase)
+    cols = [tk.F_W, tk.F_PROB, tk.F_PCONV, tk.F_PCONV0, tk.F_TB] + list(range(tk.F_U0, 16))
+    d = torch.abs(fk[slots][:, cols] - fr[slots][:, cols])
+    keep = [r for r in range(tk.AUX_ROWS) if r != tk.A_ITERS]
+    r = dict(frac=same.double().mean().item(),
+             work=(a_k[:, work] == a_r[:, work]).all(dim=1)[same].double().mean().item(),
+             records=int(slots.sum()), med=med, p99=p99, worst=worst,
+             max_abs=d.max().item() if d.numel() else 0.0,
+             orders=bool((fk[slots][:, tk.F_ORD] == fr[slots][:, tk.F_ORD]).all()),
+             bitwise=bool(torch.equal(a_k[:, keep], a_r[:, keep]) and torch.equal(fk, fr)))
+    r["ok"] = (r["frac"] >= 0.99 and r["work"] >= 0.99 and med < 1e-8 and p99 < REC_P99
+               and worst < REC_WORST and r["orders"])
+    r["text"] = (f"identical counters {r['frac']:.4f} (bar 0.99), work counters identical on "
+                 f"those {r['work']:.4f} (bar 0.99), {r['records']} records, orders identical "
+                 f"{r['orders']}, per-record rel err median {med:.3g} p99 {p99:.3g} worst "
+                 f"{worst:.3g} (bars 1e-8, {REC_P99:g}, {REC_WORST:g}), max abs "
+                 f"{r['max_abs']:.3g}, bitwise {r['bitwise']}")
+    return r
+
+
+def phase_refill_probe(device):
+    """P1 against its plain version at the probe's shapes, the probe's own
+    checks, then its entry point (refill_probe.main) with the launch
+    counters reset just before it and read just after."""
+    import torch
+
+    from adiabatic_raytracer_tpu_torch.ops import cuda_lib
+    from adiabatic_raytracer_tpu_torch.ops import refill_probe as rp
+
+    tbl = rp.probe_table().to(device)
+    out_k = rp.refill_probe(tbl)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out_p = rp.refill_probe_plain(tbl)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3   # host clock around one synced run
+    ms = cuda_ms(lambda: rp.refill_probe(tbl), 20)
+    # rows 0..SROWS-2 are the schedule's invariants; the write-out iteration
+    # (last row) depends on which thread took the event when: it must be a
+    # refill boundary plus the event's quota, within N_IT
+    max_abs = (out_k[:, :-1] - out_p[:, :-1]).abs().max().item()
+    start = out_k[:, -1] - tbl[:, 0]
+    sched = bool((torch.remainder(start, rp.REFILL_K) == 0).all() and (start >= 0).all()
+                 and (out_k[:, -1] <= rp.N_IT).all())
+    chk = rp.checks(tbl, out_k)
+    buf = io.StringIO()
+    cuda_lib.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = rp.main(["--device", torch.device(device).type])
+    launches = cuda_lib.LAUNCHES["refill_probe"]
+    quota = tbl[:, 0].sum().item()
+    b_ms, b_by = bound(4 * (tbl.numel() + out_k.numel()), 2 * quota, F32_PER_S)
+    log(9, f"P1 [{rp.EPART} events, {rp.L} lanes, refill_k {rp.REFILL_K}] kernel vs plain: rows "
+           f"0-{rp.SROWS - 2} max abs {max_abs:g}; write-out at a refill boundary plus the quota: "
+           f"{sched}; " + "; ".join(f"{k}: {'OK' if ok else 'FAIL'} ({v})"
+                                    for k, (ok, v) in chk.items())
+           + f"; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.6f} ms ({b_by}); "
+           f"entry point rc {rc}, launches {launches}: "
+           + " | ".join(buf.getvalue().strip().splitlines()))
+    if not (max_abs == 0.0 and sched and all(ok for ok, _ in chk.values()) and rc == 0
+            and launches > 0):
+        raise AssertionError("P1 disagrees with its plain version or fails its checks")
+    return launches, {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": None}
+
+
+def phase_refill_plain(device, n_events, lanes):
+    """K4 against its plain version on the same blocks: n_events production
+    events in one 128-event partition served by `lanes` threads, so each
+    serves several events in turn.  Returns the plain version's time."""
+    import dataclasses
+
+    import torch
+
+    from adiabatic_raytracer_tpu_torch.ops import treekernel as tk
+    from adiabatic_raytracer_tpu_torch.utils import rng
+
+    sc, cfg, tcfg, maxR, n_grid = scene_setup(device)
+    cfg = dataclasses.replace(cfg, tree_engine="kernel")
+    nf = int(min(cfg.tree_kernel_finals, tcfg.num_cutoff))
+    qd = tcfg.mc_nodes + 2
+    it_full = (tcfg.max_nodes + 2) * (cfg.max_steps + 2)
+    x, k, e = sample_events(n_events, device, sc, cfg, maxR, n_grid, seed=19)
+    keys = rng.fold_in(rng.PRNGKey(2029, device=device), torch.arange(n_events, device=device))
+    blocks = tk.tree_inputs(keys, x, k, e, sc, cfg, tcfg, lnt_end=0.0)
+    kw = dict(nf=nf, qd=qd, epart=128, refill_k=int(cfg.tree_refill_k),
+              it_cap=min(it_full * 128, 2**31 - 2), lanes=lanes)
+    _, a_k, _, f_k = tk.tree_refill_launch(*blocks, sc, cfg, tcfg, **kw)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _, a_p, _, f_p = tk.tree_refill_launch_plain(*blocks, sc, cfg, tcfg, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3   # host clock around one synced run
+    ms = cuda_ms(lambda: tk.tree_refill_launch(*blocks, sc, cfg, tcfg, **kw), 3)
+    r = tree_agreement(a_k, f_k, a_p, f_p, nf, "K4 vs plain", 10)
+    served = a_k[:, tk.A_ITERS] - a_k[:, tk.A_STEPTOT]   # > 0: started after another event
+    log(10, f"K4 vs plain on {n_events} events, {lanes} threads, one partition (default "
+            f"cutoffs, refill_k {cfg.tree_refill_k}): {r['text']}; events started after "
+            f"another ended {int((served > 0).sum())}, thread iterations max "
+            f"{int(a_k[:, tk.A_ITERS].max().item())} (plain "
+            f"{int(a_p[:, tk.A_ITERS].max().item())}); kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.1f} ms")
+    if not (r["ok"] and bool((a_k[:, tk.A_DONE] == 1).all())):
+        raise AssertionError("K4 disagrees with its plain version")
+    return plain_ms, r["max_abs"]
+
+
+PRODUCTION_CUTOFFS = dict(num_cutoff=50, mc_nodes=10, max_nodes=100)   # bench_pipeline.py:84-86
+
+
+def phase_refill_vs_tree(device, n_tree):
+    """K4 at tree_refill 128 and 1 against K3 in one launch on n_tree
+    events, at the default and the production cutoffs, with host-clock
+    times (two runs each) and launches of K3 one launch, K3 chunk 64, K4 at
+    128 and K4 at 1.  Returns K4's kernel time, bound and max abs error at
+    the main path's shape (tree_refill 1, default cutoffs)."""
+    import dataclasses
+
+    import torch
+
+    from adiabatic_raytracer_tpu_torch.config import TreeConfig
+    from adiabatic_raytracer_tpu_torch.ops import cuda_lib
+    from adiabatic_raytracer_tpu_torch.ops import treekernel as tk
+    from adiabatic_raytracer_tpu_torch.utils import rng
+
+    sc, cfg, _, maxR, n_grid = scene_setup(device)
+    cfg = dataclasses.replace(cfg, tree_engine="kernel")
+    x, k, e = sample_events(n_tree, device, sc, cfg, maxR, n_grid, seed=17)
+    keys = rng.fold_in(rng.PRNGKey(2028, device=device), torch.arange(n_tree, device=device))
+    variants = (("K3 one launch", dict(tree_kernel_chunk=0)),
+                ("K3 chunk 64", dict(tree_kernel_chunk=64)),
+                ("K4 at 128", dict(tree_refill=128)), ("K4 at 1", dict(tree_refill=1)))
+    out = None
+    for cut_name, cut in (("default", {}), ("production", PRODUCTION_CUTOFFS)):
+        tcfg = TreeConfig(**cut)
+        nf = int(min(cfg.tree_kernel_finals, tcfg.num_cutoff))
+        qd = tcfg.mc_nodes + 2
+        blocks = tk.tree_inputs(keys, x, k, e, sc, cfg, tcfg, lnt_end=0.0)
+        res, parts = {}, []
+        for name, kw in variants:
+            vc = dataclasses.replace(cfg, **kw)
+            walls = []
+            for _ in range(2):
+                n0 = cuda_lib.LAUNCHES["treekernel"] + cuda_lib.LAUNCHES["treerefill"]
+                torch.cuda.synchronize()
+                t0 = time.time()
+                res[name] = tk.run_tree_kernel(*blocks, sc, vc, tcfg, nf=nf, qd=qd)
+                torch.cuda.synchronize()
+                walls.append((time.time() - t0) * 1e3)
+                n_launch = cuda_lib.LAUNCHES["treekernel"] + cuda_lib.LAUNCHES["treerefill"] - n0
+            parts.append(f"{name} {walls[0]:.1f} / {walls[1]:.1f} ms ({n_launch} launches)")
+        a3, f3 = res["K3 one launch"]
+        st = a3[:, tk.A_STEPTOT]
+        log(11, f"{cut_name} cutoffs {tcfg.num_cutoff}/{tcfg.mc_nodes}/{tcfg.max_nodes} on "
+                f"{n_tree} events (steps/event mean {st.mean().item():.1f} max "
+                f"{int(st.max().item())}), run_tree_kernel host clock, two runs each: "
+                + "; ".join(parts))
+        for name in ("K4 at 128", "K4 at 1", "K3 chunk 64"):
+            r = tree_agreement(*res[name], a3, f3, nf, f"{name} vs K3 ({cut_name})", 11)
+            log(11, f"  {cut_name} cutoffs, {name} vs K3 one launch: {r['text']}")
+            if name != "K3 chunk 64" and not r["ok"]:
+                raise AssertionError(f"{name} disagrees with K3 at the {cut_name} cutoffs")
+        if cut_name == "default":   # the main path's K4: 2048 events at tree_refill 1
+            ep = tk.refill_partition(n_tree, 1)
+            it_full = (tcfg.max_nodes + 2) * (cfg.max_steps + 2)
+            kw = dict(nf=nf, qd=qd, epart=ep, refill_k=int(cfg.tree_refill_k),
+                      it_cap=min(it_full * ep, 2**31 - 2))
+            _, a4, _, f4 = tk.tree_refill_launch(*blocks, sc, cfg, tcfg, **kw)
+            ms = cuda_ms(lambda: tk.tree_refill_launch(*blocks, sc, cfg, tcfg, **kw), 3)
+            b_ms, b_by = tree_bound(a4, blocks[2].shape[1], nf, qd, cfg)
+            r = tree_agreement(a4, f4, a3, f3, nf, "K4 launch vs K3", 11)
+            log(11, f"K4 at tree_refill 1 ({n_tree} events, partitions of {ep}, 128 threads "
+                    f"each): kernel {ms:.3f} ms (CUDA events), bound {b_ms:.4f} ms ({b_by}); "
+                    f"vs K3 bitwise {r['bitwise']}")
+            out = {"max_abs_err": r["max_abs"], "ms": ms, "bound_ms": b_ms, "bound_by": b_by}
+    return out
+
+
+def phase_refill_path(device, n_events, batch):
+    """The refill path through driver.run: engine mega, tree_engine kernel,
+    tree_refill 1, saveMode 1, warm under torch.profiler, with the launch
+    counters reset just before it and read just after."""
+    import numpy as np
+    import torch
+
+    from adiabatic_raytracer_tpu_torch.config import NumericsConfig, Scene, TreeConfig
+    from adiabatic_raytracer_tpu_torch.driver import run
+    from adiabatic_raytracer_tpu_torch.ops import cuda_lib
+
+    sc = Scene(mass_a=1e-5, theta_m=0.2, b0=1e14)
+    cfg = NumericsConfig(atol=1e-6, rtol=1e-7, compute_dtype="f32", engine="mega",
+                         tree_engine="kernel", tree_kernel_chunk=64, tree_refill=1)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        cuda_lib.reset_launch_counts()
+        t0 = time.time()
+        _, path, stats = run(sc, cfg, TreeConfig(), n_events + 1, seed=1769, save_mode=1,
+                             file_tag="smoke_refill", dir_tag=os.path.join(OUT, "slice"),
+                             event_batch=batch, verbose=False, device=device)
+        wall = time.time() - t0
+        launches = dict(cuda_lib.LAUNCHES)
+    write_profile(prof, wall, 12, "refill")
+    rows = np.load(path)
+    if not (rows.ndim == 2 and rows.shape[1] == 29 and rows.shape[0] > 0):
+        raise AssertionError(f"refill path output has shape {rows.shape}")
+    if not np.all(np.isfinite(rows)) or not np.all(rows[:, 8] > 0):
+        raise AssertionError("refill path rows not finite or weights not positive")
+    if not all(launches[n] > 0 for n in ("line_scan", "megakernel", "treerefill")):
+        raise AssertionError(f"the refill path did not launch K1, K2 and K4: {launches}")
+    if launches["treekernel"]:
+        raise AssertionError(f"the refill path launched K3: {launches}")
+    if stats.scan_gate == "off":
+        raise AssertionError("scan-gate census check did not run")
+    log(12, f"refill path (driver.run, tree_refill 1): {stats.events} events, {rows.shape[0]} "
+            f"rows; warm run {wall:.2f} s = {stats.events / wall:.1f} events/s (gate check "
+            f"{stats.t_gate:.2f} s, sample {stats.t_sample:.2f} s, pipeline "
+            f"{stats.t_pipeline:.2f} s, rows {stats.t_rows:.2f} s, K4 thread iterations max "
+            f"per batch summed {stats.tree_iters}); scan_gate={stats.scan_gate}; info "
+            f"{stats.info_hist}; launches {launches}")
+    return launches, rows
 
 
 def phase_slice(device, n_events, batch, tree_engine, phase, cold_run=True):
@@ -664,8 +932,18 @@ def main():
     phase_probe(device)
     k2 = phase_megakernel(device, 2048)
     k3 = phase_treekernel(device, 512, 2048)
-    launches, _ = phase_slice(device, 4096, 2048, "auto", 7)
+    launches, rows_kernel = phase_slice(device, 4096, 2048, "auto", 7)
     phase_slice(device, 2048, 2048, "queue", 8, cold_run=False)
+    p1_launches, p1 = phase_refill_probe(device)
+    k4_plain_ms, _ = phase_refill_plain(device, 24, 8)
+    k4 = phase_refill_vs_tree(device, 2048)
+    refill_launches, rows_refill = phase_refill_path(device, 4096, 2048)
+    same_shape = rows_refill.shape == rows_kernel.shape
+    log(12, f"refill path rows vs the kernel path's (same seed; K3 there relaunched at chunk "
+            f"64): same shape {same_shape}" + (
+                f", weight max rel diff "
+                f"{float(abs(rows_refill[:, 8] / rows_kernel[:, 8] - 1).max()):.3g}"
+                if same_shape else ""))
     kernels = [
         {"name": "line_scan", "route": "cuda",
          "source": "adiabatic_raytracer_tpu_torch/csrc/line_scan.cu",
@@ -679,6 +957,14 @@ def main():
          "source": "adiabatic_raytracer_tpu_torch/csrc/treekernel.cu",
          "replaces": "adiabatic_raytracer_tpu/ops/treekernel.py:775",
          "launches": launches["treekernel"], **k3},
+        {"name": "treerefill", "route": "cuda",
+         "source": "adiabatic_raytracer_tpu_torch/csrc/treerefill.cu",
+         "replaces": "adiabatic_raytracer_tpu/ops/treekernel.py:1026",
+         "launches": refill_launches["treerefill"], **k4, "plain_ms": k4_plain_ms,
+         "library_ms": None},
+        {"name": "refill_probe", "route": "cuda",
+         "source": "adiabatic_raytracer_tpu_torch/csrc/refill_probe.cu",
+         "replaces": "scripts/probe_refill_ops.py:147", "launches": p1_launches, **p1},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -74,7 +74,6 @@ def test_port_never_imports_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(cfg=dict(tree_engine="kernel", tree_refill=128)),
     dict(cfg=dict(engine="pool_compact")),
     dict(cfg=dict(tree_window=128)),
     dict(cfg=dict(backtrace_chunk=64)),
@@ -89,6 +88,12 @@ def test_unported_options_raise(kw):
     cfg = tcfg.NumericsConfig(**kw.pop("cfg", {}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_ported(cfg, **kw)
+
+
+def test_tree_refill_is_ported():
+    """K4 runs where the kernel tree engine runs: check_ported lets it pass."""
+    check_ported(tcfg.NumericsConfig(engine="mega", tree_engine="kernel", tree_refill=1))
+    check_ported(tcfg.NumericsConfig(tree_refill=128, tree_refill_k=3), save_mode=1)
 
 
 def test_from_jax_dict_carries_tree_kernel_fields():

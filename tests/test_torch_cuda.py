@@ -1,4 +1,4 @@
-"""K1, K2 and K3 on the card against their plain versions.  Every test needs a
+"""K1-K4 and P1 on the card against their plain versions.  Every test needs a
 CUDA device (the kernels have no CPU mode) and skips without one.  The file
 imports no JAX, so it runs on a GPU machine without it:
 
@@ -106,15 +106,8 @@ def test_probe_matches_twins(dev, species):
         assert ((got.cpu() - want).abs() / (want.abs() + scale)).max().item() < 1e-12, which
 
 
-@pytest.mark.cuda
-def test_treekernel_matches_plain(dev):
-    """K3 and tree_kernel_launch_plain on the same blocks (128 production
-    events, default cutoffs, one launch): counters identical on >= 99% of
-    events, and on those the steps, accepted steps, dense passes and
-    recorded crossings too; their finals' records, each column relative to
-    its size (angles to max(|value|, 1 rad), momentum components to the
-    record's |w|), to median relative error 1e-8, p99 1e-6 and worst 1e-5
-    (chip_smoke.py phase 6's bars, which say why)."""
+def tree_blocks(dev, n, seed):
+    """K3/K4 input blocks of n production events (default cutoffs)."""
     from adiabatic_raytracer_tpu_torch.models.magnetosphere import conversion_surface_radius
     from adiabatic_raytracer_tpu_torch.ops import sampler
     from adiabatic_raytracer_tpu_torch.ops.dispersion import k_norm_cart
@@ -124,26 +117,33 @@ def test_treekernel_matches_plain(dev):
     cfg = tcfg.NumericsConfig(engine="mega", tree_engine="kernel")
     tc = tcfg.TreeConfig()
     maxR = conversion_surface_radius(sc.mass_a, sc.theta_m, sc.omega_pul, sc.b0, sc.r_ns)
-    r = sampler.sample_batch(rng.PRNGKey(5, device=dev), 4096, maxR, sc, sc.mass_ns,
+    r = sampler.sample_batch(rng.PRNGKey(seed, device=dev), 4096, maxR, sc, sc.mass_ns,
                              n_grid=sampler.default_n_grid(maxR), compute_dtype="f32",
                              line_engine="kernel")
-    ok = r.success.nonzero().squeeze(1)[:128]
+    ok = r.success.nonzero().squeeze(1)[:n]
     E = ok.shape[0]
     x, v, e = r.xpos[ok].double(), r.v_loc[ok].double(), r.erg_inf[ok].double()
     k = k_norm_cart(x, v, 0.0, e, sc, sc.mass_ns, is_photon=True, ax_fix=True)
     keys = rng.fold_in(rng.PRNGKey(9, device=dev), torch.arange(E, device=dev))
-    blocks = tk.tree_inputs(keys, x, k, e, sc, cfg, tc, lnt_end=0.0)
-    kw = dict(nf=tc.num_cutoff, qd=tc.mc_nodes + 2, it_cap=10**8)
-    _, a_k, _, f_k = tk.tree_kernel_launch(*blocks, sc, cfg, tc, **kw)
-    torch.cuda.synchronize()
-    _, a_p, _, f_p = tk.tree_kernel_launch_plain(*blocks, sc, cfg, tc, **kw)
+    return sc, cfg, tc, tk.tree_inputs(keys, x, k, e, sc, cfg, tc, lnt_end=0.0)
+
+
+def assert_trees_agree(a_k, f_k, a_p, f_p, nf, min_same):
+    """Counters identical (and the tree done) on >= min_same of the events,
+    and on those the steps, accepted steps, dense passes and recorded
+    crossings on >= 99%; their finals' records, each column relative to its
+    size (angles to max(|value|, 1 rad), momentum components to the record's
+    |w|), to median relative error 1e-8, p99 1e-6 and worst 1e-5
+    (chip_smoke.py phase 6's bars, which say why)."""
+    E = a_k.shape[0]
     rows = [tk.A_COUNT, tk.A_CMAIN, tk.A_INFO, tk.A_NALLOC, tk.A_ANOM]
     same = (a_k[:, rows] == a_p[:, rows]).all(dim=1) & (a_k[:, tk.A_DONE] == 1)
-    assert E >= 100 and same.double().mean().item() >= 0.99
-    fk = f_k.reshape(E, tc.num_cutoff, tk.ROWS)
-    fp = f_p.reshape(E, tc.num_cutoff, tk.ROWS)
+    assert same.double().mean().item() >= min_same
+    fk = f_k.reshape(E, nf, tk.ROWS)
+    fp = f_p.reshape(E, nf, tk.ROWS)
     slots = same[:, None] & (fk[..., tk.F_VALID] > 0.5)
     assert bool((fp[..., tk.F_VALID] > 0.5)[slots].all())
+    assert torch.equal(fk[slots][:, tk.F_ORD], fp[slots][:, tk.F_ORD])
     work = [tk.A_STEPTOT, tk.A_STEPS_PH, tk.A_NACC, tk.A_NFINE, tk.A_NCROSS]
     assert (a_k[:, work] == a_p[:, work]).all(dim=1)[same].double().mean().item() >= 0.99
     cols = [tk.F_W, tk.F_PROB, tk.F_PCONV, tk.F_PCONV0, tk.F_TB] + list(range(tk.F_U0, 16))
@@ -154,3 +154,56 @@ def test_treekernel_matches_plain(dev):
     rel = ((a - b).abs() / scale.clamp(min=1e-300)).amax(dim=1)
     assert rel.median().item() < 1e-8
     assert torch.quantile(rel, 0.99).item() < 1e-6 and rel.max().item() < 1e-5
+
+
+@pytest.mark.cuda
+def test_treekernel_matches_plain(dev):
+    """K3 and tree_kernel_launch_plain on the same blocks (128 production
+    events, default cutoffs, one launch), at assert_trees_agree's bars with
+    counters identical on >= 99% of events."""
+    sc, cfg, tc, blocks = tree_blocks(dev, 128, seed=5)
+    E = blocks[0].shape[0]
+    kw = dict(nf=tc.num_cutoff, qd=tc.mc_nodes + 2, it_cap=10**8)
+    _, a_k, _, f_k = tk.tree_kernel_launch(*blocks, sc, cfg, tc, **kw)
+    torch.cuda.synchronize()
+    _, a_p, _, f_p = tk.tree_kernel_launch_plain(*blocks, sc, cfg, tc, **kw)
+    assert E >= 100
+    assert_trees_agree(a_k, f_k, a_p, f_p, tc.num_cutoff, 0.99)
+
+
+@pytest.mark.cuda
+def test_treerefill_matches_plain(dev):
+    """K4 and tree_refill_launch_plain on 16 production events in two
+    partitions of 8, each served by 3 threads (so every thread takes a
+    second or third event mid-run), refill period 4: the same trees as
+    assert_trees_agree holds them, counters on all but one event at most;
+    and every event finished, each at a thread iteration count no smaller
+    than its own steps."""
+    sc, cfg, tc, blocks = tree_blocks(dev, 16, seed=6)
+    E = blocks[0].shape[0]
+    kw = dict(nf=tc.num_cutoff, qd=tc.mc_nodes + 2, epart=8, refill_k=4, it_cap=10**8, lanes=3)
+    _, a_k, _, f_k = tk.tree_refill_launch(*blocks, sc, cfg, tc, **kw)
+    torch.cuda.synchronize()
+    _, a_p, _, f_p = tk.tree_refill_launch_plain(*blocks, sc, cfg, tc, **kw)
+    assert E == 16 and torch.all(a_k[:, tk.A_DONE] == 1) and torch.all(a_p[:, tk.A_DONE] == 1)
+    assert torch.all(a_k[:, tk.A_ITERS] >= a_k[:, tk.A_STEPTOT])
+    assert_trees_agree(a_k, f_k, a_p, f_p, tc.num_cutoff, 15 / 16)
+
+
+@pytest.mark.cuda
+def test_refill_probe_matches_plain(dev):
+    """P1 against its plain version: at the probe's shapes, and on two
+    partitions served by 100 threads each.  Ids, steps and write counts
+    equal; the write-out iteration, which depends on which thread took the
+    event when, is a refill boundary plus the quota."""
+    from adiabatic_raytracer_tpu_torch.ops import refill_probe as rp
+
+    for tbl, lanes in ((rp.probe_table(), rp.L),
+                       (torch.cat([rp.probe_table(0), rp.probe_table(1)]), 100)):
+        got = rp.refill_probe(tbl.to(dev), lanes=lanes)
+        torch.cuda.synchronize()
+        want = rp.refill_probe_plain(tbl, lanes=lanes)
+        assert torch.equal(got[:, :-1].cpu(), want[:, :-1])
+        assert all(ok for ok, _ in rp.checks(tbl, got).values())
+        start = got[:, -1].cpu() - tbl[:, 0]
+        assert torch.all(torch.remainder(start, rp.REFILL_K) == 0) and torch.all(start >= 0)

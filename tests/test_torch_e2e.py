@@ -75,6 +75,28 @@ def test_kernel_tree_engine_matches_host_k1(tmp_path):
     assert (st.finals, st.tot_nodes, st.info_hist) == (st_h.finals, st_h.tot_nodes, st_h.info_hist)
 
 
+def test_refill_engine_through_driver_matches_kernel(tmp_path):
+    """tree_refill=1 through driver.run (K4's plain version on CPU, in place
+    of K3's, wherever the kernel tree engine runs) writes the rows of the
+    one-launch K3 path bit for bit: K4 serves each event as K3 does."""
+    from adiabatic_raytracer_tpu_torch import config as tcfg
+    from adiabatic_raytracer_tpu_torch.driver import run
+
+    out = {}
+    for tag, kw in (("k3", {}), ("k4", dict(tree_refill=1, tree_kernel_chunk=64))):
+        cfg = tcfg.NumericsConfig(atol=1e-6, rtol=1e-7, engine="mega", tree_engine="kernel",
+                                  scan_gate_check=0, **kw)
+        out[tag] = run(tcfg.Scene(theta_m=0.2), cfg, tcfg.TreeConfig(), 3, seed=1769,
+                       save_mode=1, event_batch=3, dir_tag=str(tmp_path), file_tag=tag,
+                       device="cpu", verbose=False)
+    (rows3, _, st3), (rows4, _, st4) = out["k3"], out["k4"]
+    assert rows4.shape == (5, 29)
+    np.testing.assert_array_equal(rows4, rows3)
+    assert (st4.finals, st4.tot_nodes, st4.info_hist) == (st3.finals, st3.tot_nodes,
+                                                          st3.info_hist)
+    assert st4.tree_iters > st3.tree_iters == 1   # K4 reports thread iterations
+
+
 def test_unported_cli_options_raise(tmp_path):
     for extra in (["--saveMode", "2"], ["--tree_engine", "kernel", "--bndry_lyr", "1.0"],
                   ["--tree_window", "128"], ["--pipeline_depth", "2"], ["--mesh", "4"],

@@ -1,8 +1,10 @@
-"""K3's plain version and the port's in-kernel tree engine (ops/treekernel.py)
-against the JAX package's own reference for K3: the host work-queue engine at
-tree_k=1 (engine "pool", f64), which runs no Pallas (tests/test_treekernel.py
-holds the TPU kernel to the same reference).  The kernel itself runs only on
-the card (tests/test_torch_cuda.py, chip_smoke.py).
+"""K3's and K4's plain versions and the port's in-kernel tree engine
+(ops/treekernel.py) against the JAX package's own reference for K3: the host
+work-queue engine at tree_k=1 (engine "pool", f64), which runs no Pallas
+(tests/test_treekernel.py holds the TPU kernels to the same reference), and
+K4 against K3; P1's plain version (ops/refill_probe.py) on its own checks.
+The kernels themselves run only on the card (tests/test_torch_cuda.py,
+chip_smoke.py).
 
 Scene and tree sizes are those of tests/test_treekernel.py (3 events,
 num_cutoff 4, mc_nodes 1, max_nodes 10, 8 interpolation points, 2000 steps).
@@ -78,6 +80,12 @@ def port_kernel(events):
     return run_port(events, CFG)
 
 
+@pytest.fixture(scope="module")
+def port_host(events):
+    """The port's host engine at tree_k=1: what the overflow replay runs."""
+    return run_port(events, dataclasses.replace(CFG, tree_engine="queue"))
+
+
 def finals(tr, e):
     """(order -> record) of event e's final nodes, numpy."""
     pl = tr.pools
@@ -126,12 +134,12 @@ def test_tree_kernel_matches_jax_host_k1(port_kernel, jax_host):
     assert int(np.sum(np.asarray(port_kernel.count_main))) > 3   # trees grew
 
 
-def test_tree_kernel_overflow_replays_exactly(events, jax_host):
+def test_tree_kernel_overflow_replays_exactly(events, jax_host, port_host):
     """(b) tree_kernel_finals=1 sends every event with 2+ finals through the
     exact host replay (the host engine with skip=); those events equal the
     port's host engine bitwise, and the merged result still matches JAX."""
     kern1 = run_port(events, dataclasses.replace(CFG, tree_kernel_finals=1))
-    host = run_port(events, dataclasses.replace(CFG, tree_engine="queue"))
+    host = port_host
     replayed = np.nonzero(np.asarray(host.count_main) > 1)[0]
     assert replayed.size >= 1
     for e in replayed:
@@ -201,3 +209,105 @@ def test_tree_kernel_launch_plain_resumes(events, port_kernel):
     assert torch.all(a_one[:, tk.A_NCROSS] <= a_one[:, tk.A_NBISECT])
     # every popped node was pushed by a crossing, which pushes one or two
     assert torch.all(2 * a_one[:, tk.A_NCROSS] >= a_one[:, tk.A_COUNT] - 1)
+
+
+def run_refill(ev, lanes, **kw):
+    """The port's tree engine through K4's plain version (forward_tree_kernel
+    at tree_refill=128: one partition of the 3 events, `lanes` lanes)."""
+    x, k, e = (torch.as_tensor(a) for a in ev)
+    cfg = dataclasses.replace(CFG, tree_refill=128, **kw)
+    return tk.forward_tree_kernel(rng.PRNGKey(SEED), x, k, e, SC, cfg, TC, lnt_end=0.0,
+                                  lanes=lanes)
+
+
+@pytest.fixture(scope="module")
+def refill_2lanes(events):
+    return run_refill(events, 2, tree_refill_k=4)
+
+
+def test_refill_wide_matches_tree_kernel(events, port_kernel, jax_host):
+    """(e) K4's plain version at 128 lanes: each lane serves one event, from
+    the launch's first refill to its write-out, so the result is K3's plain
+    version's bit for bit, and matches the JAX host engine as (a) does."""
+    wide = run_refill(events, 128)
+    assert_matches(wide, port_kernel, rtol=0.0)
+    assert_matches(wide, jax_host, rtol=1e-6)
+    # K4 reports each event's thread iteration count: here its own steps
+    assert torch.equal(wide.n_iters, wide.done_it) and bool(torch.all(wide.n_iters > 1))
+
+
+def test_refill_two_lanes_serves_events_in_turn(events, port_kernel, refill_2lanes):
+    """(f) 3 events on 2 lanes: a lane writes its first event out and takes
+    the third mid-run.  Counters, orders and species exact against plain K3;
+    records to rtol 1e-12, the width-rounding class of the torch CPU kernels
+    (a lane's ops run at another batch width than in K3's lockstep; the gap
+    measured here is 0, the JAX test's is ~1e-3 in f32)."""
+    assert_matches(refill_2lanes, port_kernel, rtol=1e-12)
+    # the third event started after another ended: its thread's count is
+    # beyond its own steps
+    it = refill_2lanes.n_iters
+    assert int(it.max()) > int(port_kernel.n_iters.max()) and int(it.min()) > 1
+
+
+def test_refill_period_is_a_schedule_knob(events, refill_2lanes):
+    """(g) refill_k 3 and 4 at 2 lanes give bitwise identical trees: an
+    event's result does not depend on the iteration its lane took it at."""
+    rk3 = run_refill(events, 2, tree_refill_k=3)
+    assert_matches(rk3, refill_2lanes, rtol=0.0)
+
+
+def test_refill_overflow_replays_exactly(events, port_host):
+    """(h) tree_kernel_finals=1 through K4: the events with 2+ finals go
+    through the exact host replay and equal the host engine bitwise, as (b)
+    checks for K3."""
+    kern1 = run_refill(events, 2, tree_kernel_finals=1)
+    host = port_host
+    replayed = np.nonzero(np.asarray(host.count_main) > 1)[0]
+    assert replayed.size >= 1
+    for e in replayed:
+        fa, fb = finals(kern1, int(e)), finals(host, int(e))
+        assert set(fa) == set(fb)
+        for o in fa:
+            for nm in ("w", "prob", "pconv", "pconv0", "t", "ferg"):
+                assert fa[o][nm] == fb[o][nm], (nm, e, o)
+            np.testing.assert_array_equal(fa[o]["fpos"], fb[o]["fpos"])
+            np.testing.assert_array_equal(fa[o]["fmom"], fb[o]["fmom"])
+        for name in COUNTERS + ("tot_prob",):
+            assert getattr(kern1, name)[e] == getattr(host, name)[e], name
+
+
+def test_refill_unfinished_event_raises(events, monkeypatch):
+    """An event K4 could not finish within its thread's budget raises in the
+    tree engine; the launch itself leaves it live, with its steps counted."""
+    real = tk.tree_refill_launch_plain
+    cut = lambda *a, **kw: real(*a, **dict(kw, it_cap=5))
+    x, k, e = (torch.as_tensor(a) for a in events)
+    keys = tree._event_keys(rng.PRNGKey(SEED), 3, x.device)
+    blocks = tk.tree_inputs(keys, x, k, e, SC, CFG, TC, lnt_end=0.0)
+    kw = dict(nf=TC.num_cutoff, qd=TC.mc_nodes + 2, epart=128, refill_k=4, lanes=2)
+    _, a, _, _ = cut(*blocks, SC, CFG, TC, **kw)
+    assert torch.all(a[:, tk.A_DONE] == 0)
+    assert a[:, tk.A_STEPTOT].tolist() == [5.0, 5.0, 0.0]   # the third event never started
+    monkeypatch.setattr(tk, "tree_refill_launch_plain", cut)
+    with pytest.raises(RuntimeError, match="unfinished"):
+        run_refill(events, 2)
+
+
+def test_refill_probe_plain():
+    """P1's plain version at the probe's shapes: ids round-trip, steps equal
+    the quotas, every event written once, and each write-out comes at a
+    refill boundary plus the event's quota."""
+    from adiabatic_raytracer_tpu_torch.ops import refill_probe as rp
+
+    tbl = rp.probe_table()
+    out = rp.refill_probe(tbl)
+    assert out.shape == (1, rp.SROWS, rp.EPART)
+    assert all(ok for ok, _ in rp.checks(tbl, out).values())
+    start = out[0, -1] - tbl[0, 0]
+    assert torch.all(torch.remainder(start, rp.REFILL_K) == 0) and torch.all(out[0, 3:-1] == 0)
+    # a doubled or skipped event shows
+    bad = out.clone()
+    bad[0, 2, 7] = 2.0
+    bad[0, 0, 9] = 0.0
+    assert not rp.checks(tbl, bad)["every event written once"][0]
+    assert not rp.checks(tbl, bad)["gathered-id roundtrip"][0]
