@@ -714,11 +714,10 @@ def refill_partition(E: int, refill: int) -> int:
 
 
 def run_tree_kernel(uin, aux, uni, qin, sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, *,
-                    nf: int, qd: int, lanes: int = 128):
+                    nf: int, qd: int):
     """Every event's tree to its end.  tree_refill > 0: one K4 launch over
-    partitions of refill_partition(E, tree_refill) events, `lanes` threads
-    each (128; tests serve several events per lane with fewer), refill
-    period tree_refill_k, it_cap per thread as at treekernel.py:1189 of the
+    partitions of refill_partition(E, tree_refill) events, 128 threads
+    each, refill period tree_refill_k, it_cap per thread as at treekernel.py:1189 of the
     reference; an event left unfinished raises.  Else K3: one launch
     (tree_kernel_chunk = 0), or bounded relaunches of tree_kernel_chunk steps
     with staged straggler compaction (treekernel.py:1209-1290 of the
@@ -732,7 +731,7 @@ def run_tree_kernel(uin, aux, uni, qin, sc: Scene, cfg: NumericsConfig, tcfg: Tr
         cap = min(it_full * ep, 2**31 - 2)
         _, auxout, _, fin = tree_refill_launch(uin, aux, uni, qin, sc, cfg, tcfg, nf=nf, qd=qd,
                                                epart=ep, refill_k=max(int(cfg.tree_refill_k), 1),
-                                               it_cap=cap, lanes=lanes)
+                                               it_cap=cap)
         left = int((auxout[:, A_DONE] < 0.5).sum())
         if left:
             raise RuntimeError(f"K4 left {left} of {E} events unfinished within {cap} "
@@ -764,9 +763,9 @@ def run_tree_kernel(uin, aux, uni, qin, sc: Scene, cfg: NumericsConfig, tcfg: Tr
 
 
 def forward_tree_kernel(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
-                        tcfg: TreeConfig, *, lnt_end, lanes: int = 128):
+                        tcfg: TreeConfig, *, lnt_end):
     """tree.forward_tree on the production (saveMode <= 1) contract through
-    K3 or K4 (run_tree_kernel; `lanes` is K4's threads per partition): whole
+    K3 or K4 (run_tree_kernel): whole
     trees in the kernel, then the exact host replay of the events
     that overflowed the NF finals slots (MC draws are keyed by event and node
     index, so the replay is the host engine's own result), merged.  The
@@ -789,7 +788,7 @@ def forward_tree_kernel(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConf
     keys = _event_keys(key, E, dev)
     uin, aux, uni, qin = tree_inputs(keys, xpos, k_init, erg_inf, sc, cfg, tcfg,
                                      lnt_end=lnt_end)
-    auxout, fin = run_tree_kernel(uin, aux, uni, qin, sc, cfg, tcfg, nf=NF, qd=QD, lanes=lanes)
+    auxout, fin = run_tree_kernel(uin, aux, uni, qin, sc, cfg, tcfg, nf=NF, qd=QD)
     incomplete = auxout[:, A_INFO] == INFO_OVERFLOW
     complete = ~incomplete
     tr_fb = None

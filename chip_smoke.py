@@ -18,9 +18,10 @@ non-zero):
   5. K2 vs integrate_mega_plain on a 2048-event production backtrace
   6. K3 vs tree_kernel_launch_plain on 512 production events (one launch,
      default cutoffs): counters identical on >= 99% of events; on those, the
-     steps, accepted steps, dense passes and recorded crossings identical
-     on >= 99% of those, and the per-record relative error of their finals
-     (compare_records) has median < 1e-8, p99 < 1e-6 and worst < 1e-5; then K3 on 2048 events
+     steps, photon steps, accepted steps, dense passes and recorded
+     crossings identical on >= 99% of those, orders identical, and the
+     per-record relative error of their finals (compare_records) has median
+     < 1e-8, p99 < 1e-6 and worst < 1e-5; then K3 on 2048 events
      (tree_kernel_chunk 0 and 64) against the host engine at tree_k=1 on K2,
      counters on >= 99%, and chunk 64's counters and finals against one
      launch's at the same bars
@@ -32,10 +33,12 @@ non-zero):
   8. the queue path (--tree_engine queue), one batch of 2048, counters reset
      just before it; K1 and K2 must have launched
   9. P1 vs refill_probe_plain at the probe's shapes (512 events, 128 lanes):
-     ids, steps and write counts identical, the probe's own checks, and its
-     entry point (refill_probe.main) with the counters reset just before it
- 10. K4 vs tree_refill_launch_plain on 24 production events served by 8
-     threads in one 128-event partition: phase 6's bars
+     ids and steps identical, the probe's own checks, every event written
+     once and flushed at a refill boundary or the loop's end, and its entry
+     point (refill_probe.main) with the counters reset just before it
+ 10. K4 vs tree_refill_launch_plain at the refill path's geometry: 512
+     production events in two partitions of 256, each served by 128
+     threads (two events a thread): phase 6's bars
  11. K4 against K3 (one launch) on 2048 events at tree_refill 128 and 1,
      at the default cutoffs and at the reference's production cutoffs
      (num_cutoff 50, mc_nodes 10, max_nodes 100): phase 6's bars, whether
@@ -44,8 +47,10 @@ non-zero):
  12. the refill path: driver.run with engine mega, tree_engine kernel,
      tree_refill 1, 2 x 2048 events, saveMode 1, warm under torch.profiler,
      counters reset just before it; K1, K2 and K4 must have launched, K3 not
- 13. the kernels' JSON line (times, launches on each kernel's path, bounds),
-     the nvidia-smi line, the result line
+ 13. the kernels' JSON line: each kernel's launches on its path, and its
+     time, plain time, error and bound from its comparison with its plain
+     version (phases 3, 5, 6, 9 and 10, each on one input); the nvidia-smi
+     line, the result line
 
 Bounds: the least time the card could take for a kernel's work, the larger
 of its bytes (each input read once, each output written once) over 3.35
@@ -577,8 +582,7 @@ def phase_treekernel(device, n_plain, n_tree):
     log(6, f"K3 tree engine on {n_tree} events vs host engine at tree_k=1 on K2 "
            f"({host_ms:.1f} ms, host clock): " + "; ".join(parts) + f"; chunk 64 vs one "
            f"launch: {rc['text']}")
-    if not (rc["frac"] >= 0.99 and rc["med"] < 1e-8 and rc["p99"] < REC_P99
-            and rc["worst"] < REC_WORST):
+    if not rc["ok"]:
         raise AssertionError("K3's relaunch disagrees with one launch")
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None}
@@ -665,13 +669,10 @@ def phase_refill_probe(device):
     torch.cuda.synchronize()
     plain_ms = (time.time() - t0) * 1e3   # host clock around one synced run
     ms = cuda_ms(lambda: rp.refill_probe(tbl), 20)
-    # rows 0..SROWS-2 are the schedule's invariants; the write-out iteration
-    # (last row) depends on which thread took the event when: it must be a
-    # refill boundary plus the event's quota, within N_IT
+    # rows 0..SROWS-2 do not depend on the schedule; the flush iteration
+    # (last row) depends on which thread took the event when: checks() holds
+    # it to a refill boundary or the loop's end
     max_abs = (out_k[:, :-1] - out_p[:, :-1]).abs().max().item()
-    start = out_k[:, -1] - tbl[:, 0]
-    sched = bool((torch.remainder(start, rp.REFILL_K) == 0).all() and (start >= 0).all()
-                 and (out_k[:, -1] <= rp.N_IT).all())
     chk = rp.checks(tbl, out_k)
     buf = io.StringIO()
     cuda_lib.reset_launch_counts()
@@ -679,25 +680,29 @@ def phase_refill_probe(device):
         rc = rp.main(["--device", torch.device(device).type])
     launches = cuda_lib.LAUNCHES["refill_probe"]
     quota = tbl[:, 0].sum().item()
-    b_ms, b_by = bound(4 * (tbl.numel() + out_k.numel()), 2 * quota, F32_PER_S)
+    # it reads each event's quota and id (table rows 0-1) and writes its
+    # whole output column once (zeroing in the kernel; rows 0, 1 and
+    # SROWS-1 added to); one subtraction and one addition per unit of quota
+    parts, _, epart = tbl.shape
+    b_ms, b_by = bound(4 * parts * epart * (2 + rp.SROWS), 2 * quota, F32_PER_S)
     log(9, f"P1 [{rp.EPART} events, {rp.L} lanes, refill_k {rp.REFILL_K}] kernel vs plain: rows "
-           f"0-{rp.SROWS - 2} max abs {max_abs:g}; write-out at a refill boundary plus the quota: "
-           f"{sched}; " + "; ".join(f"{k}: {'OK' if ok else 'FAIL'} ({v})"
+           f"0-{rp.SROWS - 2} max abs {max_abs:g}; " + "; ".join(
+               f"{k}: {'OK' if ok else 'FAIL'} ({v})"
                                     for k, (ok, v) in chk.items())
            + f"; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.6f} ms ({b_by}); "
            f"entry point rc {rc}, launches {launches}: "
            + " | ".join(buf.getvalue().strip().splitlines()))
-    if not (max_abs == 0.0 and sched and all(ok for ok, _ in chk.values()) and rc == 0
-            and launches > 0):
+    if not (max_abs == 0.0 and all(ok for ok, _ in chk.values()) and rc == 0 and launches > 0):
         raise AssertionError("P1 disagrees with its plain version or fails its checks")
     return launches, {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                       "bound_by": b_by, "library_ms": None}
 
 
-def phase_refill_plain(device, n_events, lanes):
-    """K4 against its plain version on the same blocks: n_events production
-    events in one 128-event partition served by `lanes` threads, so each
-    serves several events in turn.  Returns the plain version's time."""
+def phase_refill_plain(device, n_events, epart):
+    """K4 against its plain version on the same blocks at the refill path's
+    geometry: n_events production events in partitions of `epart`, each
+    served by 128 threads.  Returns the kernels' JSON row numbers: kernel
+    and plain times, bound and max abs error, all of this one input."""
     import dataclasses
 
     import torch
@@ -713,8 +718,8 @@ def phase_refill_plain(device, n_events, lanes):
     x, k, e = sample_events(n_events, device, sc, cfg, maxR, n_grid, seed=19)
     keys = rng.fold_in(rng.PRNGKey(2029, device=device), torch.arange(n_events, device=device))
     blocks = tk.tree_inputs(keys, x, k, e, sc, cfg, tcfg, lnt_end=0.0)
-    kw = dict(nf=nf, qd=qd, epart=128, refill_k=int(cfg.tree_refill_k),
-              it_cap=min(it_full * 128, 2**31 - 2), lanes=lanes)
+    kw = dict(nf=nf, qd=qd, epart=epart, refill_k=int(cfg.tree_refill_k),
+              it_cap=min(it_full * epart, 2**31 - 2))
     _, a_k, _, f_k = tk.tree_refill_launch(*blocks, sc, cfg, tcfg, **kw)
     torch.cuda.synchronize()
     t0 = time.time()
@@ -722,17 +727,20 @@ def phase_refill_plain(device, n_events, lanes):
     torch.cuda.synchronize()
     plain_ms = (time.time() - t0) * 1e3   # host clock around one synced run
     ms = cuda_ms(lambda: tk.tree_refill_launch(*blocks, sc, cfg, tcfg, **kw), 3)
+    b_ms, b_by = tree_bound(a_k, blocks[2].shape[1], nf, qd, cfg)
     r = tree_agreement(a_k, f_k, a_p, f_p, nf, "K4 vs plain", 10)
     served = a_k[:, tk.A_ITERS] - a_k[:, tk.A_STEPTOT]   # > 0: started after another event
-    log(10, f"K4 vs plain on {n_events} events, {lanes} threads, one partition (default "
-            f"cutoffs, refill_k {cfg.tree_refill_k}): {r['text']}; events started after "
-            f"another ended {int((served > 0).sum())}, thread iterations max "
+    parts = -(-n_events // epart)
+    log(10, f"K4 vs plain on {n_events} events, {parts} partitions of {epart}, 128 threads "
+            f"each (default cutoffs, refill_k {cfg.tree_refill_k}): {r['text']}; events started "
+            f"after another ended {int((served > 0).sum())}, thread iterations max "
             f"{int(a_k[:, tk.A_ITERS].max().item())} (plain "
             f"{int(a_p[:, tk.A_ITERS].max().item())}); kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.1f} ms")
+            f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by})")
     if not (r["ok"] and bool((a_k[:, tk.A_DONE] == 1).all())):
         raise AssertionError("K4 disagrees with its plain version")
-    return plain_ms, r["max_abs"]
+    return {"max_abs_err": r["max_abs"], "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
 
 
 PRODUCTION_CUTOFFS = dict(num_cutoff=50, mc_nodes=10, max_nodes=100)   # bench_pipeline.py:84-86
@@ -742,8 +750,8 @@ def phase_refill_vs_tree(device, n_tree):
     """K4 at tree_refill 128 and 1 against K3 in one launch on n_tree
     events, at the default and the production cutoffs, with host-clock
     times (two runs each) and launches of K3 one launch, K3 chunk 64, K4 at
-    128 and K4 at 1.  Returns K4's kernel time, bound and max abs error at
-    the main path's shape (tree_refill 1, default cutoffs)."""
+    128 and K4 at 1; then K4's device time at the main path's shape
+    (tree_refill 1, default cutoffs)."""
     import dataclasses
 
     import torch
@@ -760,7 +768,6 @@ def phase_refill_vs_tree(device, n_tree):
     variants = (("K3 one launch", dict(tree_kernel_chunk=0)),
                 ("K3 chunk 64", dict(tree_kernel_chunk=64)),
                 ("K4 at 128", dict(tree_refill=128)), ("K4 at 1", dict(tree_refill=1)))
-    out = None
     for cut_name, cut in (("default", {}), ("production", PRODUCTION_CUTOFFS)):
         tcfg = TreeConfig(**cut)
         nf = int(min(cfg.tree_kernel_finals, tcfg.num_cutoff))
@@ -802,8 +809,6 @@ def phase_refill_vs_tree(device, n_tree):
             log(11, f"K4 at tree_refill 1 ({n_tree} events, partitions of {ep}, 128 threads "
                     f"each): kernel {ms:.3f} ms (CUDA events), bound {b_ms:.4f} ms ({b_by}); "
                     f"vs K3 bitwise {r['bitwise']}")
-            out = {"max_abs_err": r["max_abs"], "ms": ms, "bound_ms": b_ms, "bound_by": b_by}
-    return out
 
 
 def phase_refill_path(device, n_events, batch):
@@ -935,8 +940,8 @@ def main():
     launches, rows_kernel = phase_slice(device, 4096, 2048, "auto", 7)
     phase_slice(device, 2048, 2048, "queue", 8, cold_run=False)
     p1_launches, p1 = phase_refill_probe(device)
-    k4_plain_ms, _ = phase_refill_plain(device, 24, 8)
-    k4 = phase_refill_vs_tree(device, 2048)
+    k4 = phase_refill_plain(device, 512, 256)
+    phase_refill_vs_tree(device, 2048)
     refill_launches, rows_refill = phase_refill_path(device, 4096, 2048)
     same_shape = rows_refill.shape == rows_kernel.shape
     log(12, f"refill path rows vs the kernel path's (same seed; K3 there relaunched at chunk "
@@ -960,8 +965,7 @@ def main():
         {"name": "treerefill", "route": "cuda",
          "source": "adiabatic_raytracer_tpu_torch/csrc/treerefill.cu",
          "replaces": "adiabatic_raytracer_tpu/ops/treekernel.py:1026",
-         "launches": refill_launches["treerefill"], **k4, "plain_ms": k4_plain_ms,
-         "library_ms": None},
+         "launches": refill_launches["treerefill"], **k4},
         {"name": "refill_probe", "route": "cuda",
          "source": "adiabatic_raytracer_tpu_torch/csrc/refill_probe.cu",
          "replaces": "scripts/probe_refill_ops.py:147", "launches": p1_launches, **p1},

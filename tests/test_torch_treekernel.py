@@ -2,7 +2,8 @@
 (ops/treekernel.py) against the JAX package's own reference for K3: the host
 work-queue engine at tree_k=1 (engine "pool", f64), which runs no Pallas
 (tests/test_treekernel.py holds the TPU kernels to the same reference), and
-K4 against K3; P1's plain version (ops/refill_probe.py) on its own checks.
+K4 against K3; P1's plain version (ops/refill_probe.py) against the JAX
+probe scripts/probe_refill_ops.py.
 The kernels themselves run only on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
 
@@ -213,11 +214,15 @@ def test_tree_kernel_launch_plain_resumes(events, port_kernel):
 
 def run_refill(ev, lanes, **kw):
     """The port's tree engine through K4's plain version (forward_tree_kernel
-    at tree_refill=128: one partition of the 3 events, `lanes` lanes)."""
+    at tree_refill=128: one partition of the 3 events), its launches served
+    by `lanes` lanes instead of 128."""
     x, k, e = (torch.as_tensor(a) for a in ev)
     cfg = dataclasses.replace(CFG, tree_refill=128, **kw)
-    return tk.forward_tree_kernel(rng.PRNGKey(SEED), x, k, e, SC, cfg, TC, lnt_end=0.0,
-                                  lanes=lanes)
+    real = tk.tree_refill_launch_plain
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tk, "tree_refill_launch_plain",
+                   lambda *a, **kw: real(*a, **dict(kw, lanes=lanes)))
+        return tk.forward_tree_kernel(rng.PRNGKey(SEED), x, k, e, SC, cfg, TC, lnt_end=0.0)
 
 
 @pytest.fixture(scope="module")
@@ -295,19 +300,53 @@ def test_refill_unfinished_event_raises(events, monkeypatch):
 
 def test_refill_probe_plain():
     """P1's plain version at the probe's shapes: ids round-trip, steps equal
-    the quotas, every event written once, and each write-out comes at a
-    refill boundary plus the event's quota."""
+    the quotas, every event written once, every flush at a refill boundary
+    (4 rounds of 128 events, each flushed at the next boundary), rows
+    2..SROWS-2 zero; and a skipped, doubled or misplaced flush shows."""
     from adiabatic_raytracer_tpu_torch.ops import refill_probe as rp
 
     tbl = rp.probe_table()
     out = rp.refill_probe(tbl)
     assert out.shape == (1, rp.SROWS, rp.EPART)
     assert all(ok for ok, _ in rp.checks(tbl, out).values())
-    start = out[0, -1] - tbl[0, 0]
-    assert torch.all(torch.remainder(start, rp.REFILL_K) == 0) and torch.all(out[0, 3:-1] == 0)
-    # a doubled or skipped event shows
+    want_at = (torch.arange(rp.EPART) // rp.L + 1.0) * rp.REFILL_K
+    assert torch.equal(out[0, -1], want_at) and torch.all(out[0, 2:-1] == 0)
     bad = out.clone()
-    bad[0, 2, 7] = 2.0
+    bad[0, 0, 7] *= 2.0
     bad[0, 0, 9] = 0.0
-    assert not rp.checks(tbl, bad)["every event written once"][0]
-    assert not rp.checks(tbl, bad)["gathered-id roundtrip"][0]
+    bad[0, -1, 11] = 5.0
+    got = rp.checks(tbl, bad)
+    assert got["every event written once"] == (False, "events written != 1: 2")
+    assert not got["gathered-id roundtrip"][0]
+    assert got["flush at a refill boundary or the loop's end"] == (False, "misplaced 1")
+
+
+def test_refill_probe_plain_matches_jax_probe(monkeypatch):
+    """P1's plain version against the JAX probe itself (scripts/
+    probe_refill_ops.py in interpret mode, its output taken from its
+    pallas_call) on the probe's table: every row bit for bit."""
+    import importlib.util
+    import pathlib
+
+    from jax.experimental import pallas as pl
+
+    from adiabatic_raytracer_tpu_torch.ops import refill_probe as rp
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "scripts" / "probe_refill_ops.py"
+    spec = importlib.util.spec_from_file_location("probe_refill_ops", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    real, got = pl.pallas_call, []
+
+    def capture(*a, **kw):
+        fn = real(*a, **kw)
+
+        def call(*args):
+            out = fn(*args)
+            got.append(np.asarray(out))
+            return out
+        return call
+
+    monkeypatch.setattr(pl, "pallas_call", capture)
+    assert probe.main(False) == 0
+    np.testing.assert_array_equal(rp.refill_probe(rp.probe_table()).numpy(), got[0])
