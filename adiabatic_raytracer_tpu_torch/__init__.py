@@ -11,6 +11,7 @@ Same module layout as the reference, so each counterpart is found by name:
 * pool DP5 integrator (CPU engine, K2's plain version) (ops/integrator.py, ops/propagate.py)
 * K2 DP5 megakernel, one CUDA thread per ray          (ops/megakernel.py, csrc/)
 * backtrace + host work-queue forward tree            (ops/tree.py)
+* K3/K4 in-kernel forward trees, one CUDA warp a tree (ops/treekernel.py, csrc/)
 * driver / CLI / npy output                           (driver.py, cli.py)
 
 The package imports torch and numpy only, never jax.

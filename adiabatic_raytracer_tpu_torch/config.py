@@ -82,10 +82,10 @@ class NumericsConfig:
     tree_kernel_chunk: int = 0
     # K4 (ops/treekernel.run_tree_kernel), read only where the kernel tree
     # engine runs, and then before tree_kernel_chunk: 0 off, 1 partitions of
-    # 1024 events, else max(tree_refill, 128) events per partition, each
-    # served by 128 threads of one block.  tree_refill_k: a thread whose tree ended takes
-    # its next event at the next multiple of this many iterations (results do
-    # not depend on it).
+    # 1024 events, else max(tree_refill, 128) events per partition, served by
+    # warps pulling events from the partition's queue, one tree per warp.
+    # tree_refill_k: a warp whose tree ended takes its next event at the next
+    # multiple of this many iterations (results do not depend on it).
     tree_refill: int = 0
     tree_refill_k: int = 8
     # "state" or "f32".  In the port it selects the sampler's dtype only (K1

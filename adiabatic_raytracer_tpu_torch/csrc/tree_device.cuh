@@ -1,13 +1,13 @@
-// One event's forward branching tree, f64, in one thread: the body shared by
-// K3 (treekernel.cu, one thread per event) and K4 (treerefill.cu, threads
-// pulling events from a per-block queue).
+// One event's forward branching tree, f64, run by one warp: the body shared
+// by K3 (treekernel.cu, one warp per event) and K4 (treerefill.cu, warps
+// pulling events from a queue per partition).
 //
 // Transcribed from the JAX reference's step body (adiabatic_raytracer_tpu/
 // ops/treekernel.py _make_step_body), with the host engine's semantics where
 // the two differ (ops/treekernel.py of the port says which).  `tree_run`
-// integrates the event's current node with the shared DP5 step
-// (art::dp5_step, species mixed, one crossing slot, in-kernel probability),
-// and at each segment end
+// integrates the event's current node with the warp's DP5 step
+// (art::dp5_step_warp, tree_warp.cuh: species mixed, one crossing slot,
+// in-kernel probability), and at each segment end
 //   * an exit without a recorded crossing writes a final record into the
 //     event's row of `fin` (or flags an overflow once count_main >= NF);
 //   * a recorded crossing passes the rare-fail guard, then pushes its
@@ -23,19 +23,27 @@
 // and a later call resumes it (f0 and g0 are recomputed from the committed
 // state, which is what FSAL carried).
 //
+// The warp: every lane holds the same registers and runs the serial parts
+// replicated; the step's event scan and bisection use the lanes
+// (tree_warp.cuh).  At a segment end, lane s < QD reads queue slot s: the
+// free slots for a push come from a ballot, the pop is a warp argmax by
+// shuffles under the serial rule (largest weight, then the lower pool slot),
+// and the popped index is taken from lane 0.  A final record or a pushed slot
+// (16 rows) is written by lanes 0..15, one row each, in one store, with a
+// __syncwarp() before any lane reads what another wrote.  Lane 0 writes the
+// event's aux and u rows back.
+//
 // Layout: every block is row-major per event, the JAX wrapper's own API
 // layout (ops/treekernel.py holds the row indices): uio [E, 16] (u in 0..6),
 // aux [E, 32] (integrator and node registers), uni [E, UU] (uniform of node
 // index n at n - 1), q [E, QD, 16] (the pending queue) and fin [E, NF, 16]
-// (final records).  uio, aux, q and fin are updated in place.  The queue and
-// fin are touched at segment ends only, a few times per node, so the strided
-// rows cost nothing next to the steps.
+// (final records).  uio, aux, q and fin are updated in place.
 //
 // Everything here has internal linkage or is inline (no anonymous namespace
 // inside `art`: nvcc's generated stubs reject it in a shared header).
 #pragma once
 
-#include "mega_device.cuh"
+#include "tree_warp.cuh"
 
 // Tree scalars passed by value at launch (ops/treekernel.py TreeParams).
 // it_cap is K3's step budget per event per launch; K4 takes its own.
@@ -80,29 +88,34 @@ static __device__ bool rare_velocity(const MegaParams& P, const double* u, doubl
   return fabs(vx) > 1.0 || fabs(vy) > 1.0 || fabs(vz) > 1.0;
 }
 
-static __device__ void write_slot(double* q, const double* u, double lnt, double is_ph,
-                                  double w, double prob, double pconv, double pconv0, double dw,
-                                  double slot) {
-  for (int c = 0; c < 7; ++c) q[Q_U0 + c] = u[c];
-  q[Q_LNT] = lnt;
-  q[Q_ISPH] = is_ph;
-  q[Q_W] = w;
-  q[Q_PROB] = prob;
-  q[Q_PCONV] = pconv;
-  q[Q_PCONV0] = pconv0;
-  q[Q_DW] = dw;
-  q[Q_SLOT] = slot;
-  q[Q_ST] = 1.0;
+// Lanes 0..15 each store row `lane` of a 16-row record at dst.
+__device__ __forceinline__ void store_rows(double* dst, const double (&v)[16], int lane) {
+  double x = v[0];
+#pragma unroll
+  for (int r = 1; r < 16; ++r) x = lane == r ? v[r] : x;
+  if (lane < 16) dst[lane] = x;
+}
+
+// A pending-queue slot: u(7), lnt, is_ph, weight, prob, pconv, pconv0, dw,
+// pool slot, status 1.
+__device__ __forceinline__ void write_slot(double* q, const double* u, double lnt, double is_ph,
+                                           double w, double prob, double pconv, double pconv0,
+                                           double dw, double slot, int lane) {
+  const double v[16] = {u[0], u[1], u[2], u[3], u[4], u[5], u[6], lnt,
+                        is_ph, w, prob, pconv, pconv0, dw, slot, 1.0};
+  store_rows(q, v, lane);
 }
 
 // Runs event i's tree (its aux row must have A_DONE clear) for at most
-// `budget` iterations.  Writes every row of its state back, A_ITERS excepted
-// (each kernel keeps its own count there), adds this call's work to the
-// work counters (rows 27-31; row 26 is the event's running step total), and
-// returns whether the tree is done; *used gets the iterations it ran.
+// `budget` iterations, with all 32 lanes of the warp.  Writes every row of
+// its state back, A_ITERS excepted (each kernel keeps its own count there),
+// adds this call's work to the work counters (rows 27-31; row 26 is the
+// event's running step total), and returns whether the tree is done
+// (warp-uniform); *used gets the iterations it ran.
 __device__ __forceinline__ bool tree_run(const MegaParams& P, const TreeParams& T, double* uio,
                                          double* aux, const double* uni, double* q,
-                                         double* fin, size_t i, int budget, int* used) {
+                                         double* fin, size_t i, int budget, int lane,
+                                         int* used) {
   double* a = aux + i * AUX_ROWS;
   double* qs = q + i * T.qd * Q_ROWS;
   double* fs = fin + i * T.nf * F_ROWS;
@@ -147,7 +160,7 @@ __device__ __forceinline__ bool tree_run(const MegaParams& P, const TreeParams& 
     int code = 1;  // a node born at or after lnt1 ends at once, without a crossing
     if (R.lnt < lnt1) {
       const double lnt_prev = R.lnt;  // an accepted step always advances lnt
-      code = dp5_step(P, R, lnt1, erg, photon, x0c, 0.0, nullptr, record);
+      code = dp5_step_warp(P, R, lnt1, erg, photon, x0c, lane, record);
       steptot += 1.0;
       n_ph += photon ? 1 : 0;
       n_acc += R.lnt != lnt_prev ? 1 : 0;
@@ -161,17 +174,10 @@ __device__ __forceinline__ bool tree_run(const MegaParams& P, const TreeParams& 
     if (!cross || rare) totp += w;
     if (!cross) {  // final node (MainRunner.jl:200-207)
       if (cmain < T.nf - 0.5) {
-        double* f = fs + (int)cmain * F_ROWS;
-        f[F_VALID] = 1.0;
-        f[F_ISFIN] = R.u[0] > P.r_ns * 1.1 ? 1.0 : 0.0;
-        f[F_ISPH] = photon ? 1.0 : 0.0;
-        f[F_ORD] = ord;
-        f[F_W] = w;
-        f[F_PROB] = prob;
-        f[F_PCONV] = pconv;
-        f[F_PCONV0] = pconv0;
-        f[F_TB] = tb;
-        for (int c = 0; c < 7; ++c) f[F_U0 + c] = R.u[c];
+        const double v[16] = {1.0, R.u[0] > P.r_ns * 1.1 ? 1.0 : 0.0, photon ? 1.0 : 0.0,
+                              ord, w, prob, pconv, pconv0, tb, R.u[0], R.u[1], R.u[2],
+                              R.u[3], R.u[4], R.u[5], R.u[6]};
+        store_rows(fs + (int)cmain * F_ROWS, v, lane);
       } else {
         overflow = true;
       }
@@ -200,22 +206,27 @@ __device__ __forceinline__ bool tree_run(const MegaParams& P, const TreeParams& 
       const double probA = mc ? (conv ? p_star : 1.0 - p_star) : p_star;
       const double pconv0A = mc ? (conv ? p_star : pconv) : p_star;
       const bool push_b = !mc;
-      bool pushed_a = false, pushed_b = false;
-      for (int s = 0; s < T.qd && !(pushed_a && (pushed_b || !push_b)); ++s) {
-        double* qsl = qs + s * Q_ROWS;
-        if (qsl[Q_ST] > 0.5) continue;
-        if (!pushed_a) {
-          write_slot(qsl, uc, lnt_star, spA, wA, probA, p_star, pconv0A, dw_child, nall);
-          pushed_a = true;
-        } else {
-          write_slot(qsl, uc, lnt_star, is_ph, (1.0 - p_star) * w, 1.0 - p_star, p_star,
-                     pconv, dw_child, nall + 1.0);
-          pushed_b = true;
+      // the first (and second) free slot in slot order; a slot is free
+      // unless its status is > 0.5
+      int sa = -1, sb = -1;
+      for (int base = 0; base < T.qd && sb < 0; base += 32) {
+        const int s = base + lane;
+        unsigned fr = __ballot_sync(kFullMask, s < T.qd && !(qs[s * Q_ROWS + Q_ST] > 0.5));
+        for (; fr != 0u && sb < 0; fr &= fr - 1u) {
+          if (sa < 0) sa = base + __ffs(fr) - 1;
+          else sb = base + __ffs(fr) - 1;
         }
       }
+      if (sa >= 0)
+        write_slot(qs + sa * Q_ROWS, uc, lnt_star, spA, wA, probA, p_star, pconv0A, dw_child,
+                   nall, lane);
+      if (push_b && sb >= 0)
+        write_slot(qs + sb * Q_ROWS, uc, lnt_star, is_ph, (1.0 - p_star) * w, 1.0 - p_star,
+                   p_star, pconv, dw_child, nall + 1.0, lane);
+      __syncwarp();
       // QD = mc_nodes + 2 bounds the pending count, so a failed push means
       // a shrunk queue: the host replays the event
-      if (!pushed_a || (push_b && !pushed_b)) overflow = true;
+      if (sa < 0 || (push_b && sb < 0)) overflow = true;
       nall += mc ? 1.0 : 2.0;
     }
 
@@ -229,9 +240,12 @@ __device__ __forceinline__ bool tree_run(const MegaParams& P, const TreeParams& 
     else stop = false;
 
     if (!stop) {  // pop the max-weight pending node, ties to the lower pool slot
+      // each lane's best of its slots s = lane, lane + 32, ... by the serial
+      // rule, then a butterfly over the lanes (ties last to the lower slot
+      // index, so the order is total and every lane ends with the serial pick)
       int best = -1;
       double bw = 0.0, bslot = 0.0;
-      for (int s = 0; s < T.qd; ++s) {
+      for (int s = lane; s < T.qd; s += 32) {
         const double* qsl = qs + s * Q_ROWS;
         if (qsl[Q_ST] < 0.5) continue;
         const double ws = qsl[Q_W], sl = qsl[Q_SLOT];
@@ -241,11 +255,22 @@ __device__ __forceinline__ bool tree_run(const MegaParams& P, const TreeParams& 
           bslot = sl;
         }
       }
+      for (int off = 16; off > 0; off >>= 1) {
+        const int ob = __shfl_xor_sync(kFullMask, best, off);
+        const double ow = __shfl_xor_sync(kFullMask, bw, off);
+        const double osl = __shfl_xor_sync(kFullMask, bslot, off);
+        if (ob >= 0 && (best < 0 || ow > bw ||
+                        (ow == bw && (osl < bslot || (osl == bslot && ob < best))))) {
+          best = ob;
+          bw = ow;
+          bslot = osl;
+        }
+      }
+      best = __shfl_sync(kFullMask, best, 0);
       if (best < 0) {
         stop = true;  // worklist exhausted: info stays 1
       } else {
         double* qb = qs + best * Q_ROWS;
-        qb[Q_ST] = 0.0;
         count += 1.0;
         ord = count;
         dw = qb[Q_DW];
@@ -257,6 +282,8 @@ __device__ __forceinline__ bool tree_run(const MegaParams& P, const TreeParams& 
         prob = qb[Q_PROB];
         pconv = qb[Q_PCONV];
         pconv0 = qb[Q_PCONV0];
+        if (lane == 0) qb[Q_ST] = 0.0;
+        __syncwarp();
         tb = exp(R.lnt);
         rhs(P, R.u, R.lnt, erg, photon, R.f0);
         R.g0 = condition(P, R.u, R.lnt);
@@ -276,36 +303,38 @@ __device__ __forceinline__ bool tree_run(const MegaParams& P, const TreeParams& 
     done = stop;
   }
 
-  for (int c = 0; c < 7; ++c) uu[c] = R.u[c];
-  a[A_LNT] = R.lnt;
-  a[A_ERROLD] = R.errold;
-  a[A_DT] = R.dt;
-  a[A_STEPS] = R.steps;
-  a[A_LNTCK] = R.lnt_ck;
-  a[A_ISPH] = photon ? 1.0 : 0.0;
-  a[A_DONE] = done ? 1.0 : 0.0;
-  a[A_INFO] = info;
-  a[A_COUNT] = count;
-  a[A_CMAIN] = cmain;
-  a[A_TOTP] = totp;
-  a[A_ANOM] = anom;
-  a[A_NALLOC] = nall;
-  a[A_WCUR] = w;
-  a[A_PROB] = prob;
-  a[A_PCONV] = pconv;
-  a[A_PCONV0] = pconv0;
-  a[A_TB] = tb;
-  a[A_DW] = dw;
-  a[A_ORD] = ord;
-  a[A_X0X] = x0c[0];
-  a[A_X0Y] = x0c[1];
-  a[A_X0Z] = x0c[2];
-  a[A_STEPTOT] = steptot;
-  a[A_NFINE] += R.nfine;
-  a[A_NBISECT] += R.nbisect;
-  a[A_STEPS_PH] += n_ph;
-  a[A_NCROSS] += n_rec;
-  a[A_NACC] += n_acc;
+  if (lane == 0) {
+    for (int c = 0; c < 7; ++c) uu[c] = R.u[c];
+    a[A_LNT] = R.lnt;
+    a[A_ERROLD] = R.errold;
+    a[A_DT] = R.dt;
+    a[A_STEPS] = R.steps;
+    a[A_LNTCK] = R.lnt_ck;
+    a[A_ISPH] = photon ? 1.0 : 0.0;
+    a[A_DONE] = done ? 1.0 : 0.0;
+    a[A_INFO] = info;
+    a[A_COUNT] = count;
+    a[A_CMAIN] = cmain;
+    a[A_TOTP] = totp;
+    a[A_ANOM] = anom;
+    a[A_NALLOC] = nall;
+    a[A_WCUR] = w;
+    a[A_PROB] = prob;
+    a[A_PCONV] = pconv;
+    a[A_PCONV0] = pconv0;
+    a[A_TB] = tb;
+    a[A_DW] = dw;
+    a[A_ORD] = ord;
+    a[A_X0X] = x0c[0];
+    a[A_X0Y] = x0c[1];
+    a[A_X0Z] = x0c[2];
+    a[A_STEPTOT] = steptot;
+    a[A_NFINE] += R.nfine;
+    a[A_NBISECT] += R.nbisect;
+    a[A_STEPS_PH] += n_ph;
+    a[A_NCROSS] += n_rec;
+    a[A_NACC] += n_acc;
+  }
   *used = it;
   return done;
 }

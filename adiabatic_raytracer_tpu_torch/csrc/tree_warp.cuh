@@ -1,0 +1,251 @@
+// One adaptive DP5 step run by a whole warp (32 lanes) for one tree node:
+// `dp5_step_warp`, the warp form of art::dp5_step (mega_device.cuh), which K2
+// keeps calling.  K3 and K4 run one event's tree per warp (tree_device.cuh).
+//
+// Per event it computes exactly what the serial step computes:
+//   * The serial chain (6 RHS stages, error norm, controller, commit, end
+//     codes) runs replicated: every lane does the same operations on the same
+//     values, so the lanes hold identical registers and nothing needs a
+//     broadcast.  Decisions that feed control flow (accept, the end code) are
+//     still taken from lane 0 (__shfl_sync), so a floating-point tie can never
+//     split the warp.
+//   * The event scan is spread over the lanes.  Round r of a pass of K points
+//     gives lane l the point j = 32 r + l + 1 <= K, at tau_j = (double)j / K
+//     (j = K is the step's end, g_new); its left neighbour g(j - 1) comes from
+//     __shfl_up_sync (lane 0: the previous round's last value) and the sign
+//     changes from __ballot_sync.  The coarse gate is one such pass of Kc
+//     points; the dense pass processes its roots in increasing j, at most
+//     max_roots of them, and stops as soon as the crossing cap ends the
+//     segment: the serial step's order.  Points are evaluated eagerly, not
+//     lazily; each is a pure function of tau.
+//   * The bisection is 32-way (bisect_warp): the serial halvings in rounds
+//     of 5 levels, 12 condition latencies for the default 60.
+// ops/treekernel.py holds plain models of the scan, the bisection and the
+// pop (_scan_roots_warp, _bisect_warp, _pop_best_warp) that the CPU tests
+// hold bit for bit against the serial algorithms.
+#pragma once
+
+#include "mega_device.cuh"
+
+namespace art {
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// The serial bisection of dp5_step (P.bisect halvings of [tlo, thi], keeping
+// the half whose left end has glo's sign) in rounds of up to 5 levels.  In a
+// round, lane n - 1 holds node n = 1..31 of the round's bisection tree (node
+// n's children are 2n, left, and 2n + 1, right): it rebuilds its interval by
+// replaying tm = 0.5 * (lo + hi) along the path bits of n, the serial loop's
+// own operations, so its tm is bit for bit the serial midpoint, and evaluates
+// the condition there.  Then every lane walks the round's levels from the
+// root, reading each node's tm and g by shuffle and applying the serial rule
+// sgn(g) == sgn(glo) (sgn 0 included).  tlo and thi end as the serial ones.
+__device__ __forceinline__ void bisect_warp(const MegaParams& P, const double* u0,
+                                            const double* u1, const double* f0,
+                                            const double* f1, double h, double lnt0, int lane,
+                                            double& tlo, double& thi, double glo) {
+  const int n = lane + 1;
+  const int depth = 31 - __clz(n);
+  for (int left = P.bisect; left > 0;) {
+    const int levels = left < 5 ? left : 5;
+    double lo = tlo, hi = thi;
+    for (int d = depth - 1; d >= 0; --d) {
+      const double m = 0.5 * (lo + hi);
+      if ((n >> d) & 1) lo = m;
+      else hi = m;
+    }
+    const double tm = 0.5 * (lo + hi);
+    double gm = 0.0;
+    if (depth < levels) {
+      double um[7];
+      hermite(u0, u1, f0, f1, h, tm, um);
+      gm = condition(P, um, lnt0 + tm * h);
+    }
+    int node = 1;
+    for (int d = 0; d < levels; ++d) {
+      const double tn = __shfl_sync(kFullMask, tm, node - 1);
+      const double gn = __shfl_sync(kFullMask, gm, node - 1);
+      if (sgn(gn) == sgn(glo)) {
+        tlo = tn;
+        glo = gn;
+        node = 2 * node + 1;
+      } else {
+        thi = tn;
+        node = 2 * node;
+      }
+    }
+    left -= levels;
+  }
+}
+
+// One round of a scan pass of K points over the accepted step [lnt0, lnt0 +
+// h]: lane l's point j = base + l + 1 (g_end where j == K), g(j - 1) in *gp
+// (lane 0: carry), the lanes whose pair (g(j - 1), g(j)) changed sign as a
+// ballot; carry becomes the round's last value.
+__device__ __forceinline__ unsigned scan_round(const MegaParams& P, const double* u0,
+                                               const double* u1, const double* f0,
+                                               const double* f1, double h, double lnt0,
+                                               double g_end, int K, int base, int lane,
+                                               double& carry, double* gj, double* gp) {
+  const int j = base + lane + 1;
+  double g = g_end;
+  if (j < K) {
+    const double tau = (double)j / K;
+    double uj[7];
+    hermite(u0, u1, f0, f1, h, tau, uj);
+    g = condition(P, uj, lnt0 + tau * h);
+  }
+  double left = __shfl_up_sync(kFullMask, g, 1);
+  if (lane == 0) left = carry;
+  carry = __shfl_sync(kFullMask, g, 31);
+  *gj = g;
+  *gp = left;
+  return __ballot_sync(kFullMask, j <= K && flipped(left, g));
+}
+
+// art::dp5_step for the tree kernels, run by all 32 lanes of a warp on the
+// same node (R identical in every lane); no midpoint output.  Returns the
+// same end code as dp5_step, warp-uniform.
+template <class Record>
+__device__ __forceinline__ int dp5_step_warp(const MegaParams& P, Ray& R, double lnt1, double erg,
+                                             bool photon, const double x0c[3], int lane,
+                                             Record&& record) {
+  double k[7][7];
+  for (int c = 0; c < 7; ++c) k[0][c] = R.f0[c];
+  double h = fmin(R.dt, lnt1 - R.lnt);
+  h = h > 0.0 ? h : 0.0;
+#pragma unroll 1
+  for (int s = 1; s < 7; ++s) {
+    double ui[7];
+    for (int c = 0; c < 7; ++c) {
+      double acc = 0.0;
+      for (int j = 0; j < s; ++j)
+        if (kA[s][j] != 0.0) acc += kA[s][j] * k[j][c];
+      ui[c] = R.u[c] + h * acc;
+    }
+    rhs(P, ui, R.lnt + kC[s] * h, erg, photon, k[s]);
+  }
+  double u_new[7];
+  double err = 0.0;
+  for (int c = 0; c < 7; ++c) {
+    double acc = 0.0, e = 0.0;
+    for (int j = 0; j < 7; ++j) {
+      if (j < 6 && kA[6][j] != 0.0) acc += kA[6][j] * k[j][c];
+      if (kE[j] != 0.0) e += kE[j] * k[j][c];
+    }
+    u_new[c] = R.u[c] + h * acc;
+    e = h * e;
+    const double sc = P.atol + P.rtol * fmax(fabs(R.u[c]), fabs(u_new[c]));
+    err += (e / sc) * (e / sc);
+  }
+  const double enorm = sqrt(err / 7.0);
+  const bool forced = R.dt <= P.dt_min * 1.0000001;
+  const bool accept =
+      __shfl_sync(kFullMask, (int)((enorm <= 1.0 || forced) && h > 0.0), 0) != 0;
+  const double en_safe = enorm > 0.0 ? enorm : 1e-10;
+  double fac;
+  if (P.pi_beta != 0.0) {
+    fac = P.safety * pow(en_safe, -P.expo1) * pow(R.errold, P.pi_beta);
+    fac = fmin(fmax(fac, P.min_fac), P.max_fac);
+    if (!accept) fac = fmin(fac, 1.0);
+  } else {
+    fac = fmin(fmax(P.safety * pow(en_safe, -0.2), P.min_fac), P.max_fac);
+  }
+  const double dt_next = fmax(R.dt * fac, P.dt_min);
+  const double t1 = R.lnt + h;
+  const double g_new = condition(P, u_new, t1);
+
+  // commit (the pool's order: the event scan below uses the step's start)
+  double u_prev[7];
+  for (int c = 0; c < 7; ++c) u_prev[c] = R.u[c];
+  const double lnt_prev = R.lnt, g_prev = R.g0;
+  if (accept) {
+    for (int c = 0; c < 7; ++c) R.u[c] = u_new[c];
+    R.lnt = t1;
+    R.g0 = g_new;
+    R.errold = fmax(enorm, 1e-4);
+  }
+  R.dt = dt_next;
+  R.steps += 1;
+
+  int code = 0;
+  bool done = false;
+  if (accept) {
+    // gate: the coarse pass, then the dense pass only if this node needs it
+    const int K = P.interp;
+    const int Kc = P.interp_coarse;
+    bool dense = true;
+    if (Kc > 0) {
+      bool flip_c = false;
+      bool low = fabs(g_prev) < P.gate_theta;
+      double carry = g_prev, gj, gp;
+      for (int base = 0; base < Kc; base += 32) {
+        flip_c = scan_round(P, u_prev, u_new, k[0], k[6], h, lnt_prev, g_new, Kc, base, lane,
+                            carry, &gj, &gp) != 0u || flip_c;
+        low = __any_sync(kFullMask, base + lane + 1 <= Kc && fabs(gj) < P.gate_theta) || low;
+      }
+      dense = flip_c || low;
+    }
+    if (dense) {
+      R.nfine += 1;
+      int roots = 0;
+      double carry = g_prev;
+      for (int base = 0; base < K && roots < P.max_roots && !done; base += 32) {
+        double gj, gp;
+        unsigned flips = scan_round(P, u_prev, u_new, k[0], k[6], h, lnt_prev, g_new, K, base,
+                                    lane, carry, &gj, &gp);
+        while (flips != 0u && roots < P.max_roots && !done) {
+          const int l = __ffs(flips) - 1;
+          flips &= flips - 1u;
+          const int j = base + l + 1;
+          roots += 1;
+          R.nbisect += 1;
+          double tlo = (double)(j - 1) / K, thi = (double)j / K;
+          bisect_warp(P, u_prev, u_new, k[0], k[6], h, lnt_prev, lane, tlo, thi,
+                      __shfl_sync(kFullMask, gp, l));
+          const double ts = 0.5 * (tlo + thi);
+          double us[7];
+          hermite(u_prev, u_new, k[0], k[6], h, ts, us);
+          const double lnt_s = lnt_prev + ts * h;
+          double sth, cth, sph, cph;
+          sincos(us[1], &sth, &cth);
+          sincos(us[2], &sph, &cph);
+          const double pc[3] = {us[0] * sth * cph, us[0] * sth * sph, us[0] * cth};
+          bool within = true;
+          for (int c = 0; c < 3; ++c)
+            within = within && fabs(pc[c]) < fabs(x0c[c]) * 1.0001 &&
+                     fabs(pc[c]) > fabs(x0c[c]) / 1.0001;
+          const bool start_dup = within && R.n_cross == 0;
+          const bool below = us[0] < P.r_ns * 1.01;
+          if (!start_dup && !below && R.n_cross < P.max_crossings) {
+            record(us, lnt_s, R.n_cross);
+            R.n_cross += 1;
+            if (R.n_cross >= P.max_crossings) {  // crossing cap: stop at the crossing
+              for (int c = 0; c < 7; ++c) R.u[c] = us[c];
+              R.lnt = lnt_s;
+              code = 3;
+              done = true;
+            }
+          }
+        }
+      }
+    }
+  }
+
+  if (accept)  // FSAL: the accepted step's last stage starts the next step
+    for (int c = 0; c < 7; ++c) R.f0[c] = k[6][c];
+  if (!done) {
+    const bool ns = accept && photon && R.u[0] < P.r_ns * 1.01;
+    const bool reached = accept && t1 >= lnt1 - 1e-14;
+    const bool maxed = R.steps >= P.max_steps;
+    bool stalled = false;
+    if (P.stall_window > 0 && R.steps % P.stall_window == 0) {
+      stalled = R.lnt - R.lnt_ck < P.stall_min;
+      R.lnt_ck = R.lnt;
+    }
+    code = ns ? 2 : reached ? 1 : maxed ? 4 : stalled ? 5 : 0;
+  }
+  return __shfl_sync(kFullMask, code, 0);
+}
+
+}  // namespace art

@@ -24,7 +24,7 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = ("line_scan.cu", "megakernel.cu", "treekernel.cu", "treerefill.cu", "refill_probe.cu")
-HEADERS = ("physics.cuh", "mega_device.cuh", "tree_device.cuh")
+HEADERS = ("physics.cuh", "mega_device.cuh", "tree_warp.cuh", "tree_device.cuh")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -2,18 +2,19 @@
 (csrc/treekernel.cu, csrc/treerefill.cu, both on csrc/tree_device.cuh).
 
 K3 replaces the Pallas tree kernel (adiabatic_raytracer_tpu/ops/treekernel.py:
-_tree_kernel via tree_kernel_launch).  Every CUDA thread is one event and
-runs the event's complete tree: it integrates each node's segment with the
-DP5 step it shares with K2 (csrc/mega_device.cuh), records finals, pushes
+_tree_kernel via tree_kernel_launch).  Every CUDA warp is one event and runs
+the event's complete tree: it integrates each node's segment with the warp's
+DP5 step (csrc/tree_warp.cuh: the serial chain replicated in its 32 lanes,
+the event scan and the bisection spread over them), records finals, pushes
 children onto a per-event pending queue, applies the per-node cutoffs
 (MainRunner.jl:324-339), pops the max-weight pending node and restarts.
 This is the reference's exact per-node semantics, i.e. the host work-queue
 engine at tree_k=1 (ops/tree.forward_tree), which is K3's reference.
 
 K4 replaces the Pallas refill kernel (_tree_kernel_refill via
-tree_refill_launch): the same tree body, but each block's threads serve a
-partition of events from a queue, a thread taking the next unstarted event
-when its tree ends.  Per event it writes what K3 writes, into the same rows.
+tree_refill_launch): the same tree body, but each partition's warps pull
+events from a queue, a warp taking the next unstarted event when its tree
+ends.  Per event it writes what K3 writes, into the same rows.
 
 Where the TPU kernels and the host engine differ, the port follows the host
 engine and K2 (ROADMAP Queue 3): every sign change of a step is scanned (up
@@ -29,7 +30,10 @@ K2's torch twins) on CPU tensors.  `forward_tree_kernel` is the tree engine
 around them (treekernel.py:1066 of the reference): root state, pre-drawn
 uniforms, then K4 (tree_refill > 0), or K3 in one launch or in bounded
 relaunches with staged straggler compaction; the exact host replay of
-overflow events, and finals-only pools.
+overflow events, and finals-only pools.  `_scan_roots_warp`, `_bisect_warp`
+and `_pop_best_warp` are plain models of the warp's scan, bisection and pop,
+for the CPU tests, which hold them bit for bit against the serial versions
+the plain versions run.
 
 Blocks are row-major per event (csrc/tree_device.cuh documents the layout);
 the row indices below are the kernels'.
@@ -39,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 
 import torch
@@ -107,8 +112,10 @@ def bind(lib):
     lib.art_treekernel.argtypes = [p, p, p, p, p, ctypes.c_int, MegaParams, TreeParams, p]
     lib.art_treekernel.restype = ctypes.c_int
     i = ctypes.c_int
-    lib.art_treerefill.argtypes = [p, p, p, p, p, i, i, i, i, i, MegaParams, TreeParams, p]
+    lib.art_treerefill.argtypes = [p, p, p, p, p, p, i, i, i, i, i, MegaParams, TreeParams, p]
     lib.art_treerefill.restype = ctypes.c_int
+    lib.art_treerefill_resident_warps.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.art_treerefill_resident_warps.restype = ctypes.c_int
 
 
 # ---------------------------------------------------------------------------
@@ -152,19 +159,52 @@ def _flipped(a, b):
     return torch.sign(a) * torch.sign(b) < 0
 
 
-def _scan_roots(P, x0, u0, u1, f0, f1, h, lnt0, g0, g1):
+def _g_interp(P, u0, u1, f0, f1, h, lnt0):
+    """g_tau(rows, tau): the condition on the Hermite interpolant of the
+    steps `rows` (of u0 .. lnt0, [m, 7] and [m]) at tau, rows and tau
+    broadcast against each other."""
+    def g_tau(rows, tau):
+        c = lambda t: tuple(t[rows, i] for i in range(7))
+        hr = h[rows]
+        return _condition(P, _hermite(c(u0), c(u1), c(f0), c(f1), hr, tau), lnt0[rows] + tau * hr)
+    return g_tau
+
+
+def _bisect(g_fn, tlo, thi, glo, iters):
+    """The serial bisection of art::dp5_step on [n] roots: `iters` halvings
+    of [tlo, thi], keeping the half whose left end has glo's sign; g_fn(tm)
+    is the condition at [n] taus.  Returns (tlo, thi)."""
+    for _ in range(iters):
+        tm = 0.5 * (tlo + thi)
+        gm = g_fn(tm)
+        left = torch.sign(gm) == torch.sign(glo)
+        tlo, thi, glo = (torch.where(left, tm, tlo), torch.where(left, thi, tm),
+                         torch.where(left, gm, glo))
+    return tlo, thi
+
+
+def _root_filter(P, x0, us):
+    """The roots [n, 7] that may be recorded: not the start point (within
+    1e-4 of x0 [n, 3] in every Cartesian component), not below 1.01 r_NS."""
+    pc = _cart(us)
+    ax0 = torch.abs(x0)
+    within = ((torch.abs(pc) < ax0 * 1.0001) & (torch.abs(pc) > ax0 / 1.0001)).all(dim=1)
+    return ~within & ~(us[:, 0] < P.r_ns * 1.01)
+
+
+def _scan_roots(P, x0, u0, u1, f0, f1, h, lnt0, g0, g1, g_tau=None):
     """The accepted steps' gated event scan (art::dp5_step) on [m] lanes:
     returns (recorded [m] bool, u_root [m, 7], lnt_root [m]) for the first
     root that passes the filters, and the dense passes and bisected roots
-    per lane ([m] each)."""
+    per lane ([m] each).  g_tau(rows, tau) evaluates the condition
+    (_g_interp by default)."""
     m = u0.shape[0]
     dev, dt = u0.device, u0.dtype
-    col = lambda t: tuple(t[:, c, None] for c in range(7))
-    U0, U1, F0, F1 = col(u0), col(u1), col(f0), col(f1)
-    hc, lc = h[:, None], lnt0[:, None]
+    g_tau = g_tau or _g_interp(P, u0, u1, f0, f1, h, lnt0)
+    rows = torch.arange(m, device=dev)[:, None]
 
     def g_at(taus):   # [m, T] condition values at the interpolant's taus [T]
-        return _condition(P, _hermite(U0, U1, F0, F1, hc, taus[None, :]), lc + taus[None, :] * hc)
+        return g_tau(rows, taus[None, :])
 
     rec = torch.zeros(m, dtype=torch.bool, device=dev)
     u_s = torch.zeros((m, 7), dtype=dt, device=dev)
@@ -192,24 +232,13 @@ def _scan_roots(P, x0, u0, u1, f0, f1, h, lnt0, g0, g1):
         idx = torch.argmax(elig.to(torch.int8), dim=1)
         li = has.nonzero().squeeze(1)
         j = idx[li]
-        tlo = j.to(dt) / K
-        thi = (j + 1).to(dt) / K
-        glo = seq[li, j]
-        sub = lambda t: tuple(x[li, 0] for x in t)
-        s0, s1, sf0, sf1 = sub(U0), sub(U1), sub(F0), sub(F1)
         hs, ls = h[li], lnt0[li]
-        for _ in range(P.bisect):
-            tm = 0.5 * (tlo + thi)
-            gm = _condition(P, _hermite(s0, s1, sf0, sf1, hs, tm), ls + tm * hs)
-            left = torch.sign(gm) == torch.sign(glo)
-            tlo, thi, glo = (torch.where(left, tm, tlo), torch.where(left, thi, tm),
-                             torch.where(left, gm, glo))
+        tlo, thi = _bisect(lambda t: g_tau(li, t), j.to(dt) / K, (j + 1).to(dt) / K,
+                           seq[li, j], P.bisect)
         ts = 0.5 * (tlo + thi)
-        us = torch.stack(_hermite(s0, s1, sf0, sf1, hs, ts), dim=1)
-        pc = _cart(us)
-        ax0 = torch.abs(x0[li])
-        within = ((torch.abs(pc) < ax0 * 1.0001) & (torch.abs(pc) > ax0 / 1.0001)).all(dim=1)
-        ok = ~within & ~(us[:, 0] < P.r_ns * 1.01)   # start point, below 1.01 r_NS
+        sub = lambda t: tuple(t[li, c] for c in range(7))
+        us = torch.stack(_hermite(sub(u0), sub(u1), sub(f0), sub(f1), hs, ts), dim=1)
+        ok = _root_filter(P, x0[li], us)
         n_root[li] += 1.0
         ri = li[ok]
         u_s[ri] = us[ok]
@@ -217,6 +246,152 @@ def _scan_roots(P, x0, u0, u1, f0, f1, h, lnt0, g0, g1):
         rec[ri] = True
         cursor = torch.where(has, idx + 1, torch.full_like(idx, K))
     return rec, u_s, lnt_s, dense.to(dt), n_root
+
+
+# ---------------------------------------------------------------------------
+# plain models of the warp algorithms (csrc/tree_warp.cuh, tree_device.cuh),
+# for the CPU tests: lanes are a last dimension of 32, a shuffle is a gather
+# along it, a ballot a boolean row
+# ---------------------------------------------------------------------------
+
+_LANES = 32
+_NODE = torch.arange(1, _LANES + 1)                  # lane l holds bisection node l + 1
+_DEPTH = torch.tensor([n.bit_length() - 1 for n in range(1, _LANES + 1)])
+
+
+def _bisect_warp(g_fn, tlo, thi, glo, iters):
+    """art::bisect_warp on [n] roots: rounds of up to 5 levels; lane l
+    rebuilds node l + 1 of the round's tree (children 2n left, 2n + 1 right)
+    by replaying tm = 0.5 * (lo + hi) along its path bits, g_fn evaluates
+    every lane's node ([n, 32] taus), and the walk reads each level's node by
+    shuffle and applies the serial rule.  Returns (tlo, thi): _bisect's."""
+    dev = tlo.device
+    node_n, depth = _NODE.to(dev), _DEPTH.to(dev)
+    rows = torch.arange(tlo.shape[0], device=dev)
+    left = iters
+    while left > 0:
+        levels = min(left, 5)
+        lo = tlo[:, None].expand(-1, _LANES)
+        hi = thi[:, None].expand(-1, _LANES)
+        for d in range(4, -1, -1):        # path bits below the leading one, top first
+            on = depth > d
+            mid = 0.5 * (lo + hi)
+            right = ((node_n >> d) & 1) == 1
+            lo, hi = torch.where(on & right, mid, lo), torch.where(on & ~right, mid, hi)
+        tm = 0.5 * (lo + hi)
+        gm = torch.where(depth < levels, g_fn(tm), torch.zeros_like(tm))
+        node = torch.ones_like(rows)
+        for _ in range(levels):
+            tn, gn = tm[rows, node - 1], gm[rows, node - 1]
+            keep = torch.sign(gn) == torch.sign(glo)
+            tlo, thi = torch.where(keep, tn, tlo), torch.where(keep, thi, tn)
+            glo = torch.where(keep, gn, glo)
+            node = torch.where(keep, 2 * node + 1, 2 * node)
+        left -= levels
+    return tlo, thi
+
+
+def _scan_roots_warp(P, x0, u0, u1, f0, f1, h, lnt0, g0, g1, g_tau=None):
+    """The warp's event scan (art::dp5_step_warp) on [m] accepted steps,
+    with _scan_roots' arguments and outputs.  A pass of K points runs in
+    rounds of 32 lanes: lane l holds j = 32 r + l + 1 <= K (g1 at j = K), at
+    tau = j / K; its left neighbour comes by shfl_up (lane 0: the previous
+    round's last value), the sign changes as a ballot.  The coarse gate is
+    one pass of Kc points; the dense pass bisects its flips (_bisect_warp)
+    in increasing j, at most max_roots of them, until one is recorded."""
+    m = u0.shape[0]
+    dev, dt = u0.device, u0.dtype
+    g_tau = g_tau or _g_interp(P, u0, u1, f0, f1, h, lnt0)
+    rows = torch.arange(m, device=dev)[:, None]
+    lane = torch.arange(_LANES, device=dev)
+
+    def rounds(n_pts):
+        """(j [32], g [m, 32], g(j - 1) [m, 32], ballot [m, 32]) per round."""
+        carry = g0
+        for base in range(0, n_pts, _LANES):
+            j = base + lane + 1
+            g = torch.where(j < n_pts, g_tau(rows, (j.to(dt) / n_pts)[None, :]), g1[:, None])
+            gp = torch.cat([carry[:, None], g[:, :-1]], dim=1)
+            carry = g[:, -1]
+            yield j, g, gp, (j <= n_pts) & _flipped(gp, g)
+
+    rec = torch.zeros(m, dtype=torch.bool, device=dev)
+    u_s = torch.zeros((m, 7), dtype=dt, device=dev)
+    lnt_s = torch.zeros(m, dtype=dt, device=dev)
+    n_root = torch.zeros(m, dtype=dt, device=dev)
+    K, Kc = P.interp, P.interp_coarse
+    dense = torch.ones(m, dtype=torch.bool, device=dev)
+    if Kc > 0:
+        flip_c = torch.zeros(m, dtype=torch.bool, device=dev)
+        low = torch.abs(g0) < P.gate_theta
+        for j, g, _, ballot in rounds(Kc):
+            flip_c = flip_c | ballot.any(dim=1)
+            low = low | ((j <= Kc) & (torch.abs(g) < P.gate_theta)).any(dim=1)
+        dense = flip_c | low
+    if not bool(dense.any()):
+        return rec, u_s, lnt_s, dense.to(dt), n_root
+    stop = ~dense
+    for j, g, gp, ballot in rounds(K):
+        for lo in range(_LANES):            # __ffs order: increasing lane
+            li = (ballot[:, lo] & ~stop).nonzero().squeeze(1)
+            if li.numel() == 0:
+                continue
+            jr = int(j[lo])
+            n_root[li] += 1.0
+            tlo, thi = _bisect_warp(lambda t: g_tau(li[:, None], t),
+                                    torch.full((li.shape[0],), float(jr - 1), dtype=dt, device=dev) / K,
+                                    torch.full((li.shape[0],), float(jr), dtype=dt, device=dev) / K,
+                                    gp[li, lo], P.bisect)
+            ts = 0.5 * (tlo + thi)
+            sub = lambda t: tuple(t[li, c] for c in range(7))
+            us = torch.stack(_hermite(sub(u0), sub(u1), sub(f0), sub(f1), h[li], ts), dim=1)
+            ok = _root_filter(P, x0[li], us)
+            ri = li[ok]
+            u_s[ri] = us[ok]
+            lnt_s[ri] = (lnt0[li] + ts * h[li])[ok]
+            rec[ri] = True
+            stop = stop | rec | (n_root >= P.max_roots)
+    return rec, u_s, lnt_s, dense.to(dt), n_root
+
+
+def _pop_best(q):
+    """The serial pop rule on [n, QD, 16] queues: (found [n], best [n]), the
+    pending slot of the largest weight, ties to the lower pool slot, then to
+    the lower slot index."""
+    pend = q[:, :, Q_ST] > 0.5
+    wv = torch.where(pend, q[:, :, Q_W], torch.full_like(q[:, :, Q_W], -math.inf))
+    cand = pend & (wv == wv.amax(dim=1, keepdim=True))
+    slot = torch.where(cand, q[:, :, Q_SLOT], torch.full_like(wv, math.inf))
+    return pend.any(dim=1), torch.argmin(slot, dim=1)
+
+
+def _pop_best_warp(q):
+    """The warp's pop (art::tree_run) on [n, QD, 16] queues, with _pop_best's
+    outputs: lane l takes the best of its slots l, l + 32, ... by the serial
+    rule, then a butterfly of xor shuffles keeps, of two candidates, the
+    larger weight, then the lower pool slot, then the lower slot index;
+    lane 0's pick is the warp's."""
+    n, qd = q.shape[:2]
+    dev, dt = q.device, q.dtype
+    lane = torch.arange(_LANES, device=dev)
+    best = torch.full((n, _LANES), -1, dtype=torch.int64, device=dev)
+    bw = torch.zeros((n, _LANES), dtype=dt, device=dev)
+    bsl = torch.zeros_like(bw)
+    for base in range(0, qd, _LANES):
+        s = base + lane
+        sc = s.clamp(max=qd - 1)
+        st, ws, sl = (q[:, sc, r] for r in (Q_ST, Q_W, Q_SLOT))
+        take = (s < qd) & ~(st < 0.5) & ((best < 0) | (ws > bw) | ((ws == bw) & (sl < bsl)))
+        best = torch.where(take, s.expand(n, -1), best)
+        bw, bsl = torch.where(take, ws, bw), torch.where(take, sl, bsl)
+    for off in (16, 8, 4, 2, 1):
+        ob, ow, osl = best[:, lane ^ off], bw[:, lane ^ off], bsl[:, lane ^ off]
+        take = (ob >= 0) & ((best < 0) | (ow > bw) | (
+            (ow == bw) & ((osl < bsl) | ((osl == bsl) & (ob < best)))))
+        best = torch.where(take, ob, best)
+        bw, bsl = torch.where(take, ow, bw), torch.where(take, osl, bsl)
+    pick = best[:, 0]
+    return pick >= 0, pick.clamp(min=0)
 
 
 def _step(P, S, run, lnt1, erg, x0):
@@ -374,11 +549,7 @@ def _segment_end(P, T: TreeParams, S, ends, crossed, u_root, lnt_root, p_root, l
     pi = (want & found).nonzero().squeeze(1)
     if pi.numel():
         qp = q[pi]
-        pp = pend[pi]
-        wv = torch.where(pp, qp[:, :, Q_W], torch.full_like(qp[:, :, Q_W], -math.inf))
-        cand = pp & (wv == wv.amax(dim=1, keepdim=True))
-        slot = torch.where(cand, qp[:, :, Q_SLOT], torch.full_like(wv, math.inf))
-        best = torch.argmin(slot, dim=1)
+        best = _pop_best(qp)[1]
         row = qp[torch.arange(pi.shape[0], device=dev), best]
         q[pi, best, Q_ST] = 0.0
         S["count"][pi] = S["count"][pi] + 1.0
@@ -417,7 +588,7 @@ _REGS = {"lnt": A_LNT, "errold": A_ERROLD, "dt": A_DT, "steps": A_STEPS, "lnt_ck
 
 def _load(P, uin, aux, uni, qin, ev, nf: int, qd: int):
     """Per-lane state of the plain versions for the events `ev` [n] (a
-    thread reading its event's rows): the registers, the integrator state
+    warp reading its event's rows): the registers, the integrator state
     with f0, g0 and, where aux holds none, the initial step, the event's
     energy, end time, uniforms and queue, and empty finals."""
     a = aux[ev]
@@ -437,7 +608,7 @@ def _load(P, uin, aux, uni, qin, ev, nf: int, qd: int):
 
 def _store(L, lanes, ev, uout, auxout, qout, fin, done, iters):
     """Write the state of `lanes` back into the rows of their events `ev`
-    (a thread writing its event out), with A_DONE = done and A_ITERS =
+    (a warp writing its event out), with A_DONE = done and A_ITERS =
     iters."""
     n = ev.shape[0]
     a = auxout[ev]
@@ -536,16 +707,35 @@ def _require_blocks(uin, aux, uni, qin, qd):
 
 
 def _check_refill(epart, refill_k, it_cap, lanes):
-    if not (epart >= 1 and refill_k >= 1 and 0 <= it_cap < 2**31 and 1 <= lanes <= 128):
+    if not (epart >= 1 and refill_k >= 1 and 0 <= it_cap < 2**31 and lanes >= 1):
         raise ValueError(f"K4 takes epart >= 1, refill_k >= 1, 0 <= it_cap < 2**31 and "
-                         f"1 <= lanes <= 128; got {epart}, {refill_k}, {it_cap}, {lanes}")
+                         f"at least one lane or warp; got {epart}, {refill_k}, {it_cap}, "
+                         f"{lanes}")
+
+
+@functools.lru_cache(maxsize=None)
+def resident_warps(device_index: int) -> int:
+    """The warps K4 keeps resident at once on a card: blocks per SM at its
+    registers (CUDA occupancy) x SMs x 4."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        cuda_lib.check(cuda_lib.lib().art_treerefill_resident_warps(ctypes.byref(out)),
+                       "treerefill occupancy")
+    return out.value
+
+
+def refill_warps(E: int, epart: int, device: torch.device) -> int:
+    """K4's default warps per partition: the card's resident warps shared
+    by the ceil(E / epart) partitions, at least 1."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return max(1, resident_warps(index) // max(-(-E // epart), 1))
 
 
 def tree_refill_launch_plain(uin, aux, uni, qin, sc: Scene, cfg: NumericsConfig,
                              tcfg: TreeConfig, *, nf: int, qd: int, epart: int, refill_k: int,
                              it_cap: int, lanes: int = 128):
-    """K4's plain version on the same blocks: each partition's threads as
-    lockstep lanes, one DP5 step (or segment end) of every busy lane per
+    """K4's plain version on the same blocks: each partition's `lanes` in
+    lockstep, one DP5 step (or segment end) of every busy lane per
     loop iteration.  At iteration 0, and whenever the iteration count is a
     multiple of refill_k, the idle lanes of a partition take its next live
     events in lane order; a lane whose tree stops writes its event's rows at
@@ -612,28 +802,32 @@ def tree_refill_launch_plain(uin, aux, uni, qin, sc: Scene, cfg: NumericsConfig,
 
 def tree_refill_launch(uin, aux, uni, qin, sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig,
                        *, nf: int, qd: int, epart: int, refill_k: int, it_cap: int,
-                       lanes: int = 128):
+                       warps: int | None = None):
     """One K4 launch over [E] events in partitions of `epart` (the last may
-    be short), each served by one block of `lanes` threads.  Same blocks as
-    tree_kernel_launch; returns (uout, auxout, qout, fin [E, NF*16]).  Every
-    event with aux[A_DONE] clear runs until its tree is done, unless its
-    thread's it_cap iterations run out first (then its A_DONE stays clear);
-    aux[A_ITERS] gets the serving thread's iteration count when the event
-    stopped.  CPU tensors run tree_refill_launch_plain."""
+    be short), each served by `warps` warps (default: the card's resident
+    warps over the partitions, at least 1) pulling its events from a queue,
+    one tree per warp.  Same blocks as tree_kernel_launch; returns (uout,
+    auxout, qout, fin [E, NF*16]).  Every event with aux[A_DONE] clear runs
+    until its tree is done, unless its warp's it_cap iterations run out first
+    (then its A_DONE stays clear); aux[A_ITERS] gets the serving warp's
+    iteration count when the event stopped.  CPU tensors run
+    tree_refill_launch_plain (128 lockstep lanes per partition); the results
+    per event depend on neither schedule."""
     if uin.device.type == "cpu":
         return tree_refill_launch_plain(uin, aux, uni, qin, sc, cfg, tcfg, nf=nf, qd=qd,
-                                        epart=epart, refill_k=refill_k, it_cap=it_cap,
-                                        lanes=lanes)
-    _check_refill(epart, refill_k, it_cap, lanes)
+                                        epart=epart, refill_k=refill_k, it_cap=it_cap)
+    _check_refill(epart, refill_k, it_cap, 1 if warps is None else warps)
+    E = uin.shape[0]
+    warps = refill_warps(E, epart, uin.device) if warps is None else warps
     check_supported(sc, cfg, 1)
     lib = cuda_lib.lib()
-    E = uin.shape[0]
     _require_blocks(uin, aux, uni, qin, qd)
     uout, auxout, qout = uin.clone(), aux.clone(), qin.clone()
     fin = torch.zeros((E, nf * ROWS), dtype=torch.float64, device=uin.device)
+    heads = torch.zeros(-(-E // epart), dtype=torch.int32, device=uin.device)
     code = lib.art_treerefill(uout.data_ptr(), auxout.data_ptr(), uni.data_ptr(),
-                              qout.data_ptr(), fin.data_ptr(), E, epart, lanes, refill_k, it_cap,
-                              kernel_params(sc, cfg),
+                              qout.data_ptr(), fin.data_ptr(), heads.data_ptr(), E, epart,
+                              warps, refill_k, it_cap, kernel_params(sc, cfg),
                               tree_params(tcfg, nf=nf, qd=qd, uu=uni.shape[1], it_cap=it_cap),
                               cuda_lib.stream_ptr(uin))
     cuda_lib.check(code, "treerefill launch")
@@ -716,9 +910,10 @@ def refill_partition(E: int, refill: int) -> int:
 def run_tree_kernel(uin, aux, uni, qin, sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, *,
                     nf: int, qd: int):
     """Every event's tree to its end.  tree_refill > 0: one K4 launch over
-    partitions of refill_partition(E, tree_refill) events, 128 threads
-    each, refill period tree_refill_k, it_cap per thread as at treekernel.py:1189 of the
-    reference; an event left unfinished raises.  Else K3: one launch
+    partitions of refill_partition(E, tree_refill) events, the card's
+    resident warps shared among them, refill period tree_refill_k, it_cap
+    per warp as at treekernel.py:1189 of the reference; an event left
+    unfinished raises.  Else K3: one launch
     (tree_kernel_chunk = 0), or bounded relaunches of tree_kernel_chunk steps
     with staged straggler compaction (treekernel.py:1209-1290 of the
     reference): every launch packs the live events first; each stage runs
@@ -735,7 +930,7 @@ def run_tree_kernel(uin, aux, uni, qin, sc: Scene, cfg: NumericsConfig, tcfg: Tr
         left = int((auxout[:, A_DONE] < 0.5).sum())
         if left:
             raise RuntimeError(f"K4 left {left} of {E} events unfinished within {cap} "
-                               f"iterations per thread")
+                               f"iterations per warp")
         return auxout, fin
     chunk = int(cfg.tree_kernel_chunk)
     if chunk <= 0:
@@ -828,7 +1023,7 @@ def forward_tree_kernel(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConf
     info = i64(A_INFO)
     info = torch.where(count > tcfg.mc_nodes, -torch.abs(info), info)
     # the kernels have no host iterations: K3 reports the launches each event
-    # ran in, K4 its thread's iteration count when the event stopped
+    # ran in, K4 its warp's iteration count when the event stopped
     launches = i64(A_ITERS)
     out = dict(count=count, count_main=i64(A_CMAIN), info=info,
                tot_prob=auxout[:, A_TOTP].to(dtype), n_alloc=i64(A_NALLOC),

@@ -11,7 +11,9 @@ Phases (each prints one line of findings; any failure raises and exits
 non-zero):
   1. device: torch.cuda must be available; nvidia-smi name and power limit
   2. build:  nvcc the kernel library, one process per source, all started
-     together: K1-K4 and P1 (registers / spills from ptxas)
+     together: K1-K4 and P1 (registers / spills from ptxas); K2's ptxas
+     figures must equal K2_PTXAS (K2's code does not change with the tree
+     kernels')
   3. K1 line scan vs its plain version on a sampler chunk (16384 lines x the
      production grid): g to f32 rounding, sampled roots within 2e-3 km
   4. device functions of K2/K3 (probe) vs their torch twins, f64, rtol 1e-12
@@ -24,7 +26,7 @@ non-zero):
      < 1e-8, p99 < 1e-6 and worst < 1e-5; then K3 on 2048 events
      (tree_kernel_chunk 0 and 64) against the host engine at tree_k=1 on K2,
      counters on >= 99%, and chunk 64's counters and finals against one
-     launch's at the same bars
+     launch's at the same bars; K3's time per step of the slowest tree
   7. the kernel path: cli with --device cuda --event_batch 2048 --Nts 4097
      --saveMode 1 (two full batches; --tree_engine auto -> kernel), cold in a
      fresh process, then warm under torch.profiler in this one, launch
@@ -36,14 +38,16 @@ non-zero):
      ids and steps identical, the probe's own checks, every event written
      once and flushed at a refill boundary or the loop's end, and its entry
      point (refill_probe.main) with the counters reset just before it
- 10. K4 vs tree_refill_launch_plain at the refill path's geometry: 512
-     production events in two partitions of 256, each served by 128
-     threads (two events a thread): phase 6's bars
+ 10. K4 vs tree_refill_launch_plain at the refill path's partitions: 512
+     production events in two partitions of 256, each served by 32 warps
+     (eight events a warp; the plain version: 128 lockstep lanes): phase
+     6's bars, and some events must start after another ended
  11. K4 against K3 (one launch) on 2048 events at tree_refill 128 and 1,
      at the default cutoffs and at the reference's production cutoffs
      (num_cutoff 50, mc_nodes 10, max_nodes 100): phase 6's bars, whether
      bitwise; host-clock times and launches of K3 one launch, K3 chunk 64,
-     K4 at 128 and K4 at 1
+     K4 at 128 and K4 at 1 (K4 with its default, card-filling warps); the
+     device times of K3 one launch and K4 at 1 on the same events, K4 / K3
  12. the refill path: driver.run with engine mega, tree_engine kernel,
      tree_refill 1, 2 x 2048 events, saveMode 1, warm under torch.profiler,
      counters reset just before it; K1, K2 and K4 must have launched, K3 not
@@ -204,6 +208,12 @@ def phase_device():
     return smi
 
 
+# K2's (registers, stack, spill stores, spill loads) from ptxas, as built
+# before the tree kernels became one warp per tree (NVIDIA H100 80GB HBM3
+# machine, CUDA 12.8): K2 shares the device functions but not the warp code
+K2_PTXAS = (254, 448, 48, 16)
+
+
 def phase_build():
     from adiabatic_raytracer_tpu_torch.ops import cuda_lib
 
@@ -213,8 +223,25 @@ def phase_build():
     os.makedirs(OUT, exist_ok=True)
     with open(os.path.join(OUT, "build_log.txt"), "w") as f:
         f.write(cuda_lib.BUILD_LOG)
+    summary = ptxas_summary(cuda_lib.BUILD_LOG)
     log(2, f"built {os.path.relpath(path, ROOT)} in {time.time() - t0:.1f} s; ptxas: "
-           + " | ".join(f"{k}: {v}" for k, v in ptxas_summary(cuda_lib.BUILD_LOG).items()))
+           + " | ".join(f"{k}: {v}" for k, v in summary.items()))
+    if not summary:
+        log(2, "the library was built before this run: no ptxas figures to check")
+        return
+    k2 = ptxas_figures(summary.get("mega_kernel", ""))
+    log(2, f"mega_kernel registers, stack, spill stores/loads {k2}; expected {K2_PTXAS}; "
+           f"same {k2 == K2_PTXAS}")
+    if k2 != K2_PTXAS:
+        raise AssertionError(f"K2's ptxas figures changed: {k2}, expected {K2_PTXAS}")
+
+
+def ptxas_figures(text):
+    """(registers, stack, spill stores, spill loads) in a ptxas_summary
+    entry, None where absent."""
+    grab = lambda pat: int(m.group(1)) if (m := re.search(pat, text)) else None
+    return (grab(r"Used (\d+) registers"), grab(r"(\d+) bytes stack frame"),
+            grab(r"(\d+) bytes spill stores"), grab(r"(\d+) bytes spill loads"))
 
 
 KERNEL_NAMES = ("line_scan_kernel", "mega_kernel", "probe_kernel", "tree_kernel",
@@ -536,8 +563,9 @@ def phase_treekernel(device, n_plain, n_tree):
            f"{steps.mean().item():.1f} max {int(steps.max().item())}, photon steps {int(n_ph)} "
            f"of {int(tot(tk.A_STEPTOT))}, accepted {int(tot(tk.A_NACC))}, dense passes "
            f"{int(tot(tk.A_NFINE))}, bisections {int(tot(tk.A_NBISECT))}, recorded crossings "
-           f"{int(tot(tk.A_NCROSS))}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
-           f"{b_ms:.4f} ms ({b_by})")
+           f"{int(tot(tk.A_NCROSS))}; kernel {ms:.3f} ms, "
+           f"{ms * 1e3 / steps.max().item():.2f} us per step of the slowest tree; plain "
+           f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by})")
     if not r["ok"]:
         raise AssertionError("K3 disagrees with its plain version")
     max_abs = r["max_abs"]
@@ -698,11 +726,12 @@ def phase_refill_probe(device):
                       "bound_by": b_by, "library_ms": None}
 
 
-def phase_refill_plain(device, n_events, epart):
+def phase_refill_plain(device, n_events, epart, warps):
     """K4 against its plain version on the same blocks at the refill path's
-    geometry: n_events production events in partitions of `epart`, each
-    served by 128 threads.  Returns the kernels' JSON row numbers: kernel
-    and plain times, bound and max abs error, all of this one input."""
+    partitions: n_events production events in partitions of `epart`, each
+    served by `warps` warps (the plain version: 128 lockstep lanes).
+    Returns the kernels' JSON row numbers: kernel and plain times, bound and
+    max abs error, all of this one input."""
     import dataclasses
 
     import torch
@@ -720,25 +749,29 @@ def phase_refill_plain(device, n_events, epart):
     blocks = tk.tree_inputs(keys, x, k, e, sc, cfg, tcfg, lnt_end=0.0)
     kw = dict(nf=nf, qd=qd, epart=epart, refill_k=int(cfg.tree_refill_k),
               it_cap=min(it_full * epart, 2**31 - 2))
-    _, a_k, _, f_k = tk.tree_refill_launch(*blocks, sc, cfg, tcfg, **kw)
+    launch = lambda: tk.tree_refill_launch(*blocks, sc, cfg, tcfg, warps=warps, **kw)
+    _, a_k, _, f_k = launch()
     torch.cuda.synchronize()
     t0 = time.time()
     _, a_p, _, f_p = tk.tree_refill_launch_plain(*blocks, sc, cfg, tcfg, **kw)
     torch.cuda.synchronize()
     plain_ms = (time.time() - t0) * 1e3   # host clock around one synced run
-    ms = cuda_ms(lambda: tk.tree_refill_launch(*blocks, sc, cfg, tcfg, **kw), 3)
+    ms = cuda_ms(launch, 3)
     b_ms, b_by = tree_bound(a_k, blocks[2].shape[1], nf, qd, cfg)
     r = tree_agreement(a_k, f_k, a_p, f_p, nf, "K4 vs plain", 10)
     served = a_k[:, tk.A_ITERS] - a_k[:, tk.A_STEPTOT]   # > 0: started after another event
+    later = int((served > 0).sum())
     parts = -(-n_events // epart)
-    log(10, f"K4 vs plain on {n_events} events, {parts} partitions of {epart}, 128 threads "
-            f"each (default cutoffs, refill_k {cfg.tree_refill_k}): {r['text']}; events started "
-            f"after another ended {int((served > 0).sum())}, thread iterations max "
-            f"{int(a_k[:, tk.A_ITERS].max().item())} (plain "
+    log(10, f"K4 vs plain on {n_events} events, {parts} partitions of {epart}, {warps} warps "
+            f"each (plain: 128 lockstep lanes; default cutoffs, refill_k "
+            f"{cfg.tree_refill_k}): {r['text']}; events started after another ended {later}, "
+            f"warp iterations max {int(a_k[:, tk.A_ITERS].max().item())} (plain lanes "
             f"{int(a_p[:, tk.A_ITERS].max().item())}); kernel {ms:.3f} ms, plain "
             f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by})")
     if not (r["ok"] and bool((a_k[:, tk.A_DONE] == 1).all())):
         raise AssertionError("K4 disagrees with its plain version")
+    if later == 0:
+        raise AssertionError("K4's queue handed no warp a second event")
     return {"max_abs_err": r["max_abs"], "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None}
 
@@ -750,8 +783,8 @@ def phase_refill_vs_tree(device, n_tree):
     """K4 at tree_refill 128 and 1 against K3 in one launch on n_tree
     events, at the default and the production cutoffs, with host-clock
     times (two runs each) and launches of K3 one launch, K3 chunk 64, K4 at
-    128 and K4 at 1; then K4's device time at the main path's shape
-    (tree_refill 1, default cutoffs)."""
+    128 and K4 at 1; then, at each cutoff set, the device times of K3 in one
+    launch and of K4 at tree_refill 1 (the main path's K4) on these events."""
     import dataclasses
 
     import torch
@@ -797,18 +830,26 @@ def phase_refill_vs_tree(device, n_tree):
             log(11, f"  {cut_name} cutoffs, {name} vs K3 one launch: {r['text']}")
             if name != "K3 chunk 64" and not r["ok"]:
                 raise AssertionError(f"{name} disagrees with K3 at the {cut_name} cutoffs")
-        if cut_name == "default":   # the main path's K4: 2048 events at tree_refill 1
-            ep = tk.refill_partition(n_tree, 1)
-            it_full = (tcfg.max_nodes + 2) * (cfg.max_steps + 2)
-            kw = dict(nf=nf, qd=qd, epart=ep, refill_k=int(cfg.tree_refill_k),
-                      it_cap=min(it_full * ep, 2**31 - 2))
-            _, a4, _, f4 = tk.tree_refill_launch(*blocks, sc, cfg, tcfg, **kw)
-            ms = cuda_ms(lambda: tk.tree_refill_launch(*blocks, sc, cfg, tcfg, **kw), 3)
-            b_ms, b_by = tree_bound(a4, blocks[2].shape[1], nf, qd, cfg)
-            r = tree_agreement(a4, f4, a3, f3, nf, "K4 launch vs K3", 11)
-            log(11, f"K4 at tree_refill 1 ({n_tree} events, partitions of {ep}, 128 threads "
-                    f"each): kernel {ms:.3f} ms (CUDA events), bound {b_ms:.4f} ms ({b_by}); "
-                    f"vs K3 bitwise {r['bitwise']}")
+        # device times on these events: K3 in one launch, K4 at tree_refill 1
+        # with its default warps (the main path's K4 at the default cutoffs)
+        it_full = (tcfg.max_nodes + 2) * (cfg.max_steps + 2)
+        ep = tk.refill_partition(n_tree, 1)
+        k3 = lambda: tk.tree_kernel_launch(*blocks, sc, cfg, tcfg, nf=nf, qd=qd, it_cap=it_full)
+        k4 = lambda: tk.tree_refill_launch(*blocks, sc, cfg, tcfg, nf=nf, qd=qd, epart=ep,
+                                           refill_k=int(cfg.tree_refill_k),
+                                           it_cap=min(it_full * ep, 2**31 - 2))
+        ms3, ms4 = cuda_ms(k3, 3), cuda_ms(k4, 3)
+        _, a4, _, f4 = k4()
+        b_ms, b_by = tree_bound(a4, blocks[2].shape[1], nf, qd, cfg)
+        r = tree_agreement(a4, f4, a3, f3, nf, "K4 launch vs K3", 11)
+        slow = st.max().item()
+        warps = tk.refill_warps(n_tree, ep, blocks[0].device)
+        log(11, f"{cut_name} cutoffs, device time (CUDA events): K3 one launch {ms3:.3f} ms "
+                f"({ms3 * 1e3 / slow:.2f} us per step of the slowest tree, {int(slow)} steps); "
+                f"K4 at tree_refill 1 (partitions of {ep}, {warps} warps each) {ms4:.3f} ms "
+                f"({ms4 * 1e3 / slow:.2f} us per step of the slowest tree; busiest warp "
+                f"{int(a4[:, tk.A_ITERS].max().item())} iterations), K4 / K3 {ms4 / ms3:.2f}; "
+                f"K4 bound {b_ms:.4f} ms ({b_by}); K4 vs K3 bitwise {r['bitwise']}")
 
 
 def phase_refill_path(device, n_events, batch):
@@ -849,7 +890,7 @@ def phase_refill_path(device, n_events, batch):
     log(12, f"refill path (driver.run, tree_refill 1): {stats.events} events, {rows.shape[0]} "
             f"rows; warm run {wall:.2f} s = {stats.events / wall:.1f} events/s (gate check "
             f"{stats.t_gate:.2f} s, sample {stats.t_sample:.2f} s, pipeline "
-            f"{stats.t_pipeline:.2f} s, rows {stats.t_rows:.2f} s, K4 thread iterations max "
+            f"{stats.t_pipeline:.2f} s, rows {stats.t_rows:.2f} s, K4 warp iterations max "
             f"per batch summed {stats.tree_iters}); scan_gate={stats.scan_gate}; info "
             f"{stats.info_hist}; launches {launches}")
     return launches, rows
@@ -940,7 +981,7 @@ def main():
     launches, rows_kernel = phase_slice(device, 4096, 2048, "auto", 7)
     phase_slice(device, 2048, 2048, "queue", 8, cold_run=False)
     p1_launches, p1 = phase_refill_probe(device)
-    k4 = phase_refill_plain(device, 512, 256)
+    k4 = phase_refill_plain(device, 512, 256, 32)
     phase_refill_vs_tree(device, 2048)
     refill_launches, rows_refill = phase_refill_path(device, 4096, 2048)
     same_shape = rows_refill.shape == rows_kernel.shape

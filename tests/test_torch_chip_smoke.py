@@ -39,6 +39,8 @@ def test_ptxas_summary_matches_whole_kernel_names():
     assert got["probe_kernel"].endswith("Used 96 registers, used 1 barriers")
     assert got["refill_probe_kernel"].startswith("0 bytes stack frame")
     assert "96 bytes spill stores" in got["tree_refill_kernel"]
+    assert chip_smoke.ptxas_figures(got["tree_refill_kernel"]) == (255, 520, 96, 96)
+    assert chip_smoke.ptxas_figures("") == (None, None, None, None)
     assert chip_smoke.source_names("line_scan_kernel") == {"line_scan_kernel"}
 
 

@@ -158,9 +158,9 @@ def assert_trees_agree(a_k, f_k, a_p, f_p, nf, min_same):
 
 @pytest.mark.cuda
 def test_treekernel_matches_plain(dev):
-    """K3 and tree_kernel_launch_plain on the same blocks (128 production
-    events, default cutoffs, one launch), at assert_trees_agree's bars with
-    counters identical on >= 99% of events."""
+    """K3 (one warp per event) and tree_kernel_launch_plain on the same
+    blocks (128 production events, default cutoffs, one launch), at
+    assert_trees_agree's bars with counters identical on >= 99% of events."""
     sc, cfg, tc, blocks = tree_blocks(dev, 128, seed=5)
     E = blocks[0].shape[0]
     kw = dict(nf=tc.num_cutoff, qd=tc.mc_nodes + 2, it_cap=10**8)
@@ -173,21 +173,38 @@ def test_treekernel_matches_plain(dev):
 
 @pytest.mark.cuda
 def test_treerefill_matches_plain(dev):
-    """K4 and tree_refill_launch_plain on 16 production events in two
-    partitions of 8, each served by 3 threads (so every thread takes a
-    second or third event mid-run), refill period 4: the same trees as
-    assert_trees_agree holds them, counters on all but one event at most;
-    and every event finished, each at a thread iteration count no smaller
-    than its own steps."""
-    sc, cfg, tc, blocks = tree_blocks(dev, 16, seed=6)
+    """K4 and tree_refill_launch_plain on 8 production events in one
+    partition, the kernel with 2 warps (so the queue hands each warp events
+    in turn), the plain version with 2 lanes, refill period 4: the same
+    trees as assert_trees_agree holds them, counters on all but one event at
+    most; every event finished, each at a warp iteration count no smaller
+    than its own steps, and some started after another ended."""
+    sc, cfg, tc, blocks = tree_blocks(dev, 8, seed=6)
     E = blocks[0].shape[0]
-    kw = dict(nf=tc.num_cutoff, qd=tc.mc_nodes + 2, epart=8, refill_k=4, it_cap=10**8, lanes=3)
-    _, a_k, _, f_k = tk.tree_refill_launch(*blocks, sc, cfg, tc, **kw)
+    kw = dict(nf=tc.num_cutoff, qd=tc.mc_nodes + 2, epart=8, refill_k=4, it_cap=10**8)
+    _, a_k, _, f_k = tk.tree_refill_launch(*blocks, sc, cfg, tc, warps=2, **kw)
     torch.cuda.synchronize()
-    _, a_p, _, f_p = tk.tree_refill_launch_plain(*blocks, sc, cfg, tc, **kw)
-    assert E == 16 and torch.all(a_k[:, tk.A_DONE] == 1) and torch.all(a_p[:, tk.A_DONE] == 1)
+    _, a_p, _, f_p = tk.tree_refill_launch_plain(*blocks, sc, cfg, tc, lanes=2, **kw)
+    assert E == 8 and torch.all(a_k[:, tk.A_DONE] == 1) and torch.all(a_p[:, tk.A_DONE] == 1)
     assert torch.all(a_k[:, tk.A_ITERS] >= a_k[:, tk.A_STEPTOT])
-    assert_trees_agree(a_k, f_k, a_p, f_p, tc.num_cutoff, 15 / 16)
+    assert int((a_k[:, tk.A_ITERS] > a_k[:, tk.A_STEPTOT]).sum()) >= 2
+    assert_trees_agree(a_k, f_k, a_p, f_p, tc.num_cutoff, 7 / 8)
+
+
+@pytest.mark.cuda
+def test_treerefill_equals_treekernel(dev):
+    """K4 (2 warps per partition of 16, and its default warps in one
+    partition) and K3 in one launch run the same warp code per event: every
+    aux row but the iteration count, and every finals slot, bit for bit."""
+    sc, cfg, tc, blocks = tree_blocks(dev, 64, seed=7)
+    kw = dict(nf=tc.num_cutoff, qd=tc.mc_nodes + 2)
+    _, a3, _, f3 = tk.tree_kernel_launch(*blocks, sc, cfg, tc, it_cap=10**8, **kw)
+    keep = [r for r in range(tk.AUX_ROWS) if r != tk.A_ITERS]
+    for epart, warps in ((16, 2), (64, None)):
+        _, a4, _, f4 = tk.tree_refill_launch(*blocks, sc, cfg, tc, epart=epart, refill_k=8,
+                                             it_cap=10**8, warps=warps, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(a4[:, keep], a3[:, keep]) and torch.equal(f4, f3), (epart, warps)
 
 
 @pytest.mark.cuda
