@@ -1,17 +1,16 @@
-// f64 device code shared by the K2 megakernel (megakernel.cu) and the K3 tree
-// kernel (treekernel.cu): the DP5 tableau, the hand-adjoint Hamilton RHS, the
-// in-kernel conversion probability, the cubic-Hermite interpolant, the
-// initial step, and one whole adaptive DP5 step with its gated event scan,
-// bisection and crossing filters (`dp5_step`).
+// f64 device code shared by the three f64 kernels, K2 (megakernel.cu), K3
+// (treekernel.cu) and K4 (treerefill.cu): the DP5 tableau, the hand-adjoint
+// Hamilton RHS, the in-kernel conversion probability, the cubic-Hermite
+// interpolant, the initial step and the state of one integration (`Ray`).
+// The step that uses them, with its event scan and bisection, is
+// art::dp5_step_warp (tree_warp.cuh), run by one warp per integration.
 //
 // Transcribed from the JAX reference (adiabatic_raytracer_tpu/ops/
 // megakernel.py _grad_h_hand/_rhs/_prob_nd/_hermite and the body of
 // _mega_kernel); each function has a torch twin of the same name in
 // ops/megakernel.py that the CPU tests and chip_smoke.py hold it against.
-// Event semantics are the pool engine's (ops/integrator.py): every accepted
-// step scans the interpolant and refines up to `max_roots` sign changes in
-// order.  The constants and functions have internal linkage (static or
-// inline), so each kernel source compiles its own copy.
+// The constants and functions have internal linkage (static or inline), so
+// each kernel source compiles its own copy.
 #pragma once
 
 #include "physics.cuh"
@@ -298,177 +297,5 @@ struct Ray {
   double lnt, dt, g0, errold, lnt_ck;
   int steps, n_cross, nfine, nbisect;  // nfine/nbisect: dense passes, bisected roots
 };
-
-// One attempted adaptive DP5 step of R towards lnt1, committed when accepted,
-// then the gated event scan of the accepted step: the coarse pass
-// (interp_coarse points) decides per thread whether the dense pass (interp
-// points) runs; each sign change of the dense pass, up to max_roots per step
-// and in order, is bisected on the Hermite interpolant, and a root that
-// passes the start-point (first crossing only) and r < 1.01 r_NS filters is
-// handed to record(u_root, lnt_root, slot) while R.n_cross < max_crossings.
-// The crossing that fills the last slot ends the integration at the root.
-// If save_mid is given and the accepted step spans lnt_mid, the interpolant
-// at lnt_mid is written there.  Returns 0 to go on, else the end code:
-// 1 lnt1 reached, 2 photon at the star, 3 crossing cap, 4 step cap, 5 stalled.
-template <class Record>
-__device__ __forceinline__ int dp5_step(const MegaParams& P, Ray& R, double lnt1, double erg,
-                                        bool photon, const double x0c[3], double lnt_mid,
-                                        double* save_mid, Record&& record) {
-  double k[7][7];
-  for (int c = 0; c < 7; ++c) k[0][c] = R.f0[c];
-  double h = fmin(R.dt, lnt1 - R.lnt);
-  h = h > 0.0 ? h : 0.0;
-#pragma unroll 1
-  for (int s = 1; s < 7; ++s) {
-    double ui[7];
-    for (int c = 0; c < 7; ++c) {
-      double acc = 0.0;
-      for (int j = 0; j < s; ++j)
-        if (kA[s][j] != 0.0) acc += kA[s][j] * k[j][c];
-      ui[c] = R.u[c] + h * acc;
-    }
-    rhs(P, ui, R.lnt + kC[s] * h, erg, photon, k[s]);
-  }
-  double u_new[7];
-  double err = 0.0;
-  for (int c = 0; c < 7; ++c) {
-    double acc = 0.0, e = 0.0;
-    for (int j = 0; j < 7; ++j) {
-      if (j < 6 && kA[6][j] != 0.0) acc += kA[6][j] * k[j][c];
-      if (kE[j] != 0.0) e += kE[j] * k[j][c];
-    }
-    u_new[c] = R.u[c] + h * acc;
-    e = h * e;
-    const double sc = P.atol + P.rtol * fmax(fabs(R.u[c]), fabs(u_new[c]));
-    err += (e / sc) * (e / sc);
-  }
-  const double enorm = sqrt(err / 7.0);
-  const bool forced = R.dt <= P.dt_min * 1.0000001;
-  const bool accept = (enorm <= 1.0 || forced) && h > 0.0;
-  const double en_safe = enorm > 0.0 ? enorm : 1e-10;
-  double fac;
-  if (P.pi_beta != 0.0) {
-    fac = P.safety * pow(en_safe, -P.expo1) * pow(R.errold, P.pi_beta);
-    fac = fmin(fmax(fac, P.min_fac), P.max_fac);
-    if (!accept) fac = fmin(fac, 1.0);
-  } else {
-    fac = fmin(fmax(P.safety * pow(en_safe, -0.2), P.min_fac), P.max_fac);
-  }
-  const double dt_next = fmax(R.dt * fac, P.dt_min);
-  const double t1 = R.lnt + h;
-  if (save_mid != nullptr && accept && lnt_mid > R.lnt && lnt_mid <= t1)
-    hermite(R.u, u_new, k[0], k[6], h, (lnt_mid - R.lnt) / h, save_mid);
-  const double g_new = condition(P, u_new, t1);
-
-  // commit (the pool's order: the event scan below uses the step's start)
-  double u_prev[7];
-  for (int c = 0; c < 7; ++c) u_prev[c] = R.u[c];
-  const double lnt_prev = R.lnt, g_prev = R.g0;
-  if (accept) {
-    for (int c = 0; c < 7; ++c) R.u[c] = u_new[c];
-    R.lnt = t1;
-    R.g0 = g_new;
-    R.errold = fmax(enorm, 1e-4);
-  }
-  R.dt = dt_next;
-  R.steps += 1;
-
-  int code = 0;
-  bool done = false;
-  if (accept) {
-    // gate: coarse pass, then the dense pass only if this ray needs it
-    const int K = P.interp;
-    const int Kc = P.interp_coarse;
-    bool dense = true;
-    if (Kc > 0) {
-      bool flip_c = false;
-      double gmin = fabs(g_prev), gp = g_prev;
-      for (int j = 1; j <= Kc; ++j) {
-        const double tau = (double)j / Kc;
-        double gj = g_new;
-        if (j < Kc) {
-          double uj[7];
-          hermite(u_prev, u_new, k[0], k[6], h, tau, uj);
-          gj = condition(P, uj, lnt_prev + tau * h);
-        }
-        flip_c = flip_c || flipped(gp, gj);
-        gmin = fmin(gmin, fabs(gj));
-        gp = gj;
-      }
-      dense = flip_c || gmin < P.gate_theta;
-    }
-    if (dense) {
-      R.nfine += 1;
-      int roots = 0;
-      double gp = g_prev;
-      for (int j = 1; j <= K && roots < P.max_roots && !done; ++j) {
-        const double tau_j = (double)j / K;
-        double gj = g_new;
-        if (j < K) {
-          double uj[7];
-          hermite(u_prev, u_new, k[0], k[6], h, tau_j, uj);
-          gj = condition(P, uj, lnt_prev + tau_j * h);
-        }
-        if (flipped(gp, gj)) {
-          roots += 1;
-          R.nbisect += 1;
-          double tlo = (double)(j - 1) / K, thi = (double)j / K, glo = gp;
-          double um[7];
-          for (int it = 0; it < P.bisect; ++it) {
-            const double tm = 0.5 * (tlo + thi);
-            hermite(u_prev, u_new, k[0], k[6], h, tm, um);
-            const double gm = condition(P, um, lnt_prev + tm * h);
-            if (sgn(gm) == sgn(glo)) {
-              tlo = tm;
-              glo = gm;
-            } else {
-              thi = tm;
-            }
-          }
-          const double ts = 0.5 * (tlo + thi);
-          double us[7];
-          hermite(u_prev, u_new, k[0], k[6], h, ts, us);
-          const double lnt_s = lnt_prev + ts * h;
-          double sth, cth, sph, cph;
-          sincos(us[1], &sth, &cth);
-          sincos(us[2], &sph, &cph);
-          const double pc[3] = {us[0] * sth * cph, us[0] * sth * sph, us[0] * cth};
-          bool within = true;
-          for (int c = 0; c < 3; ++c)
-            within = within && fabs(pc[c]) < fabs(x0c[c]) * 1.0001 &&
-                     fabs(pc[c]) > fabs(x0c[c]) / 1.0001;
-          const bool start_dup = within && R.n_cross == 0;
-          const bool below = us[0] < P.r_ns * 1.01;
-          if (!start_dup && !below && R.n_cross < P.max_crossings) {
-            record(us, lnt_s, R.n_cross);
-            R.n_cross += 1;
-            if (R.n_cross >= P.max_crossings) {  // crossing cap: stop at the crossing
-              for (int c = 0; c < 7; ++c) R.u[c] = us[c];
-              R.lnt = lnt_s;
-              code = 3;
-              done = true;
-            }
-          }
-        }
-        gp = gj;
-      }
-    }
-  }
-
-  if (accept)  // FSAL: the accepted step's last stage starts the next step
-    for (int c = 0; c < 7; ++c) R.f0[c] = k[6][c];
-  if (!done) {
-    const bool ns = accept && photon && R.u[0] < P.r_ns * 1.01;
-    const bool reached = accept && t1 >= lnt1 - 1e-14;
-    const bool maxed = R.steps >= P.max_steps;
-    bool stalled = false;
-    if (P.stall_window > 0 && R.steps % P.stall_window == 0) {
-      stalled = R.lnt - R.lnt_ck < P.stall_min;
-      R.lnt_ck = R.lnt;
-    }
-    code = ns ? 2 : reached ? 1 : maxed ? 4 : stalled ? 5 : 0;
-  }
-  return code;
-}
 
 }  // namespace art

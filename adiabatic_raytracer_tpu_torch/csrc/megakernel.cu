@@ -1,4 +1,5 @@
-// K2: the whole adaptive Dormand-Prince 5(4) integrator in one kernel, f64.
+// K2: the whole adaptive Dormand-Prince 5(4) integrator in one kernel, f64,
+// one warp per ray.
 //
 // Replaces the Pallas TPU megakernel adiabatic_raytracer_tpu/ops/megakernel.py
 // _mega_kernel (via integrate_mega): per ray, the adaptive DP5 loop in log
@@ -8,17 +9,29 @@
 // stall cut, up to max_crossings crossing records, the ntimes=3 midpoint and
 // the conversion probability (_prob_nd) at each recorded crossing.
 //
-// What bounds it on the card: f64 arithmetic and divergence.  A step costs
-// ~6 RHS (~250 flops each, ~30 of them div/sqrt/sincos) plus 3-49 condition
-// evaluations; the data moved is a few hundred bytes per ray for the whole
-// integration.  Step counts per ray are heavy-tailed, so a warp runs until
-// its slowest ray finishes, and rays of one warp take different branches of
-// the event scan.
-// What the design does about it: one thread per ray, a `while` loop per
-// thread, state in registers (spilling to L1-resident local memory), no
-// shared memory and no inter-thread traffic; crossing records, the midpoint
-// and pcx go straight to global memory; the dense 50-point scan runs only on
-// the threads whose own coarse pass asks for it (per-thread gate).
+// What bounds it on the card: the latency of one ray's serial chain, not
+// bytes or operations.  A step costs 6 RHS (sincos, exp and pow in the
+// chain) plus 3-49 condition evaluations and a 60-step bisection per root;
+// the data moved is a few hundred bytes per ray for the whole integration.
+// Step counts per ray are heavy-tailed, so a launch lasts as long as its
+// slowest ray.
+// What the design does about it: one warp integrates one ray with the step
+// K3 and K4 run (art::dp5_step_warp, tree_warp.cuh): the RHS chain runs
+// replicated in the 32 lanes, the event scan (32 points a round) and the
+// bisection (5 levels a round) are spread over them, so a recorded root
+// costs ~12 condition latencies instead of ~61, and no ray waits for
+// another ray's branches (photon and axion rays of a "mixed" launch never
+// share a warp).  Warps pull rays from a queue: lane 0's atomicAdd on one
+// int head in device memory (zeroed by the caller on the stream), broadcast
+// by __shfl_sync, hands out ray indices.  min(B, resident warps) warps are
+// launched (the wrapper asks art_megakernel_resident_warps), so a batch
+// spreads over every SM and a warp whose ray ended takes the next one
+// instead of idling until its block's slowest ray ends.  A ray's result
+// depends on nothing but the ray, so the schedule changes no output.  Blocks
+// of 4 warps, no shared memory, no barrier.  Stores are spread over the
+// lanes: the zeroed crossing slots, each crossing record (lanes 0..6 one
+// cru component each, lane 0 crlnt and pcx; prob_nd runs in every lane, so
+// the warp never diverges), then uf, save_mid, lntf and diag.
 // Precision: the TPU kernel's float-float state, Cody-Waite sin/cos/exp and
 // f32 bisection cap were workarounds for a chip without f64; here state and
 // physics are f64 and libdevice's sin/cos/exp are used.
@@ -26,9 +39,8 @@
 // Event semantics are the pool engine's (ops/integrator.py, this kernel's
 // plain version): on each accepted step the Hermite interpolant is scanned at
 // `interp` points and up to `max_roots` sign changes are bisected, in order.
-// The device functions and the step itself (art::dp5_step) live in
-// mega_device.cuh, which the K3 tree kernel (treekernel.cu) shares.
-#include "mega_device.cuh"
+// The device functions live in mega_device.cuh, the step in tree_warp.cuh.
+#include "tree_warp.cuh"
 
 using art::MegaParams;
 using art::Metric;
@@ -37,17 +49,29 @@ namespace {
 
 using namespace art;
 
-constexpr int kThreads = 128;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxSlots = 16;
 
-__global__ void __launch_bounds__(kThreads)
-    mega_kernel(const double* __restrict__ u_in, const double* __restrict__ aux, int B,
-                MegaParams P, double* __restrict__ uf, double* __restrict__ lntf,
-                double* __restrict__ diag, double* __restrict__ cru,
-                double* __restrict__ crlnt, double* __restrict__ save_out,
-                double* __restrict__ pcx) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= B) return;
+// v[k] for a lane-dependent k < N, without indexing a register array by a
+// runtime value.
+template <int N>
+__device__ __forceinline__ double pick(const double* v, int k) {
+  double x = v[0];
+#pragma unroll
+  for (int r = 1; r < N; ++r) x = k == r ? v[r] : x;
+  return x;
+}
+
+// Ray i, integrated by all 32 lanes of the warp (same registers in every
+// lane); `lane` is the caller's lane index.
+__device__ __forceinline__ void run_ray(const double* __restrict__ u_in,
+                                        const double* __restrict__ aux, int i,
+                                        const MegaParams& P, double* __restrict__ uf,
+                                        double* __restrict__ lntf, double* __restrict__ diag,
+                                        double* __restrict__ cru, double* __restrict__ crlnt,
+                                        double* __restrict__ save_out,
+                                        double* __restrict__ pcx, int lane) {
   const int S = P.max_crossings;
   Ray R;
   for (int c = 0; c < 7; ++c) R.u[c] = u_in[(size_t)i * 7 + c];
@@ -55,11 +79,12 @@ __global__ void __launch_bounds__(kThreads)
   const double lnt0 = a[0], lnt1 = a[1], erg = a[2];
   const double x0c[3] = {a[3], a[4], a[5]};
   const bool photon = a[6] > 0.5;
-  for (int s = 0; s < S; ++s) {
-    for (int c = 0; c < 7; ++c) cru[((size_t)i * S + s) * 7 + c] = 0.0;
+  for (int c = lane; c < S * 7; c += 32) cru[(size_t)i * S * 7 + c] = 0.0;
+  for (int s = lane; s < S; s += 32) {
     crlnt[(size_t)i * S + s] = 0.0;
     pcx[(size_t)i * S + s] = 0.0;
   }
+  __syncwarp();  // the zeros land before any lane writes a record over them
 
   R.lnt = lnt0;
   rhs(P, R.u, R.lnt, erg, photon, R.f0);
@@ -79,24 +104,47 @@ __global__ void __launch_bounds__(kThreads)
   // every recorded crossing: its state, log time and (with_prob) probability
   auto record = [&](const double* us, double lnt_s, int n) {
     const size_t slot = (size_t)i * S + n;
-    for (int c = 0; c < 7; ++c) cru[slot * 7 + c] = us[c];
-    crlnt[slot] = lnt_s;
-    if (P.with_prob) pcx[slot] = prob_nd(P, us, erg);
+    const double p = P.with_prob ? prob_nd(P, us, erg) : 0.0;
+    if (lane < 7) cru[slot * 7 + lane] = pick<7>(us, lane);
+    if (lane == 0) {
+      crlnt[slot] = lnt_s;
+      if (P.with_prob) pcx[slot] = p;
+    }
   };
   while (!done) {
-    code = dp5_step(P, R, lnt1, erg, photon, x0c, lnt_mid, save_mid, record);
+    code = dp5_step_warp(P, R, lnt1, erg, photon, x0c, lnt_mid, save_mid, lane, record);
     done = code != 0;
   }
 
-  for (int c = 0; c < 7; ++c) {
-    uf[(size_t)i * 7 + c] = R.u[c];
-    save_out[(size_t)i * 7 + c] = lnt_mid <= R.lnt ? save_mid[c] : 0.0;
+  // lanes 0..6 uf, 7..13 save_mid, 14 lntf, 15..18 diag
+  if (lane < 7) {
+    uf[(size_t)i * 7 + lane] = pick<7>(R.u, lane);
+  } else if (lane < 14) {
+    save_out[(size_t)i * 7 + lane - 7] = lnt_mid <= R.lnt ? pick<7>(save_mid, lane - 7) : 0.0;
+  } else if (lane == 14) {
+    lntf[i] = R.lnt;
+  } else if (lane < 19) {
+    const double d[4] = {(double)R.steps, (double)code, (double)R.n_cross, (double)R.nfine};
+    diag[(size_t)i * 4 + lane - 15] = pick<4>(d, lane - 15);
   }
-  lntf[i] = R.lnt;
-  diag[(size_t)i * 4 + 0] = R.steps;
-  diag[(size_t)i * 4 + 1] = code;
-  diag[(size_t)i * 4 + 2] = R.n_cross;
-  diag[(size_t)i * 4 + 3] = R.nfine;
+}
+
+// Warps w < warps pull rays from *head until B is reached.
+__global__ void __launch_bounds__(kThreads)
+    mega_kernel(const double* __restrict__ u_in, const double* __restrict__ aux, int B,
+                int warps, int* __restrict__ head, MegaParams P, double* __restrict__ uf,
+                double* __restrict__ lntf, double* __restrict__ diag,
+                double* __restrict__ cru, double* __restrict__ crlnt,
+                double* __restrict__ save_out, double* __restrict__ pcx) {
+  const int lane = threadIdx.x & 31;
+  if ((int)(blockIdx.x * kWarps + threadIdx.x / 32) >= warps) return;
+  for (;;) {
+    int i = 0;
+    if (lane == 0) i = atomicAdd(head, 1);
+    i = __shfl_sync(kFullMask, i, 0);
+    if (i >= B) return;
+    run_ray(u_in, aux, i, P, uf, lntf, diag, cru, crlnt, save_out, pcx, lane);
+  }
 }
 
 // One device function at a time on [B] states (for the card-side checks of
@@ -157,17 +205,33 @@ __global__ void probe_kernel(int which, const double* __restrict__ u,
 // u_in [B, 7], aux [B, 8] (lnt0, lnt1, erg, x0(3), is_photon, pad); outputs
 // uf [B, 7], lntf [B], diag [B, 4] (steps, code, n_cross, n_dense_scans),
 // cru [B, S, 7], crlnt [B, S], save_mid [B, 7], pcx [B, S]; all f64,
-// contiguous, on the device, S = P.max_crossings <= 16.  Returns
+// contiguous, on the device, S = P.max_crossings <= 16.  head: one int32 in
+// device memory, zeroed by the caller on `stream`; `warps` >= 1 warps pull
+// the rays (the wrapper gives min(B, resident warps)).  Returns
 // cudaGetLastError().
 extern "C" int art_megakernel(const double* u_in, const double* aux, int B, MegaParams P,
                               double* uf, double* lntf, double* diag, double* cru,
-                              double* crlnt, double* save_mid, double* pcx, void* stream) {
+                              double* crlnt, double* save_mid, double* pcx, int* head,
+                              int warps, void* stream) {
   if (B <= 0) return 0;
-  if (P.max_crossings < 1 || P.max_crossings > kMaxSlots) return (int)cudaErrorInvalidValue;
-  const int blocks = (B + kThreads - 1) / kThreads;
-  mega_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(u_in, aux, B, P, uf, lntf, diag,
-                                                             cru, crlnt, save_mid, pcx);
+  if (P.max_crossings < 1 || P.max_crossings > kMaxSlots || warps < 1)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (warps + kWarps - 1) / kWarps;
+  mega_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      u_in, aux, B, warps, head, P, uf, lntf, diag, cru, crlnt, save_mid, pcx);
   return (int)cudaGetLastError();
+}
+
+// The warps K2 keeps resident at once on the current device: active blocks
+// per SM (occupancy at K2's registers) x SMs x 4.
+extern "C" int art_megakernel_resident_warps(int* out) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mega_kernel, kThreads, 0);
+  *out = per_sm * sms * kWarps;
+  return (int)err;
 }
 
 extern "C" int art_probe(int which, const double* u, const double* lnt, const double* erg,

@@ -160,7 +160,7 @@ __device__ __forceinline__ bool tree_run(const MegaParams& P, const TreeParams& 
     int code = 1;  // a node born at or after lnt1 ends at once, without a crossing
     if (R.lnt < lnt1) {
       const double lnt_prev = R.lnt;  // an accepted step always advances lnt
-      code = dp5_step_warp(P, R, lnt1, erg, photon, x0c, lane, record);
+      code = dp5_step_warp(P, R, lnt1, erg, photon, x0c, 0.0, nullptr, lane, record);
       steptot += 1.0;
       n_ph += photon ? 1 : 0;
       n_acc += R.lnt != lnt_prev ? 1 : 0;

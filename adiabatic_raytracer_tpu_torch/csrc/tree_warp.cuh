@@ -1,23 +1,26 @@
-// One adaptive DP5 step run by a whole warp (32 lanes) for one tree node:
-// `dp5_step_warp`, the warp form of art::dp5_step (mega_device.cuh), which K2
-// keeps calling.  K3 and K4 run one event's tree per warp (tree_device.cuh).
+// One adaptive DP5 step run by a whole warp (32 lanes) on one integration:
+// `dp5_step_warp`, the step of all three f64 kernels.  K2 (megakernel.cu)
+// runs one ray per warp, K3 and K4 one event's tree per warp
+// (tree_device.cuh).
 //
-// Per event it computes exactly what the serial step computes:
-//   * The serial chain (6 RHS stages, error norm, controller, commit, end
-//     codes) runs replicated: every lane does the same operations on the same
-//     values, so the lanes hold identical registers and nothing needs a
-//     broadcast.  Decisions that feed control flow (accept, the end code) are
-//     still taken from lane 0 (__shfl_sync), so a floating-point tie can never
-//     split the warp.
+// What the step computes is the serial algorithm of the pool engine
+// (ops/integrator.py) and the plain models (ops/treekernel.py _scan_roots,
+// _bisect):
+//   * The serial chain (6 RHS stages, error norm, controller, midpoint,
+//     commit, end codes) runs replicated: every lane does the same
+//     operations on the same values, so the lanes hold identical registers
+//     and nothing needs a broadcast.  Decisions that feed control flow
+//     (accept, the end code) are still taken from lane 0 (__shfl_sync), so a
+//     floating-point tie can never split the warp.
 //   * The event scan is spread over the lanes.  Round r of a pass of K points
 //     gives lane l the point j = 32 r + l + 1 <= K, at tau_j = (double)j / K
 //     (j = K is the step's end, g_new); its left neighbour g(j - 1) comes from
 //     __shfl_up_sync (lane 0: the previous round's last value) and the sign
 //     changes from __ballot_sync.  The coarse gate is one such pass of Kc
 //     points; the dense pass processes its roots in increasing j, at most
-//     max_roots of them, and stops as soon as the crossing cap ends the
-//     segment: the serial step's order.  Points are evaluated eagerly, not
-//     lazily; each is a pure function of tau.
+//     max_roots of them, records each that passes the filters while slots
+//     are free, and stops at the root that fills the last slot.  Points are
+//     evaluated eagerly, not lazily; each is a pure function of tau.
 //   * The bisection is 32-way (bisect_warp): the serial halvings in rounds
 //     of 5 levels, 12 condition latencies for the default 60.
 // ops/treekernel.py holds plain models of the scan, the bisection and the
@@ -31,13 +34,13 @@ namespace art {
 
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// The serial bisection of dp5_step (P.bisect halvings of [tlo, thi], keeping
-// the half whose left end has glo's sign) in rounds of up to 5 levels.  In a
-// round, lane n - 1 holds node n = 1..31 of the round's bisection tree (node
-// n's children are 2n, left, and 2n + 1, right): it rebuilds its interval by
-// replaying tm = 0.5 * (lo + hi) along the path bits of n, the serial loop's
-// own operations, so its tm is bit for bit the serial midpoint, and evaluates
-// the condition there.  Then every lane walks the round's levels from the
+// The serial bisection (P.bisect halvings of [tlo, thi], keeping the half
+// whose left end has glo's sign; _bisect in ops/treekernel.py) in rounds of
+// up to 5 levels.  In a round, lane n - 1 holds node n = 1..31 of the
+// round's bisection tree (node n's children are 2n, left, and 2n + 1,
+// right): it rebuilds its interval by replaying tm = 0.5 * (lo + hi) along
+// the path bits of n, the serial loop's own operations, so its tm is bit for
+// bit the serial midpoint, and evaluates the condition there.  Then every lane walks the round's levels from the
 // root, reading each node's tm and g by shuffle and applying the serial rule
 // sgn(g) == sgn(glo) (sgn 0 included).  tlo and thi end as the serial ones.
 __device__ __forceinline__ void bisect_warp(const MegaParams& P, const double* u0,
@@ -103,13 +106,23 @@ __device__ __forceinline__ unsigned scan_round(const MegaParams& P, const double
   return __ballot_sync(kFullMask, j <= K && flipped(left, g));
 }
 
-// art::dp5_step for the tree kernels, run by all 32 lanes of a warp on the
-// same node (R identical in every lane); no midpoint output.  Returns the
-// same end code as dp5_step, warp-uniform.
+// One attempted adaptive DP5 step of R towards lnt1, run by all 32 lanes of
+// a warp on the same integration (R identical in every lane), committed when
+// accepted, then the gated event scan of the accepted step: the coarse pass
+// (interp_coarse points) decides whether the dense pass (interp points)
+// runs; each sign change of the dense pass, up to max_roots per step and in
+// order, is bisected on the Hermite interpolant, and a root that passes the
+// start-point (first crossing only) and r < 1.01 r_NS filters is handed to
+// record(u_root, lnt_root, slot) while R.n_cross < max_crossings.  The
+// crossing that fills the last slot ends the integration at the root.  If
+// save_mid is given and the accepted step spans lnt_mid, the interpolant at
+// lnt_mid is written there (K2's midpoint; K3 and K4 pass nullptr).
+// Returns 0 to go on, else the end code, warp-uniform: 1 lnt1 reached, 2
+// photon at the star, 3 crossing cap, 4 step cap, 5 stalled.
 template <class Record>
 __device__ __forceinline__ int dp5_step_warp(const MegaParams& P, Ray& R, double lnt1, double erg,
-                                             bool photon, const double x0c[3], int lane,
-                                             Record&& record) {
+                                             bool photon, const double x0c[3], double lnt_mid,
+                                             double* save_mid, int lane, Record&& record) {
   double k[7][7];
   for (int c = 0; c < 7; ++c) k[0][c] = R.f0[c];
   double h = fmin(R.dt, lnt1 - R.lnt);
@@ -153,6 +166,8 @@ __device__ __forceinline__ int dp5_step_warp(const MegaParams& P, Ray& R, double
   }
   const double dt_next = fmax(R.dt * fac, P.dt_min);
   const double t1 = R.lnt + h;
+  if (save_mid != nullptr && accept && lnt_mid > R.lnt && lnt_mid <= t1)
+    hermite(R.u, u_new, k[0], k[6], h, (lnt_mid - R.lnt) / h, save_mid);
   const double g_new = condition(P, u_new, t1);
 
   // commit (the pool's order: the event scan below uses the step's start)
@@ -171,7 +186,7 @@ __device__ __forceinline__ int dp5_step_warp(const MegaParams& P, Ray& R, double
   int code = 0;
   bool done = false;
   if (accept) {
-    // gate: the coarse pass, then the dense pass only if this node needs it
+    // gate: the coarse pass, then the dense pass only if this step needs it
     const int K = P.interp;
     const int Kc = P.interp_coarse;
     bool dense = true;

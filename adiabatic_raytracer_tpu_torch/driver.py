@@ -68,14 +68,16 @@ def check_ported(cfg: NumericsConfig, *, save_mode: int = 0, mesh_devices: int =
     tree_engine='kernel' configuration K3 does not cover raises in
     tree.forward_tree."""
     todo = [
-        (cfg.engine == "pool_compact", "engine='pool_compact' (ROADMAP Queue 1, item 14)"),
+        (cfg.engine == "pool_compact", "engine='pool_compact' (ROADMAP Queue 1, Streaming)"),
         (cfg.engine not in ("pool", "mega", "pool_compact"), f"engine={cfg.engine!r}"),
         (cfg.tree_window > 0, "tree_window > 0 (ROADMAP Queue 1, tree_window)"),
-        (cfg.backtrace_chunk > 0, "backtrace_chunk > 0 (ROADMAP Queue 2, K2 chunked)"),
-        (bool(cfg.mc_chain), "mc_chain (ROADMAP Queue 1, item 11)"),
+        (cfg.backtrace_chunk > 0, "backtrace_chunk > 0, K2's chunked relaunch, left unported on "
+         "purpose (ROADMAP Queue 1, left unported on purpose)"),
+        (bool(cfg.mc_chain), "mc_chain, left unported on purpose (ROADMAP Queue 1, left unported "
+         "on purpose)"),
         (cfg.rhs_mode != "hand" or cfg.cond_mode != "fast" or cfg.gate_trig != "precise",
-         "rhs_mode='vjp' / cond_mode='canonical' / gate_trig='native' (ROADMAP Queue 1, "
-         "item 11)"),
+         "rhs_mode='vjp' / cond_mode='canonical' / gate_trig='native', left unported on "
+         "purpose (ROADMAP Queue 1, left unported on purpose)"),
         (save_mode >= 2, "saveMode >= 2 text and tree dumps (ROADMAP Queue 1, saveMode 2/3)"),
         (mesh_devices > 1, "mesh_devices > 1 (ROADMAP Queue 1, mesh / torch.distributed)"),
         (pipeline_depth > 1, "pipeline_depth > 1 (ROADMAP Queue 1, pipeline depth 2)"),
@@ -83,7 +85,7 @@ def check_ported(cfg: NumericsConfig, *, save_mode: int = 0, mesh_devices: int =
     ]
     for bad, what in todo:
         if bad:
-            raise NotImplementedError(f"not ported yet: {what}")
+            raise NotImplementedError(f"not ported: {what}")
 
 
 def sln_scale(sc: Scene, maxR, tcfg: TreeConfig) -> float:

@@ -58,6 +58,7 @@ class PoolResult(NamedTuple):
     maxed: Any       # [B] bool: step limit
     steps: Any       # [B] int64 attempted steps
     stalled: Any     # [B] bool: cut by the stall detector
+    n_bisect: Any    # [B] int64 roots bisected (recorded or not)
 
 
 def _lin(coefs, ks):
@@ -112,6 +113,7 @@ def integrate_pool(rhs: Callable, cond_fn: Callable, u0, lnt0, lnt1, ray_args,
     maxed = torch.zeros_like(ns_hit)
     stalled = torch.zeros_like(ns_hit)
     n_cross = torch.zeros(B, dtype=torch.int64, device=dev)
+    n_bisect = torch.zeros(B, dtype=torch.int64, device=dev)
     cross_u = torch.zeros((B, MAXC, u0.shape[1]), dtype=dtype, device=dev)
     cross_lnt = torch.zeros((B, MAXC), dtype=dtype, device=dev)
     save_u = torch.zeros((B, NS, u0.shape[1]), dtype=dtype, device=dev)
@@ -183,6 +185,7 @@ def integrate_pool(rhs: Callable, cond_fn: Callable, u0, lnt0, lnt1, ray_args,
                     if not bool(has.any()):
                         break
                     idx = torch.argmax(elig.to(torch.int8), dim=1)
+                    n_bisect = n_bisect + (has & ~done).to(torch.int64)
                     tau_lo = idx.to(dtype) / K
                     tau_hi = (idx + 1).to(dtype) / K
                     g_lo = gs[rows, idx]
@@ -236,4 +239,5 @@ def integrate_pool(rhs: Callable, cond_fn: Callable, u0, lnt0, lnt1, ray_args,
     save_u = torch.where(past_end[:, :, None], u[:, None, :], save_u)
     return PoolResult(u=u, lnt=lnt, save_u=save_u, cross_u=cross_u,
                       cross_lnt=cross_lnt, n_cross=n_cross, cut_short=cut_short,
-                      ns_hit=ns_hit, maxed=maxed, steps=steps, stalled=stalled)
+                      ns_hit=ns_hit, maxed=maxed, steps=steps, stalled=stalled,
+                      n_bisect=n_bisect)

@@ -1,11 +1,15 @@
 """K2: the whole adaptive DP5 integrator in one CUDA kernel (csrc/megakernel.cu).
 
 Replaces the Pallas megakernel (adiabatic_raytracer_tpu/ops/megakernel.py:
-_mega_kernel via integrate_mega).  One CUDA thread per ray runs the full
-adaptive loop with its state in registers: the hand-adjoint RHS, the gated
-event scan, bisection, the start-point and r < 1.01 r_NS rejections, NS
-kill, stall cut, up to `max_crossings` crossing records, the ntimes=3
-midpoint and the in-kernel conversion probability per crossing.
+_mega_kernel via integrate_mega).  One warp per ray runs the full adaptive
+loop with its state in registers: the hand-adjoint RHS, the gated event
+scan, bisection, the start-point and r < 1.01 r_NS rejections, NS kill,
+stall cut, up to `max_crossings` crossing records, the ntimes=3 midpoint and
+the in-kernel conversion probability per crossing.  The step is the one K3
+and K4 run (csrc/tree_warp.cuh): the serial chain replicated in the 32
+lanes, the event scan and the bisection spread over them.  min(B, resident
+warps) warps pull rays from a queue in device memory, so a ray's result
+does not depend on which warp ran it.
 
 Precision: f64 state and physics.  The TPU kernel's float-float state,
 Cody-Waite sin/cos/exp and f32 bisection cap were workarounds for a chip
@@ -14,13 +18,13 @@ without f64; Hopper has it in hardware, so none of them is carried over.
 Event semantics follow the pool engine (ops/integrator.py), which is this
 kernel's plain version: each accepted step scans the Hermite interpolant at
 `interp_points` samples and refines up to `max_roots_per_step` roots in
-line order.  The gate is decided per thread: the dense pass runs when the
+line order.  The gate is decided per ray: the dense pass runs when the
 ray's own `interp_coarse`-point pass flipped sign or dipped below
 `scan_gate_theta`; interp_coarse=0 always runs the dense pass, which is
 then the pool's algorithm exactly.
 
-This module also holds the torch twins of the device functions K2 and K3
-share (_metric, _dipole_unit, _omega_p, _condition, _grad_h_hand, _rhs,
+This module also holds the torch twins of the device functions K2, K3 and
+K4 share (_metric, _dipole_unit, _omega_p, _condition, _grad_h_hand, _rhs,
 _prob_nd, _hermite; csrc/physics.cuh, csrc/mega_device.cuh), written on
 tuples of [B] tensors against the same MegaParams struct the kernels
 receive; the card checks each one through `probe`.
@@ -30,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 
 import torch
@@ -85,21 +90,23 @@ def can_prob(sc: Scene) -> bool:
 
 
 def check_supported(sc: Scene, cfg: NumericsConfig, max_crossings: int):
-    """Raise on what the kernel does not cover (ROADMAP Queue 2, K2)."""
+    """Raise on what the kernel does not cover, naming the ROADMAP item."""
     if sc.isotropic or not sc.melrose:
         raise NotImplementedError("megakernel: only the anisotropic Melrose "
-                                  "dispersion is ported (ROADMAP Queue 2, K2)")
+                                  "dispersion is ported (ROADMAP Queue 2a, \"K2's "
+                                  "isotropic-dispersion branch\")")
     if float(sc.bndry_lyr) > 0:
         raise NotImplementedError("megakernel: boundary layer not ported "
-                                  "(ROADMAP Queue 2, K2)")
+                                  "(ROADMAP Queue 2a, \"K2's boundary-layer term\")")
     if cfg.rhs_mode != "hand" or cfg.cond_mode != "fast":
         raise NotImplementedError("megakernel: rhs_mode='vjp' / cond_mode="
-                                  "'canonical' are not ported (ROADMAP Queue 1, "
-                                  "item 11)")
+                                  "'canonical' are left unported on purpose (ROADMAP "
+                                  "Queue 1, \"Left unported on purpose\")")
     if float(sc.r_ns) < METRIC_R_NS:
         raise NotImplementedError("megakernel: r_ns < 10 km is not ported (the "
                                   "photon hand adjoint assumes the exterior metric "
-                                  "outside the star; ROADMAP Queue 2, K2)")
+                                  "outside the star; ROADMAP Queue 2a, \"K2 at "
+                                  "r_NS < 10 km\")")
     if not 1 <= max_crossings <= MAX_SLOTS:
         raise ValueError(f"max_crossings must be in 1..{MAX_SLOTS}")
 
@@ -497,8 +504,27 @@ def bind(lib):
                               ctypes.c_double, MegaParams, p]
     lib.art_probe.restype = ctypes.c_int
     lib.art_megakernel.argtypes = [p, p, ctypes.c_int, MegaParams,
-                                   p, p, p, p, p, p, p, p]
+                                   p, p, p, p, p, p, p, p, ctypes.c_int, p]
     lib.art_megakernel.restype = ctypes.c_int
+    lib.art_megakernel_resident_warps.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.art_megakernel_resident_warps.restype = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def resident_warps(device_index: int) -> int:
+    """The warps K2 keeps resident at once on a card: blocks per SM at its
+    registers (CUDA occupancy) x SMs x 4."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        cuda_lib.check(cuda_lib.lib().art_megakernel_resident_warps(ctypes.byref(out)),
+                       "megakernel occupancy")
+    return out.value
+
+
+def launch_warps(B: int, device: torch.device) -> int:
+    """The warps K2 launches for B rays: min(B, resident warps)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return max(1, min(B, resident_warps(index)))
 
 
 # ---------------------------------------------------------------------------
@@ -532,6 +558,23 @@ def _outputs_from_pool(res, lnt0, lnt1, erg, P, S, with_prob):
             pcx, torch.zeros_like(code), None, f(res.steps))
 
 
+def pool_run(u0, lnt0, lnt1, erg, x0_cart, sc: Scene, cfg: NumericsConfig, *,
+             max_crossings: int, is_photon, species: str):
+    """The pool engine on K2's inputs (save grid: start, midpoint, end);
+    returns its PoolResult, which also counts each ray's bisected roots."""
+    B = u0.shape[0]
+    frac = torch.tensor([0.0, 0.5, 1.0], dtype=u0.dtype, device=u0.device)
+    save_lnt = lnt0[:, None] + (lnt1 - lnt0)[:, None] * frac[None, :]
+    mass_eff = sc.mass_ns_eff
+    pool_cfg = dataclasses.replace(cfg, max_crossings=max_crossings, n_save=3)
+    return integrate_pool(
+        make_rhs(sc, mass_eff, 0.0, species),
+        lambda u, l: crossing_condition(u, l, sc, mass_eff), u0, lnt0, lnt1,
+        {"erg": erg, "is_photon": is_photon}, pool_cfg, save_lnt=save_lnt,
+        kill_at_surface=is_photon, r_ns=sc.r_ns, x0_cart=x0_cart,
+        max_crossings=torch.full((B,), max_crossings, dtype=torch.int64, device=u0.device))
+
+
 def integrate_mega_plain(u0, lnt0, lnt1, erg, x0_cart, sc: Scene, cfg: NumericsConfig,
                          *, max_crossings: int = 1, is_photon=None,
                          species: str = "photon", with_prob: bool = False):
@@ -545,16 +588,8 @@ def integrate_mega_plain(u0, lnt0, lnt1, erg, x0_cart, sc: Scene, cfg: NumericsC
     if is_photon is None:
         is_photon = torch.ones(B, dtype=torch.bool, device=u0.device)
     P = mega_params(sc, cfg, max_crossings=S, species=species, with_prob=with_prob)
-    frac = torch.tensor([0.0, 0.5, 1.0], dtype=u0.dtype, device=u0.device)
-    save_lnt = lnt0[:, None] + (lnt1 - lnt0)[:, None] * frac[None, :]
-    mass_eff = sc.mass_ns_eff
-    pool_cfg = dataclasses.replace(cfg, max_crossings=S, n_save=3)
-    res = integrate_pool(
-        make_rhs(sc, mass_eff, 0.0, species),
-        lambda u, l: crossing_condition(u, l, sc, mass_eff), u0, lnt0, lnt1,
-        {"erg": erg, "is_photon": is_photon}, pool_cfg, save_lnt=save_lnt,
-        kill_at_surface=is_photon, r_ns=sc.r_ns, x0_cart=x0_cart,
-        max_crossings=torch.full((B,), S, dtype=torch.int64, device=u0.device))
+    res = pool_run(u0, lnt0, lnt1, erg, x0_cart, sc, cfg, max_crossings=S,
+                   is_photon=is_photon, species=species)
     out = _outputs_from_pool(res, lnt0, lnt1, erg, P, S, bool(P.with_prob))
     return out[:10] + (is_photon.to(torch.float64),) + out[11:]
 
@@ -562,7 +597,8 @@ def integrate_mega_plain(u0, lnt0, lnt1, erg, x0_cart, sc: Scene, cfg: NumericsC
 def integrate_mega(u0, lnt0, lnt1, erg, x0_cart, sc: Scene, cfg: NumericsConfig, *,
                    max_crossings: int = 1, is_photon=None, species: str = "photon",
                    with_prob: bool = False):
-    """Run K2 over a [B, 7] f64 state batch.  Returns (u_final [B,7],
+    """Run K2 over a [B, 7] f64 state batch, min(B, resident warps) warps
+    pulling rays from a queue.  Returns (u_final [B,7],
     lnt_final [B], steps [B], code [B] (1 end, 2 NS, 3 crossing cap,
     4 step cap, 5 stalled), n_cross [B], cross_u [B,S,7], cross_lnt [B,S],
     save_mid [B,7] (0 where the midpoint was never spanned), pcx [B,S],
@@ -593,10 +629,11 @@ def integrate_mega(u0, lnt0, lnt1, erg, x0_cart, sc: Scene, cfg: NumericsConfig,
     crlnt = torch.empty((B, S), dtype=f64, device=dev)
     save_mid = torch.empty((B, 7), dtype=f64, device=dev)
     pcx = torch.empty((B, S), dtype=f64, device=dev)
+    head = torch.zeros(1, dtype=torch.int32, device=dev)   # the ray queue's head
     code = lib.art_megakernel(
         u_in.data_ptr(), aux.data_ptr(), B, P, uf.data_ptr(), lntf.data_ptr(),
         diag.data_ptr(), cru.data_ptr(), crlnt.data_ptr(), save_mid.data_ptr(),
-        pcx.data_ptr(), cuda_lib.stream_ptr(u_in))
+        pcx.data_ptr(), head.data_ptr(), launch_warps(B, dev), cuda_lib.stream_ptr(u_in))
     cuda_lib.check(code, "megakernel launch")
     cuda_lib.LAUNCHES["megakernel"] += 1
     return (uf, lntf, diag[:, 0], diag[:, 1], diag[:, 2], cru, crlnt, save_mid, pcx,

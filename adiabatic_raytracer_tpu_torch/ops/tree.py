@@ -232,7 +232,9 @@ def check_tree_engine(sc: Scene, cfg: NumericsConfig):
         raise NotImplementedError(
             "tree_engine='kernel' covers engine='mega' with in_kernel_prob on an "
             "anisotropic Melrose, curved-space scene without boundary layer; other "
-            "configurations run --tree_engine queue (ROADMAP Queue 2, K3)")
+            "configurations run --tree_engine queue (ROADMAP Queue 2a: \"K2's "
+            "boundary-layer term\", \"K2 at r_NS < 10 km\", \"K2's isotropic-dispersion "
+            "branch\")")
 
 
 def forward_tree(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
@@ -259,7 +261,7 @@ def forward_tree(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
                                   "ported (ROADMAP Queue 1, tree_window)")
     if cfg.mc_chain:
         raise NotImplementedError("mc_chain is left unported on purpose "
-                                  "(ROADMAP Queue 1, item 11)")
+                                  "(ROADMAP Queue 1, left unported on purpose)")
     E = xpos.shape[0]
     dev, dtype = xpos.device, xpos.dtype
     P = 2 * tcfg.max_nodes + 4

@@ -183,32 +183,39 @@ def _bisect(g_fn, tlo, thi, glo, iters):
     return tlo, thi
 
 
-def _root_filter(P, x0, us):
-    """The roots [n, 7] that may be recorded: not the start point (within
-    1e-4 of x0 [n, 3] in every Cartesian component), not below 1.01 r_NS."""
+def _root_filter(P, x0, us, first=True):
+    """The roots [n, 7] that may be recorded: not below 1.01 r_NS, and,
+    where `first` (no crossing recorded yet), not the start point (within
+    1e-4 of x0 [n, 3] in every Cartesian component)."""
     pc = _cart(us)
     ax0 = torch.abs(x0)
     within = ((torch.abs(pc) < ax0 * 1.0001) & (torch.abs(pc) > ax0 / 1.0001)).all(dim=1)
-    return ~within & ~(us[:, 0] < P.r_ns * 1.01)
+    return ~(within & first) & ~(us[:, 0] < P.r_ns * 1.01)
 
 
-def _scan_roots(P, x0, u0, u1, f0, f1, h, lnt0, g0, g1, g_tau=None):
-    """The accepted steps' gated event scan (art::dp5_step) on [m] lanes:
-    returns (recorded [m] bool, u_root [m, 7], lnt_root [m]) for the first
-    root that passes the filters, and the dense passes and bisected roots
-    per lane ([m] each).  g_tau(rows, tau) evaluates the condition
+def _scan_roots(P, x0, u0, u1, f0, f1, h, lnt0, g0, g1, g_tau=None, free=None):
+    """The accepted steps' gated event scan (art::dp5_step_warp, serial
+    order) on [m] lanes.  `free` [m]: the crossing slots left (K2: 16 -
+    n_cross; K3 and K4: one, the default); the start-point filter applies
+    while no crossing is recorded (free == P.max_crossings).  Every root
+    of a step that passes the filters is recorded, in order, up to
+    max_roots bisected roots, and the root that fills the last slot ends
+    the step.  Returns (recorded [m] int64, u_root [m, R, 7], lnt_root
+    [m, R], dense passes [m], bisected roots [m]), R = max_roots, record k
+    of a lane at [:, k].  g_tau(rows, tau) evaluates the condition
     (_g_interp by default)."""
     m = u0.shape[0]
     dev, dt = u0.device, u0.dtype
     g_tau = g_tau or _g_interp(P, u0, u1, f0, f1, h, lnt0)
     rows = torch.arange(m, device=dev)[:, None]
+    free = torch.ones(m, dtype=torch.int64, device=dev) if free is None else free
 
     def g_at(taus):   # [m, T] condition values at the interpolant's taus [T]
         return g_tau(rows, taus[None, :])
 
-    rec = torch.zeros(m, dtype=torch.bool, device=dev)
-    u_s = torch.zeros((m, 7), dtype=dt, device=dev)
-    lnt_s = torch.zeros(m, dtype=dt, device=dev)
+    n_rec = torch.zeros(m, dtype=torch.int64, device=dev)
+    u_s = torch.zeros((m, P.max_roots, 7), dtype=dt, device=dev)
+    lnt_s = torch.zeros((m, P.max_roots), dtype=dt, device=dev)
     K, Kc = P.interp, P.interp_coarse
     dense = torch.ones(m, dtype=torch.bool, device=dev)
     if Kc > 0:
@@ -218,14 +225,15 @@ def _scan_roots(P, x0, u0, u1, f0, f1, h, lnt0, g0, g1, g_tau=None):
         dense = flip_c | (torch.abs(seq).amin(dim=1) < P.gate_theta)
     n_root = torch.zeros(m, dtype=dt, device=dev)
     if not bool(dense.any()):
-        return rec, u_s, lnt_s, dense.to(dt), n_root
+        return n_rec, u_s, lnt_s, dense.to(dt), n_root
     taus = torch.arange(1, K, dtype=dt, device=dev) / K
     seq = torch.cat([g0[:, None], g_at(taus), g1[:, None]], dim=1)
     flips = _flipped(seq[:, :-1], seq[:, 1:]) & dense[:, None]          # [m, K]
     kidx = torch.arange(K, device=dev)[None, :]
     cursor = torch.zeros(m, dtype=torch.int64, device=dev)
+    stop = torch.zeros(m, dtype=torch.bool, device=dev)
     for _ in range(P.max_roots):
-        elig = flips & (kidx >= cursor[:, None]) & ~rec[:, None]
+        elig = flips & (kidx >= cursor[:, None]) & ~stop[:, None]
         has = elig.any(dim=1)
         if not bool(has.any()):
             break
@@ -238,14 +246,16 @@ def _scan_roots(P, x0, u0, u1, f0, f1, h, lnt0, g0, g1, g_tau=None):
         ts = 0.5 * (tlo + thi)
         sub = lambda t: tuple(t[li, c] for c in range(7))
         us = torch.stack(_hermite(sub(u0), sub(u1), sub(f0), sub(f1), hs, ts), dim=1)
-        ok = _root_filter(P, x0[li], us)
+        first = free[li] - n_rec[li] == P.max_crossings
+        ok = _root_filter(P, x0[li], us, first) & (n_rec[li] < free[li])
         n_root[li] += 1.0
         ri = li[ok]
-        u_s[ri] = us[ok]
-        lnt_s[ri] = (ls + ts * hs)[ok]
-        rec[ri] = True
+        u_s[ri, n_rec[ri]] = us[ok]
+        lnt_s[ri, n_rec[ri]] = (ls + ts * hs)[ok]
+        n_rec[ri] += 1
+        stop = stop | ((n_rec >= free) & (n_rec > 0))
         cursor = torch.where(has, idx + 1, torch.full_like(idx, K))
-    return rec, u_s, lnt_s, dense.to(dt), n_root
+    return n_rec, u_s, lnt_s, dense.to(dt), n_root
 
 
 # ---------------------------------------------------------------------------
@@ -291,19 +301,21 @@ def _bisect_warp(g_fn, tlo, thi, glo, iters):
     return tlo, thi
 
 
-def _scan_roots_warp(P, x0, u0, u1, f0, f1, h, lnt0, g0, g1, g_tau=None):
+def _scan_roots_warp(P, x0, u0, u1, f0, f1, h, lnt0, g0, g1, g_tau=None, free=None):
     """The warp's event scan (art::dp5_step_warp) on [m] accepted steps,
     with _scan_roots' arguments and outputs.  A pass of K points runs in
     rounds of 32 lanes: lane l holds j = 32 r + l + 1 <= K (g1 at j = K), at
     tau = j / K; its left neighbour comes by shfl_up (lane 0: the previous
     round's last value), the sign changes as a ballot.  The coarse gate is
     one pass of Kc points; the dense pass bisects its flips (_bisect_warp)
-    in increasing j, at most max_roots of them, until one is recorded."""
+    in increasing j, at most max_roots of them, recording each that passes
+    the filters, until the last free slot is filled."""
     m = u0.shape[0]
     dev, dt = u0.device, u0.dtype
     g_tau = g_tau or _g_interp(P, u0, u1, f0, f1, h, lnt0)
     rows = torch.arange(m, device=dev)[:, None]
     lane = torch.arange(_LANES, device=dev)
+    free = torch.ones(m, dtype=torch.int64, device=dev) if free is None else free
 
     def rounds(n_pts):
         """(j [32], g [m, 32], g(j - 1) [m, 32], ballot [m, 32]) per round."""
@@ -315,9 +327,9 @@ def _scan_roots_warp(P, x0, u0, u1, f0, f1, h, lnt0, g0, g1, g_tau=None):
             carry = g[:, -1]
             yield j, g, gp, (j <= n_pts) & _flipped(gp, g)
 
-    rec = torch.zeros(m, dtype=torch.bool, device=dev)
-    u_s = torch.zeros((m, 7), dtype=dt, device=dev)
-    lnt_s = torch.zeros(m, dtype=dt, device=dev)
+    n_rec = torch.zeros(m, dtype=torch.int64, device=dev)
+    u_s = torch.zeros((m, P.max_roots, 7), dtype=dt, device=dev)
+    lnt_s = torch.zeros((m, P.max_roots), dtype=dt, device=dev)
     n_root = torch.zeros(m, dtype=dt, device=dev)
     K, Kc = P.interp, P.interp_coarse
     dense = torch.ones(m, dtype=torch.bool, device=dev)
@@ -329,7 +341,7 @@ def _scan_roots_warp(P, x0, u0, u1, f0, f1, h, lnt0, g0, g1, g_tau=None):
             low = low | ((j <= Kc) & (torch.abs(g) < P.gate_theta)).any(dim=1)
         dense = flip_c | low
     if not bool(dense.any()):
-        return rec, u_s, lnt_s, dense.to(dt), n_root
+        return n_rec, u_s, lnt_s, dense.to(dt), n_root
     stop = ~dense
     for j, g, gp, ballot in rounds(K):
         for lo in range(_LANES):            # __ffs order: increasing lane
@@ -345,13 +357,14 @@ def _scan_roots_warp(P, x0, u0, u1, f0, f1, h, lnt0, g0, g1, g_tau=None):
             ts = 0.5 * (tlo + thi)
             sub = lambda t: tuple(t[li, c] for c in range(7))
             us = torch.stack(_hermite(sub(u0), sub(u1), sub(f0), sub(f1), h[li], ts), dim=1)
-            ok = _root_filter(P, x0[li], us)
+            first = free[li] - n_rec[li] == P.max_crossings
+            ok = _root_filter(P, x0[li], us, first) & (n_rec[li] < free[li])
             ri = li[ok]
-            u_s[ri] = us[ok]
-            lnt_s[ri] = (lnt0[li] + ts * h[li])[ok]
-            rec[ri] = True
-            stop = stop | rec | (n_root >= P.max_roots)
-    return rec, u_s, lnt_s, dense.to(dt), n_root
+            u_s[ri, n_rec[ri]] = us[ok]
+            lnt_s[ri, n_rec[ri]] = (lnt0[li] + ts * h[li])[ok]
+            n_rec[ri] += 1
+            stop = stop | ((n_rec >= free) & (n_rec > 0)) | (n_root >= P.max_roots)
+    return n_rec, u_s, lnt_s, dense.to(dt), n_root
 
 
 def _pop_best(q):
@@ -440,16 +453,18 @@ def _step(P, S, run, lnt1, erg, x0):
     lnt_root = torch.zeros_like(lnt_prev)
     ai = accept.nonzero().squeeze(1)
     if ai.numel():
-        rec, us, ls, nf, nb = _scan_roots(P, x0[ai], u_prev[ai], u_new[ai], f0[ai], f_new[ai],
-                                          h[ai], lnt_prev[ai], g_prev[ai], g_new[ai])
+        n_rec, us, ls, nf, nb = _scan_roots(P, x0[ai], u_prev[ai], u_new[ai], f0[ai],
+                                            f_new[ai], h[ai], lnt_prev[ai], g_prev[ai],
+                                            g_new[ai])
         S["nfine"][ai] += nf
         S["nbisect"][ai] += nb
+        rec = n_rec > 0               # one slot: at most one record, the step's end
         ri = ai[rec]
         crossed[ri] = True
-        u_root[ri] = us[rec]
-        lnt_root[ri] = ls[rec]
-        S["u"][ri] = us[rec]          # the crossing cap stops at the root
-        S["lnt"][ri] = ls[rec]
+        u_root[ri] = us[rec, 0]
+        lnt_root[ri] = ls[rec, 0]
+        S["u"][ri] = us[rec, 0]       # the crossing cap stops at the root
+        S["lnt"][ri] = ls[rec, 0]
     S["f0"] = torch.where(a1, f_new, f0)
 
     live = run & ~crossed

@@ -12,12 +12,14 @@ non-zero):
   1. device: torch.cuda must be available; nvidia-smi name and power limit
   2. build:  nvcc the kernel library, one process per source, all started
      together: K1-K4 and P1 (registers / spills from ptxas); K2's ptxas
-     figures must equal K2_PTXAS (K2's code does not change with the tree
-     kernels')
+     figures must equal K2_PTXAS, K3's and K4's are printed beside theirs
+     before K2 shared their warp step
   3. K1 line scan vs its plain version on a sampler chunk (16384 lines x the
      production grid): g to f32 rounding, sampled roots within 2e-3 km
   4. device functions of K2/K3 (probe) vs their torch twins, f64, rtol 1e-12
-  5. K2 vs integrate_mega_plain on a 2048-event production backtrace
+  5. K2 vs integrate_mega_plain on a 2048-event production backtrace; the
+     slowest ray's steps, dense passes, bisected roots (plain version) and
+     microseconds per step, the warps launched and resident
   6. K3 vs tree_kernel_launch_plain on 512 production events (one launch,
      default cutoffs): counters identical on >= 99% of events; on those, the
      steps, photon steps, accepted steps, dense passes and recorded
@@ -26,12 +28,18 @@ non-zero):
      < 1e-8, p99 < 1e-6 and worst < 1e-5; then K3 on 2048 events
      (tree_kernel_chunk 0 and 64) against the host engine at tree_k=1 on K2,
      counters on >= 99%, and chunk 64's counters and finals against one
-     launch's at the same bars; K3's time per step of the slowest tree
+     launch's at the same bars; K3's time per step of the slowest tree.
+     Phases 6, 10 and 11 log the five worst finals records of each
+     comparison with where they stand (record_notes): end state, birth
+     time, order, species, and the birth state found by integrating back,
+     with the condition and its rate along the ray there
   7. the kernel path: cli with --device cuda --event_batch 2048 --Nts 4097
      --saveMode 1 (two full batches; --tree_engine auto -> kernel), cold in a
      fresh process, then warm under torch.profiler in this one, launch
      counters reset just before it;
-     K1, K2 and K3 must each have launched
+     K1, K2 and K3 must each have launched; phases 7, 8 and 12 print the
+     device time and launches of mega_kernel, tree_kernel and
+     tree_refill_kernel from the profiler
   8. the queue path (--tree_engine queue), one batch of 2048, counters reset
      just before it; K1 and K2 must have launched
   9. P1 vs refill_probe_plain at the probe's shapes (512 events, 128 lanes):
@@ -133,13 +141,79 @@ REC_P99 = 1e-6
 REC_WORST = 1e-5
 
 
-def compare_records(fa, fb, slots, tag, phase=6):
+def birth_states(P, u_end, lnt_end, lnt_b, erg, is_ph):
+    """The states [n, 7] at log times lnt_b of the rays whose states at
+    lnt_end are u_end: the pool engine run backwards in log time (s =
+    -lnt) on the kernels' RHS twin (_rhs), rtol 1e-9, no event scan."""
+    import torch
+
+    from adiabatic_raytracer_tpu_torch.config import NumericsConfig
+    from adiabatic_raytracer_tpu_torch.ops import megakernel as mk
+    from adiabatic_raytracer_tpu_torch.ops.integrator import integrate_pool
+
+    n = u_end.shape[0]
+    comp = lambda u: tuple(u[:, c] for c in range(7))
+    rhs = lambda u, s, a: -torch.stack(mk._rhs(P, comp(u), -s, a["erg"], a["is_ph"]), dim=1)
+    res = integrate_pool(rhs, lambda u, s: mk._condition(P, comp(u), -s), u_end, -lnt_end,
+                         -lnt_b, {"erg": erg, "is_ph": is_ph},
+                         NumericsConfig(rtol=1e-9, atol=1e-11), save_lnt=-lnt_end[:, None],
+                         kill_at_surface=torch.zeros(n, dtype=torch.bool), r_ns=P.r_ns,
+                         x0_cart=torch.zeros((n, 3), dtype=u_end.dtype),
+                         max_crossings=torch.ones(n, dtype=torch.int64), detect_events=False)
+    return res.u
+
+
+def record_notes(fin, aux, ev, sl):
+    """Where each final record (fin [E, NF, 16] at events ev, slots sl; aux
+    the run's [E, 32] rows) stands, as text: r, theta and |w| of its state
+    columns (F_U0..: the state at the event's end time, where the record
+    ends), its birth time t_b (F_TB), order and species; then its birth
+    state, from the end state integrated back to log(t_b) (birth_states;
+    records that ended inside 1.01 r_NS are skipped), with the condition g
+    there (~0 for a node born at a crossing) and its rate along the ray
+    dg/dlnt from the torch twins _rhs and _condition at lnt +- 1e-6.  A
+    small rate marks a near-tangent, near-resonant birth."""
+    import math
+
+    import torch
+
+    from adiabatic_raytracer_tpu_torch.ops import megakernel as mk
+    from adiabatic_raytracer_tpu_torch.ops import treekernel as tk
+
+    sc, cfg, *_ = scene_setup(torch.device("cpu"))
+    P = tk.kernel_params(sc, cfg)
+    rec = fin[ev, sl].double().cpu()
+    u_end = rec[:, tk.F_U0:tk.F_U0 + 7]
+    lnt_end = aux[ev, tk.A_LNT1].double().cpu()
+    erg = aux[ev, tk.A_ERG].double().cpu()
+    is_ph = rec[:, tk.F_ISPH]
+    lnt_b = torch.log(rec[:, tk.F_TB].clamp(min=math.exp(float(cfg.ln_t_start))))
+    out = rec[:, tk.F_U0] > P.r_ns * 1.01
+    u_b = torch.full_like(u_end, math.nan)
+    if bool(out.any()):
+        u_b[out] = birth_states(P, u_end[out], lnt_end[out], lnt_b[out], erg[out], is_ph[out])
+    u = tuple(u_b[:, c] for c in range(7))
+    f = mk._rhs(P, u, lnt_b, erg, is_ph)
+    d = 1e-6
+    g_at = lambda s: mk._condition(P, tuple(a + s * d * b for a, b in zip(u, f)), lnt_b + s * d)
+    rate = (g_at(1.0) - g_at(-1.0)) / (2.0 * d)
+    g_b = mk._condition(P, u, lnt_b)
+    wn = u_end[:, 3:6].norm(dim=1)
+    return [f"end r {u_end[i, 0].item():.6g} km theta {u_end[i, 1].item():.6g} |w| "
+            f"{wn[i].item():.4g}; born t_b {rec[i, tk.F_TB].item():.6g} order "
+            f"{int(rec[i, tk.F_ORD].item())} {'photon' if is_ph[i] > 0.5 else 'axion'} at r "
+            f"{u_b[i, 0].item():.8g} km theta {u_b[i, 1].item():.8g}, g {g_b[i].item():.3g} "
+            f"dg/dlnt {rate[i].item():.3g}" for i in range(rec.shape[0])]
+
+
+def compare_records(fa, fb, slots, tag, phase=6, aux=None):
     """Relative error of each K3 final record of fa against fb ([E, NF, 16]
     fin blocks) on `slots`, the worst over its REC_NAMES columns: each
     column relative to its own size, the angles relative to max(|value|,
     1 rad), the momentum components relative to the record's |w| (a
-    component can pass through zero).  Logs the worst five records; returns
-    (median, p99, worst)."""
+    component can pass through zero).  Logs the worst five records, with
+    record_notes where aux (fa's [E, 32] rows) is given; returns (median,
+    p99, worst)."""
     import torch
 
     from adiabatic_raytracer_tpu_torch.ops import treekernel as tk
@@ -153,13 +227,15 @@ def compare_records(fa, fb, slots, tag, phase=6):
     scale[:, 8:11] = y[:, 8:11].norm(dim=1, keepdim=True)
     rel, col = ((x - y).abs() / scale.clamp(min=1e-300)).max(dim=1)
     ev, sl = slots.nonzero(as_tuple=True)
-    for j in torch.argsort(rel, descending=True)[:5].tolist():
-        if rel[j] == 0:
-            break
+    worst5 = [j for j in torch.argsort(rel, descending=True)[:5].tolist() if rel[j] > 0]
+    notes = (record_notes(fa, aux, ev[worst5], sl[worst5]) if aux is not None and worst5
+             else [""] * len(worst5))
+    for j, note in zip(worst5, notes):
         c = int(col[j])
         log(phase, f"  {tag} worst record: event {int(ev[j])} slot {int(sl[j])} order "
                f"{int(fa[ev[j], sl[j], tk.F_ORD])} column {REC_NAMES[c]}: {x[j, c].item():.12g} "
-               f"vs {y[j, c].item():.12g} (rel {rel[j].item():.2g})")
+               f"vs {y[j, c].item():.12g} (rel {rel[j].item():.2g})"
+               + (f"; {note}" if note else ""))
     q = torch.quantile(rel, torch.tensor([0.5, 0.99], dtype=rel.dtype, device=rel.device))
     return q[0].item(), q[1].item(), rel.max().item()
 
@@ -208,10 +284,14 @@ def phase_device():
     return smi
 
 
-# K2's (registers, stack, spill stores, spill loads) from ptxas, as built
-# before the tree kernels became one warp per tree (NVIDIA H100 80GB HBM3
-# machine, CUDA 12.8): K2 shares the device functions but not the warp code
-K2_PTXAS = (254, 448, 48, 16)
+# (registers, stack, spill stores, spill loads) from ptxas.  K2's, as built
+# when it became one warp per ray on the step K3 and K4 run (NVIDIA H100
+# 80GB HBM3 machine, CUDA 12.8), are checked: K2 must not change when the
+# step does without a reason.  K3's and K4's before K2 joined the warp step
+# are printed beside their own.
+K2_PTXAS = (255, 480, 88, 56)
+TREE_PTXAS_BEFORE = {"tree_kernel": (255, 568, 188, 184),
+                     "tree_refill_kernel": (255, 560, 184, 192)}
 
 
 def phase_build():
@@ -229,6 +309,9 @@ def phase_build():
     if not summary:
         log(2, "the library was built before this run: no ptxas figures to check")
         return
+    for name, before in TREE_PTXAS_BEFORE.items():
+        log(2, f"{name} registers, stack, spill stores/loads {ptxas_figures(summary.get(name, ''))}"
+               f"; before K2 shared the warp step {before}")
     k2 = ptxas_figures(summary.get("mega_kernel", ""))
     log(2, f"mega_kernel registers, stack, spill stores/loads {k2}; expected {K2_PTXAS}; "
            f"same {k2 == K2_PTXAS}")
@@ -425,17 +508,17 @@ def phase_probe(device):
     return worst
 
 
-def phase_megakernel(device, n_events):
-    import dataclasses
-
+def k2_backtrace_inputs(device, n, seed):
+    """K2's inputs on the main path's backtrace of n production events:
+    (u0, lnt0, lnt1, erg, x0, flipped scene, cfg, keywords): species axion,
+    16 crossing slots, in-kernel probability."""
     import torch
 
-    from adiabatic_raytracer_tpu_torch.ops import megakernel as mk
     from adiabatic_raytracer_tpu_torch.ops.propagate import launch_state
     from adiabatic_raytracer_tpu_torch.ops.tree import _negate_b
 
     sc, cfg, tcfg, maxR, n_grid = scene_setup(device)
-    x, k, e = sample_events(n_events, device, sc, cfg, maxR, n_grid, seed=11)
+    x, k, e = sample_events(n, device, sc, cfg, maxR, n_grid, seed=seed)
     B = x.shape[0]
     sc_b = _negate_b(sc)
     f64 = torch.float64
@@ -445,6 +528,18 @@ def phase_megakernel(device, n_events):
     kw = dict(max_crossings=cfg.max_crossings, is_photon=torch.zeros(B, dtype=torch.bool,
                                                                      device=device),
               species="axion", with_prob=True)
+    return u0, lnt0, lnt1, e, x, sc_b, cfg, kw
+
+
+def phase_megakernel(device, n_events):
+    import dataclasses
+
+    import torch
+
+    from adiabatic_raytracer_tpu_torch.ops import megakernel as mk
+
+    u0, lnt0, lnt1, e, x, sc_b, cfg, kw = k2_backtrace_inputs(device, n_events, seed=11)
+    B = x.shape[0]
     dense = dataclasses.replace(cfg, interp_coarse=0)
 
     def run_kernel(c):
@@ -512,6 +607,21 @@ def phase_megakernel(device, n_events):
            f"identical counts {gate_same:.4f}, dense-pass share of steps {fine:.3f}; "
            f"kernel {ms:.3f} ms gated / {ms_dense:.3f} ms dense, plain {plain_ms:.1f} ms; "
            f"steps {int(out_g[2].sum().item())}, bound {b_ms:.4f} ms ({b_by})")
+    # the slowest ray (most steps, gated run): a launch cannot end before it,
+    # so steps x one warp's step time is the launch's floor; its bisected
+    # roots from the plain version (the pool counts them, K2's diag does not)
+    slow = int(torch.argmax(out_g[2]).item())
+    sl = slice(slow, slow + 1)
+    pool = mk.pool_run(u0[sl], lnt0[sl], lnt1[sl], e[sl], x[sl], sc_b, cfg,
+                       max_crossings=S, is_photon=kw["is_photon"][sl], species="axion")
+    steps_slow, steps_slow_d = out_g[2][slow].item(), out_k[2].max().item()
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    log(5, f"K2 slowest ray {slow}: {int(steps_slow)} steps, {int(out_g[11][slow].item())} dense "
+           f"passes, {int(pool.n_bisect[0].item())} bisected roots (plain version, dense scan), "
+           f"{int(out_g[4][slow].item())} crossings; {ms * 1e3 / steps_slow:.2f} us per step of "
+           f"it gated, {ms_dense * 1e3 / steps_slow_d:.2f} dense ({int(steps_slow_d)} steps); "
+           f"warps launched {mk.launch_warps(B, device)}, resident warps "
+           f"{mk.resident_warps(index)}; steps per ray mean {out_g[2].mean().item():.1f}")
     if not (frac >= 0.99 and med < 1e-8 and pcx_bad <= 0.01 * int(used.sum())
             and own_rel < 1e-10 and gate_same >= 0.99):
         raise AssertionError("K2 disagrees with its plain version")
@@ -660,7 +770,7 @@ def tree_agreement(a_k, f_k, a_r, f_r, nf, tag, phase):
                    f"{a_r[i, rows].tolist()}")
     fk, fr = f_k.reshape(n, nf, tk.ROWS), f_r.reshape(n, nf, tk.ROWS)
     slots = same[:, None] & (fk[..., tk.F_VALID] > 0.5) & (fr[..., tk.F_VALID] > 0.5)
-    med, p99, worst = compare_records(fk, fr, slots, tag, phase)
+    med, p99, worst = compare_records(fk, fr, slots, tag, phase, aux=a_k)
     cols = [tk.F_W, tk.F_PROB, tk.F_PCONV, tk.F_PCONV0, tk.F_TB] + list(range(tk.F_U0, 16))
     d = torch.abs(fk[slots][:, cols] - fr[slots][:, cols])
     keep = [r for r in range(tk.AUX_ROWS) if r != tk.A_ITERS]
@@ -966,6 +1076,11 @@ def write_profile(prof, wall, phase, tag):
                     f" x{e.count}" for e in rows[:8])
     log(phase, f"profile ({tag}): device busy {busy_us / 1e3:.1f} ms of {wall * 1e3:.1f} ms wall "
            f"({100 * busy_us / 1e6 / wall:.1f}% busy, summed kernel time); top: {top}")
+    for name in ("mega_kernel", "tree_kernel", "tree_refill_kernel"):
+        hits = [e for e in ka if re.search(rf"\b{name}\b", e.key)]
+        dev_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in hits) / 1e3
+        log(phase, f"profile ({tag}): {name} device time {dev_ms:.1f} ms over "
+                   f"{sum(e.count for e in hits)} launches")
 
 
 def main():

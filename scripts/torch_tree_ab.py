@@ -1,21 +1,31 @@
-"""K3 and K4 of two checkouts of the PyTorch + CUDA port on one GPU, in turns.
+"""K2, K3 and K4 of two checkouts of the PyTorch + CUDA port on one GPU, in turns.
 
     python3 scripts/torch_tree_ab.py --parent DIR     # DIR: another checkout
 
-Runs the tree kernels of the checkout at DIR ("parent") and of this one
-("this") in separate processes, in the order parent, this, this, parent, on
-the inputs of chip_smoke.py's phases 6, 10 and 11: 512 production events at
-the default cutoffs (K3 in one launch, K4 at tree_refill 1), 512 events in
-two partitions of 256 (K4 with its phase-10 schedule: 128 threads in a
-checkout whose K4 takes no `warps`, else 32 warps), and 2048 events at the
-default and the production cutoffs 50/10/100 (K3 in one launch, K4 at
-tree_refill 1 with its default schedule).  Each process builds its own
-checkout's kernels and times each launch with CUDA events (mean of 3 after
-one warm-up).  Prints one line per input: the device times in run order, the
-microseconds per step of the slowest tree, and how many events' aux rows
-(the iteration count excepted) and finals are bit for bit the parent's.
-Writes each run's log and raw outputs under build/tree_ab/.  Needs one
-CUDA device.
+Runs the kernels of the checkout at DIR ("parent") and of this one ("this")
+in separate processes, in the order parent, this, this, parent.
+
+K2 (the backtrace and queue-path megakernel) on: chip_smoke.py phase 5's
+2048-ray axion backtrace (16 slots, in-kernel probability), with the gated
+and the dense scan; a queue-path launch of 700 rays, photon and axion mixed,
+one slot (a ragged batch); its first ray alone (B = 1); and a backtrace of
+3 x this checkout's resident K2 warps.  Every ray whose 12 outputs are all
+bit for bit the parent's is counted; the slowest ray's steps and dense
+passes, and the microseconds per step of it, are printed.
+
+K3 and K4 (the tree kernels) on the inputs of chip_smoke.py's phases 6, 10
+and 11: 512 production events at the default cutoffs (K3 in one launch, K4
+at tree_refill 1), 512 events in two partitions of 256 (K4 with its phase-10
+schedule: 128 threads in a checkout whose K4 takes no `warps`, else 32
+warps), and 2048 events at the default and the production cutoffs 50/10/100
+(K3 in one launch, K4 at tree_refill 1 with its default schedule); how many
+events' aux rows (the iteration count excepted) and finals are bit for bit
+the parent's, and the microseconds per step of the slowest tree.
+
+Each process builds its own checkout's kernels, prints their ptxas figures
+and times each launch with CUDA events (mean of 3 after one warm-up).
+Writes each run's log under chiprun_out/tree_ab/ and its raw outputs under
+build/tree_ab/.  Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -30,6 +40,10 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RAW = os.path.join(HERE, "build", "tree_ab")
+LOGS = os.path.join(HERE, "chiprun_out", "tree_ab")
+K2_INPUTS = ("K2 backtrace 2048 rays, gated", "K2 backtrace 2048 rays, dense",
+             "K2 queue-path launch 700 rays, mixed, one slot", "K2 backtrace 1 ray",
+             "K2 backtrace 3 x resident warps")
 INPUTS = (("512 events, default cutoffs", 512, 13, 2027, {}),
           ("512 events in 2 partitions of 256", 512, 19, 2029, {}),
           ("2048 events, default cutoffs", 2048, 17, 2028, {}),
@@ -37,13 +51,60 @@ INPUTS = (("512 events, default cutoffs", 512, 13, 2027, {}),
            dict(num_cutoff=50, mc_nodes=10, max_nodes=100)))
 
 
-def worker(root, save):
-    """Time and keep K3 and K4 of the checkout at `root` on every input."""
+def k2_queue_inputs(smoke, device, n, seed):
+    """K2's inputs as the queue path's tree iterations give them: n
+    production events, photon and axion nodes mixed (each species with
+    probability 1/2, numpy seed), forward from the conversion point to the
+    end, one crossing slot, in-kernel probability; the tuple of
+    chip_smoke.k2_backtrace_inputs."""
+    import numpy as np
+    import torch
+
+    from adiabatic_raytracer_tpu_torch.ops.propagate import launch_state
+
+    sc, cfg, tcfg, maxR, n_grid = smoke.scene_setup(device)
+    x, k, e = smoke.sample_events(n, device, sc, cfg, maxR, n_grid, seed=seed)
+    B = x.shape[0]
+    f64 = torch.float64
+    is_ph = torch.as_tensor(np.random.default_rng(seed).random(B) < 0.5, device=device)
+    u0 = launch_state(x, k, sc, e, -torch.ones_like(e))
+    lnt0 = torch.full((B,), float(cfg.ln_t_start), dtype=f64, device=device)
+    lnt1 = torch.zeros(B, dtype=f64, device=device)
+    kw = dict(max_crossings=1, is_photon=is_ph, species="mixed", with_prob=True)
+    return u0, lnt0, lnt1, e, x, sc, cfg, kw
+
+
+def k2_worker(smoke, dev, n3, res):
+    """Time and keep K2 of the imported checkout on the K2_INPUTS."""
+    import dataclasses
+
+    import torch
+
+    from adiabatic_raytracer_tpu_torch.ops import megakernel as mk
+
+    back = smoke.k2_backtrace_inputs(dev, 2048, seed=11)
+    one = tuple(a[:1] if torch.is_tensor(a) else a for a in back[:5]) + back[5:7] + (
+        {k: v[:1] if torch.is_tensor(v) else v for k, v in back[7].items()},)
+    inputs = (back, back, k2_queue_inputs(smoke, dev, 700, seed=23), one,
+              smoke.k2_backtrace_inputs(dev, n3, seed=29))
+    for name, (u0, lnt0, lnt1, e, x, sc, cfg, kw) in zip(K2_INPUTS, inputs):
+        if "dense" in name:
+            cfg = dataclasses.replace(cfg, interp_coarse=0)
+        fn = lambda: mk.integrate_mega(u0, lnt0, lnt1, e, x, sc, cfg, **kw)
+        out = tuple(t.cpu() for t in fn())
+        warps = mk.launch_warps(u0.shape[0], dev) if hasattr(mk, "launch_warps") else None
+        res[name] = {"x": x.cpu(), "K2": out, "ms": smoke.cuda_ms(fn, 3), "warps": warps}
+
+
+def worker(root, save, n3):
+    """Time and keep K2, K3 and K4 of the checkout at `root` on every
+    input."""
     sys.path.insert(0, root)
     import torch
 
     import adiabatic_raytracer_tpu_torch as pkg
     from adiabatic_raytracer_tpu_torch.config import TreeConfig
+    from adiabatic_raytracer_tpu_torch.ops import cuda_lib
     from adiabatic_raytracer_tpu_torch.ops import treekernel as tk
     from adiabatic_raytracer_tpu_torch.utils import rng
 
@@ -52,9 +113,14 @@ def worker(root, save):
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     dev = torch.device("cuda")
+    cuda_lib.lib()
+    summary = smoke.ptxas_summary(cuda_lib.BUILD_LOG)
     sc, cfg, _, maxR, n_grid = smoke.scene_setup(dev)
     warp_k4 = "warps" in inspect.signature(tk.tree_refill_launch).parameters
-    res = {"gpu": smoke.smi_line()}
+    res = {"gpu": smoke.smi_line(),
+           "ptxas": {k: smoke.ptxas_figures(summary.get(k, ""))
+                     for k in ("mega_kernel", "tree_kernel", "tree_refill_kernel")}}
+    k2_worker(smoke, dev, n3, res)
     for name, n, seed, kseed, cut in INPUTS:
         tcfg = TreeConfig(**cut)
         nf = int(min(cfg.tree_kernel_finals, tcfg.num_cutoff))
@@ -80,6 +146,18 @@ def worker(root, save):
     torch.save(res, save)
 
 
+def rays_bitwise(a, b):
+    """Rays whose 12 K2 outputs are all bit for bit equal (NaN included)."""
+    import torch
+
+    B = a[0].shape[0]
+    same = torch.ones(B, dtype=torch.bool)
+    for x, y in zip(a, b):
+        x, y = x.reshape(B, -1).contiguous(), y.reshape(B, -1).contiguous()
+        same &= (x.view(torch.int64) == y.view(torch.int64)).all(dim=1)
+    return int(same.sum())
+
+
 def bitwise(a, b):
     """Events whose aux rows (A_ITERS excepted) and finals are identical."""
     import torch
@@ -94,32 +172,64 @@ def main(argv=None):
     ap.add_argument("--parent", help="another checkout of the repo")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--save", help=argparse.SUPPRESS)
+    ap.add_argument("--rays", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        worker(args.worker, args.save)
+        worker(args.worker, args.save, args.rays)
         return 0
     import torch
 
     if not torch.cuda.is_available():
         print("torch.cuda.is_available() is false: needs a CUDA device", file=sys.stderr)
         return 1
+    sys.path.insert(0, HERE)
+    import chip_smoke
+    from adiabatic_raytracer_tpu_torch.ops import cuda_lib
+    from adiabatic_raytracer_tpu_torch.ops import megakernel as mk
+
+    n3 = 3 * mk.resident_warps(0)   # this checkout's resident K2 warps on this card
+    summary = chip_smoke.ptxas_summary(cuda_lib.BUILD_LOG)
+    print(f"[ab] this checkout: K2 resident warps {n3 // 3}; ptxas (registers, stack, spill "
+          f"stores, loads) " + ", ".join(
+              f"{k} {chip_smoke.ptxas_figures(summary.get(k, ''))}"
+              for k in ("mega_kernel", "tree_kernel", "tree_refill_kernel")), flush=True)
     os.makedirs(RAW, exist_ok=True)
+    os.makedirs(LOGS, exist_ok=True)
     roots = {"parent": os.path.abspath(args.parent), "this": HERE}
     runs = []
     for i, who in enumerate(("parent", "this", "this", "parent")):
         save = os.path.join(RAW, f"run{i}_{who}.pt")
         t0 = time.time()
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker",
-                               roots[who], "--save", save], cwd=roots[who],
+                               roots[who], "--save", save, "--rays", str(n3)], cwd=roots[who],
                               capture_output=True, text=True, timeout=900)
-        with open(os.path.join(RAW, f"run{i}_{who}.log"), "w") as f:
+        with open(os.path.join(LOGS, f"run{i}_{who}.log"), "w") as f:
             f.write(proc.stdout + proc.stderr)
         if proc.returncode != 0:
             print(f"{who} run {i} failed:\n{proc.stderr[-3000:]}", file=sys.stderr)
             return 1
-        print(f"[ab] run {i} ({who}) {time.time() - t0:.1f} s", flush=True)
         runs.append((who, torch.load(save)))
+        built = {k: v for k, v in runs[-1][1]["ptxas"].items() if v[0] is not None}
+        print(f"[ab] run {i} ({who}) {time.time() - t0:.1f} s" + (
+            "; ptxas (registers, stack, spill stores, loads) "
+            + ", ".join(f"{k} {v}" for k, v in built.items()) if built else ""), flush=True)
     print(f"[ab] {runs[0][1]['gpu']}")
+    for name in K2_INPUTS:
+        par, this = runs[0][1][name], runs[1][1][name]
+        assert torch.equal(par["x"], this["x"]), name   # the same rays
+        B = par["x"].shape[0]
+        ms = " / ".join(f"{r[name]['ms']:.3f}" for _, r in runs)
+        same = [rays_bitwise(r[name]["K2"], par["K2"]) for _, r in runs[1:3]]
+        steps = this["K2"][2]
+        slow = int(steps.argmax())
+        us = " -> ".join(f"{runs[i][1][name]['ms'] * 1e3 / steps[slow].item():.2f}"
+                         for i in (0, 1))
+        print(f"[ab] {name}: B {B}, K2 ms (parent / this / this / parent) {ms}; rays with all "
+              f"12 outputs bitwise the parent's (runs 2, 3) {same[0]}/{B}, {same[1]}/{B}; slowest "
+              f"ray {slow}: {int(steps[slow])} steps, {int(this['K2'][11][slow])} dense passes, "
+              f"{int(this['K2'][4][slow])} crossings, us per step of it (parent -> this) {us}; "
+              f"steps per ray mean {steps.mean().item():.1f}; warps launched (this) "
+              f"{this['warps']}", flush=True)
     for name, *_ in INPUTS:
         par, this = runs[0][1][name], runs[1][1][name]
         assert torch.equal(par["x"], this["x"]), name   # the same events

@@ -51,3 +51,54 @@ def test_chip_smoke_refuses_without_a_card():
     out = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+def test_record_notes_find_the_birth_state():
+    """record_notes reads a final record's end state, birth time, order and
+    species, and finds its birth state by integrating the end state back to
+    the birth time: two rays (an axion, a photon) of the production scene,
+    integrated forward from t_b to the end with the same RHS twin, come
+    back to their launch radius and angle to 1e-6; the condition there is
+    the torch twin's."""
+    import math
+
+    from adiabatic_raytracer_tpu_torch.config import NumericsConfig
+    from adiabatic_raytracer_tpu_torch.ops import megakernel as mk
+    from adiabatic_raytracer_tpu_torch.ops import treekernel as tk
+    from adiabatic_raytracer_tpu_torch.ops.integrator import integrate_pool
+    from adiabatic_raytracer_tpu_torch.ops.propagate import launch_state
+
+    f64 = torch.float64
+    sc, cfg, *_ = chip_smoke.scene_setup(torch.device("cpu"))
+    P = tk.kernel_params(sc, cfg)
+    x = torch.tensor([[12.0, 3.0, 4.0], [-20.0, 5.0, 1.0]], dtype=f64)
+    k = torch.tensor([[0.3, -0.2, 0.9], [0.1, 0.8, -0.1]], dtype=f64)
+    erg = torch.full((2,), 1.0000005e-5, dtype=f64)
+    is_ph = torch.tensor([0.0, 1.0], dtype=f64)
+    u0 = launch_state(x, k, sc, erg, -torch.ones(2, dtype=f64))
+    t_b = torch.tensor([0.98, 0.97], dtype=f64)
+    comp = lambda u: tuple(u[:, c] for c in range(7))
+    fwd = integrate_pool(
+        lambda u, s, a: torch.stack(mk._rhs(P, comp(u), s, erg, is_ph), dim=1),
+        lambda u, s: mk._condition(P, comp(u), s), u0, torch.log(t_b), torch.zeros(2, dtype=f64),
+        {}, NumericsConfig(rtol=1e-9, atol=1e-11), save_lnt=torch.zeros((2, 1), dtype=f64),
+        kill_at_surface=torch.zeros(2, dtype=torch.bool), r_ns=P.r_ns,
+        x0_cart=torch.zeros((2, 3), dtype=f64), max_crossings=torch.ones(2, dtype=torch.int64),
+        detect_events=False)
+    fin = torch.zeros((2, 3, tk.ROWS), dtype=f64)
+    fin[:, 1, tk.F_U0:tk.F_U0 + 7] = fwd.u
+    fin[:, 1, tk.F_TB] = t_b
+    fin[:, 1, tk.F_ORD] = torch.tensor([3.0, 7.0])
+    fin[:, 1, tk.F_ISPH] = is_ph
+    aux = torch.zeros((2, tk.AUX_ROWS), dtype=f64)
+    aux[:, tk.A_ERG] = erg
+    notes = chip_smoke.record_notes(fin, aux, torch.tensor([0, 1]), torch.tensor([1, 1]))
+    assert "order 3 axion" in notes[0] and "t_b 0.97 order 7 photon" in notes[1]
+    assert notes[0].startswith(f"end r {fwd.u[0, 0].item():.6g} km")
+    g = mk._condition(P, comp(u0), torch.log(t_b))
+    for i, note in enumerate(notes):
+        born = note.split(" at r ", 1)[1].split()
+        assert math.isclose(float(born[0]), u0[i, 0].item(), rel_tol=1e-6)
+        assert math.isclose(float(born[3].rstrip(",")), u0[i, 1].item(), rel_tol=1e-6)
+        assert math.isclose(float(born[5]), g[i].item(), rel_tol=1e-2, abs_tol=1e-6)
+        assert math.isfinite(float(note.rsplit("dg/dlnt ", 1)[1]))

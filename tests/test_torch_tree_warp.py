@@ -1,7 +1,8 @@
-"""The plain models of K3's and K4's warp algorithms (ops/treekernel.py:
+"""The plain models of the warp algorithms of K2, K3 and K4 (ops/treekernel.py:
 _scan_roots_warp, _bisect_warp, _pop_best_warp; the kernels' own code is
 csrc/tree_warp.cuh and csrc/tree_device.cuh) held bit for bit against the
-serial algorithms the plain versions run (_scan_roots, _bisect, _pop_best).
+serial algorithms (_scan_roots, _bisect, _pop_best): K3's and K4's event
+scan with one crossing slot, K2's with up to 16.
 
 Steps are made from a numpy seed at the production scene (MassA 1e-5, B0
 1e14, ThetaM 0.2) and its default numerics (50 scan points, 4 coarse, 60
@@ -84,9 +85,11 @@ class Memo:
         return self(torch.tensor([r]), torch.tensor([t], dtype=F64)).item()
 
 
-def both(g_tau, x0=None, p=P, rows=None):
+def scan_both(g_tau, x0=None, p=P, rows=None, free=None):
     """_scan_roots and _scan_roots_warp on the steps `rows` (all by
-    default); asserts every output bit for bit equal and returns them."""
+    default) with `free` slots per row (default one); asserts every output
+    bit for bit equal and returns them: (recorded [m], u_root [m, R, 7],
+    lnt_root [m, R], dense, roots)."""
     rows = torch.arange(STEPS[0].shape[0]) if rows is None else torch.as_tensor(rows)
     u0, u1, f0, f1, h, lnt0 = (a[rows] for a in STEPS)
     m = rows.shape[0]
@@ -95,11 +98,19 @@ def both(g_tau, x0=None, p=P, rows=None):
     g0, g1 = sub(ends, torch.zeros(m, dtype=F64)), sub(ends, torch.ones(m, dtype=F64))
     x0 = FAR.expand(m, 3) if x0 is None else x0
     args = (p, x0, u0, u1, f0, f1, h, lnt0, g0, g1)
-    warp = tk._scan_roots_warp(*args, g_tau=sub)
-    ser = tk._scan_roots(*args, g_tau=sub)
+    warp = tk._scan_roots_warp(*args, g_tau=sub, free=free)
+    ser = tk._scan_roots(*args, g_tau=sub, free=free)
     for a, b, name in zip(ser, warp, ("recorded", "u_root", "lnt_root", "dense", "roots")):
         assert torch.equal(a, b), (name, a, b)
     return ser
+
+
+def both(g_tau, x0=None, p=P, rows=None):
+    """scan_both with K3's one slot: (recorded [m] bool, u_root [m, 7],
+    lnt_root [m], dense, roots)."""
+    n_rec, u_s, lnt_s, dense, roots = scan_both(g_tau, x0, p, rows)
+    assert int(n_rec.max()) <= 1
+    return n_rec > 0, u_s[:, 0], lnt_s[:, 0], dense, roots
 
 
 def roots_at(*ts):
@@ -209,6 +220,38 @@ def test_max_roots_cap(cap, want_roots, recorded):
     p.max_roots = cap
     rec, _, _, _, roots = both(memo, x0=tk._cart(u_s), p=p, rows=[3])
     assert bool(rec.all()) == recorded and roots.item() == want_roots
+
+
+P16 = tk.kernel_params(SC, CFG)
+P16.max_crossings = 16     # K2's backtrace: 16 crossing slots
+
+
+@pytest.mark.parametrize("case", ["three_roots", "cap_at_second", "start_root_recorded",
+                                  "round_boundary"])
+def test_k2_slots(case):
+    """K2's scan with 16 slots on step 1: every root of a step recorded in
+    order (three roots, max_roots 3); two free slots filled at the second of
+    three roots, which ends the step; a root at the start point recorded
+    because a crossing was recorded before (n_cross 1, the filter applies
+    to the first crossing only); roots at j = 32 and 33, on both sides of
+    the first round boundary."""
+    ts, free, x0_at, want = {
+        "three_roots": ((0.23, 0.53, 0.87), 16, None, 3),
+        "cap_at_second": ((0.23, 0.53, 0.87), 2, None, 2),
+        "start_root_recorded": ((0.23, 0.53, 0.87), 15, 0, 3),
+        "round_boundary": ((31.5 / K, 32.5 / K), 16, None, 2)}[case]
+    memo = Memo(roots_at(*ts))
+    x0 = None
+    if x0_at is not None:   # the start point at the first root (found at 16 slots)
+        _, u_s, _, _, _ = scan_both(memo, p=P16, rows=[1], free=torch.tensor([16]))
+        x0 = tk._cart(u_s[:, x0_at])
+        first, _, _, _, _ = scan_both(memo, x0=x0, p=P16, rows=[1], free=torch.tensor([16]))
+        assert first.item() == 2    # with no crossing before, the start root is filtered
+    n_rec, _, lnt_s, dense, roots = scan_both(memo, x0=x0, p=P16, rows=[1],
+                                              free=torch.tensor([free]))
+    assert n_rec.item() == want and roots.item() == want and bool(dense.all())
+    got = tau_of(lnt_s[0, :want], torch.tensor([1]))
+    assert (got - torch.tensor(ts[:want], dtype=F64)).abs().max().item() < 1e-9
 
 
 @pytest.mark.parametrize("qd", [7, 12, 40])
