@@ -55,8 +55,11 @@ static __device__ void dmetric_dr(double r, double sin_th, double rs0, double rn
 }
 
 // Hand adjoint of the nondimensionalized Hamiltonians: dH~/dx (3), dH~/dk~ (3),
-// dH~/dt.  Photon branch: Melrose form on the exterior metric; axion branch:
-// metric only.
+// dH~/dt.  Photon branch: the variant's dispersion (Melrose or isotropic) on
+// the exterior metric; axion branch: metric only.  With the boundary layer
+// only the photon's time derivative gains its term, its spatial gradients
+// do not (the reference's quirk, RayTracer.jl:84-88).
+template <int V = kMelrose>
 static __device__ void grad_h_hand(const MegaParams& P, double x1, double x2, double x3, double kt1,
                             double kt2, double kt3, double time, double ergt_ph,
                             double ergt_ax, bool photon, double s_th, double c_th,
@@ -107,54 +110,87 @@ static __device__ void grad_h_hand(const MegaParams& P, double x1, double x2, do
   const double dinv_s = -inv_s * inv_s * c_th;
   const double dksqr_th = 2.0 * inv_r2 * inv_s * dinv_s * kt3 * kt3;
 
-  const double sqA = sqrt(A);
-  const double q1 = sqA * kt1, q2 = inv_r * kt2, q3 = inv_r * inv_s * kt3;
-  const double n = q1 * br + q2 * bth + q3 * bph;
-  const double bm2 = br * br + bth * bth + bph * bph;
-  const double inv_bm2 = 1.0 / bm2;
-  const double kp2 = n * n * inv_bm2;
-  const double F = 1.0 - kp2 * A * E;
-  const double lam = wp2 * A * E * n * inv_bm2;
-  gk[0] = A * kt1 - lam * sqA * br;
-  gk[1] = inv_r2 * kt2 - lam * inv_r * bth;
-  gk[2] = g_pp * kt3 - lam * inv_r * inv_s * bph;
-  const double aE = A * E;
+  double ph_r;
+  if constexpr (disp_iso(V)) {
+    // H = 0.5 (ksqr + wp2): no anisotropy chain
+    const double dbz_r = -3.0 * bz * inv_r;
+    const double dbz_th = -3.0 * bth * c_th - 1.5 * br * s_th;
+    const double dbz_ph = -3.0 * s_th * c_th * bph;
+    const double dbz_t = 3.0 * bnorm * P.sm * s_th * c_th * P.omega * sp;
+    ph_r = 0.5 * (dksqr_r + w_fac * dbz_r);
+    gx[1] = 0.5 * (dksqr_th + w_fac * dbz_th);
+    gx[2] = 0.5 * w_fac * dbz_ph;
+    gk[0] = A * kt1;
+    gk[1] = inv_r2 * kt2;
+    gk[2] = g_pp * kt3;
+    *gt = 0.5 * w_fac * dbz_t;
+    if constexpr (disp_bndry(V)) {
+      const double wpt = sqrt(fmax(wp2, 1e-30));
+      const double bt = r > P.r_ns
+          ? bndry_term(r, P.r_ns, P.bndry_pole_t, P.bndry_rmax, P.bndry_lyr) : 0.0;
+      *gt += 0.5 * (bt / wpt) * w_fac * dbz_t;
+    }
+  } else {
+    const double sqA = sqrt(A);
+    const double q1 = sqA * kt1, q2 = inv_r * kt2, q3 = inv_r * inv_s * kt3;
+    const double n = q1 * br + q2 * bth + q3 * bph;
+    const double bm2 = br * br + bth * bth + bph * bph;
+    const double inv_bm2 = 1.0 / bm2;
+    const double kp2 = n * n * inv_bm2;
+    const double F = 1.0 - kp2 * A * E;
+    const double lam = wp2 * A * E * n * inv_bm2;
+    gk[0] = A * kt1 - lam * sqA * br;
+    gk[1] = inv_r2 * kt2 - lam * inv_r * bth;
+    gk[2] = g_pp * kt3 - lam * inv_r * inv_s * bph;
+    const double aE = A * E;
 
-  const double dn_r = (0.5 * dA_dr / sqA) * kt1 * br - 3.0 * inv_r * n -
-                      inv_r * (q2 * bth + q3 * bph);
-  const double dkp2_r = inv_bm2 * 2.0 * n * dn_r + 6.0 * kp2 * inv_r;
-  const double dwp2_r = -3.0 * wp2 * inv_r;
-  const double dF_r = -E * (dkp2_r * A + kp2 * dA_dr);
-  const double ph_r = 0.5 * (dksqr_r + dwp2_r * F + wp2 * dF_r);
+    const double dn_r = (0.5 * dA_dr / sqA) * kt1 * br - 3.0 * inv_r * n -
+                        inv_r * (q2 * bth + q3 * bph);
+    const double dkp2_r = inv_bm2 * 2.0 * n * dn_r + 6.0 * kp2 * inv_r;
+    const double dwp2_r = -3.0 * wp2 * inv_r;
+    const double dF_r = -E * (dkp2_r * A + kp2 * dA_dr);
+    ph_r = 0.5 * (dksqr_r + dwp2_r * F + wp2 * dF_r);
 
-  const double dbr_th = -2.0 * bth, dbth_th = 0.5 * br;
-  const double dbz_th = -3.0 * bth * c_th - 1.5 * br * s_th;
-  const double dq3_th = inv_r * kt3 * dinv_s;
-  const double dn_th = q1 * dbr_th + q2 * dbth_th + dq3_th * bph;
-  const double dbm2_th = -3.0 * br * bth;
-  const double dkp2_th = inv_bm2 * (2.0 * n * dn_th - kp2 * dbm2_th);
-  gx[1] = 0.5 * (dksqr_th + w_fac * dbz_th * F - wp2 * aE * dkp2_th);
+    const double dbr_th = -2.0 * bth, dbth_th = 0.5 * br;
+    const double dbz_th = -3.0 * bth * c_th - 1.5 * br * s_th;
+    const double dq3_th = inv_r * kt3 * dinv_s;
+    const double dn_th = q1 * dbr_th + q2 * dbth_th + dq3_th * bph;
+    const double dbm2_th = -3.0 * br * bth;
+    const double dkp2_th = inv_bm2 * (2.0 * n * dn_th - kp2 * dbm2_th);
+    gx[1] = 0.5 * (dksqr_th + w_fac * dbz_th * F - wp2 * aE * dkp2_th);
 
-  const double dbr_ph = -2.0 * s_th * bph, dbth_ph = c_th * bph, dbph_ph = bnorm * P.sm * cp;
-  const double dbz_ph = -3.0 * s_th * c_th * bph;
-  const double dn_ph = q1 * dbr_ph + q2 * dbth_ph + q3 * dbph_ph;
-  const double dbm2_ph = 2.0 * (br * dbr_ph + bth * dbth_ph + bph * dbph_ph);
-  const double dkp2_ph = inv_bm2 * (2.0 * n * dn_ph - kp2 * dbm2_ph);
-  gx[2] = 0.5 * (w_fac * dbz_ph * F - wp2 * aE * dkp2_ph);
+    const double dbr_ph = -2.0 * s_th * bph, dbth_ph = c_th * bph, dbph_ph = bnorm * P.sm * cp;
+    const double dbz_ph = -3.0 * s_th * c_th * bph;
+    const double dn_ph = q1 * dbr_ph + q2 * dbth_ph + q3 * dbph_ph;
+    const double dbm2_ph = 2.0 * (br * dbr_ph + bth * dbth_ph + bph * dbph_ph);
+    const double dkp2_ph = inv_bm2 * (2.0 * n * dn_ph - kp2 * dbm2_ph);
+    gx[2] = 0.5 * (w_fac * dbz_ph * F - wp2 * aE * dkp2_ph);
 
-  const double bs = bnorm * P.sm;
-  const double wsp = P.omega * sp;
-  const double dbr_t = 2.0 * bs * s_th * wsp, dbth_t = -bs * c_th * wsp;
-  const double dbph_t = -bs * P.omega * cp;
-  const double dbz_t = 3.0 * bs * s_th * c_th * wsp;
-  const double dn_t = q1 * dbr_t + q2 * dbth_t + q3 * dbph_t;
-  const double dbm2_t = 2.0 * (br * dbr_t + bth * dbth_t + bph * dbph_t);
-  const double dkp2_t = inv_bm2 * (2.0 * n * dn_t - kp2 * dbm2_t);
-  *gt = 0.5 * (w_fac * dbz_t * F - wp2 * aE * dkp2_t);
+    const double bs = bnorm * P.sm;
+    const double wsp = P.omega * sp;
+    const double dbr_t = 2.0 * bs * s_th * wsp, dbth_t = -bs * c_th * wsp;
+    const double dbph_t = -bs * P.omega * cp;
+    const double dbz_t = 3.0 * bs * s_th * c_th * wsp;
+    const double dn_t = q1 * dbr_t + q2 * dbth_t + q3 * dbph_t;
+    const double dbm2_t = 2.0 * (br * dbr_t + bth * dbth_t + bph * dbph_t);
+    const double dkp2_t = inv_bm2 * (2.0 * n * dn_t - kp2 * dbm2_t);
+    *gt = 0.5 * (w_fac * dbz_t * F - wp2 * aE * dkp2_t);
+    if constexpr (disp_bndry(V)) {
+      // the excess 0.5 (2 wpt bt + bt^2) F enters the time derivative only;
+      // bt does not depend on time
+      const double wpt = sqrt(fmax(wp2, 1e-30));
+      const double bt = r > P.r_ns
+          ? bndry_term(r, P.r_ns, P.bndry_pole_t, P.bndry_rmax, P.bndry_lyr) : 0.0;
+      const double dwp2b = 2.0 * wpt * bt + bt * bt;
+      const double dF_t = -aE * dkp2_t;
+      *gt += 0.5 * ((bt / wpt) * (w_fac * dbz_t) * F + dwp2b * dF_t);
+    }
+  }
   gx[0] = x1 > P.r_ns ? ph_r : 0.0;
 }
 
 // Hamilton's equations in log time; g^rr at the ray's own r (pool semantics).
+template <int V = kMelrose>
 static __device__ void rhs(const MegaParams& P, const double* u, double lnt, double erg, bool photon,
                     double* du) {
   const double t = exp(lnt);
@@ -164,7 +200,7 @@ static __device__ void rhs(const MegaParams& P, const double* u, double lnt, dou
   sincos(u[1], &s_th, &c_th);
   const double g_rr = metric<double>(u[0], s_th, P.rs0, P.r_metric).rr;
   double gx[3], gk[3], gt;
-  grad_h_hand(P, u[0], u[1], u[2], u[3] * ek, u[4] * ek, u[5] * ek, t, -u[6] * inv_ma,
+  grad_h_hand<V>(P, u[0], u[1], u[2], u[3] * ek, u[4] * ek, u[5] * ek, t, -u[6] * inv_ma,
               erg * inv_ma, photon, s_th, c_th, gx, gk, &gt);
   const double ma2 = P.mass_a * P.mass_a;
   const double denom = photon ? -u[6] : erg;

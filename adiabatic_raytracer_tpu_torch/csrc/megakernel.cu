@@ -7,7 +7,11 @@
 // (_grad_h_hand, _rhs), the gated event scan on the cubic-Hermite
 // interpolant, bisection, start-point and r < 1.01 r_NS rejection, NS kill,
 // stall cut, up to max_crossings crossing records, the ntimes=3 midpoint and
-// the conversion probability (_prob_nd) at each recorded crossing.
+// the conversion probability (_prob_nd) at each recorded crossing.  The
+// dispersion (anisotropic Melrose or isotropic, with or without the
+// boundary-layer plasma term; _condition, _grad_h_hand) is a template
+// parameter: one instantiation per variant, the launch picks the scene's, so
+// the production Melrose instantiation carries no other variant's code.
 //
 // What bounds it on the card: the latency of one ray's serial chain, not
 // bytes or operations.  A step costs 6 RHS (sincos, exp and pow in the
@@ -24,7 +28,7 @@
 // share a warp).  Warps pull rays from a queue: lane 0's atomicAdd on one
 // int head in device memory (zeroed by the caller on the stream), broadcast
 // by __shfl_sync, hands out ray indices.  min(B, resident warps) warps are
-// launched (the wrapper asks art_megakernel_resident_warps), so a batch
+// launched (art_megakernel asks the occupancy once per device), so a batch
 // spreads over every SM and a warp whose ray ended takes the next one
 // instead of idling until its block's slowest ray ends.  A ray's result
 // depends on nothing but the ray, so the schedule changes no output.  Blocks
@@ -64,7 +68,8 @@ __device__ __forceinline__ double pick(const double* v, int k) {
 }
 
 // Ray i, integrated by all 32 lanes of the warp (same registers in every
-// lane); `lane` is the caller's lane index.
+// lane); `lane` is the caller's lane index; V the dispersion variant.
+template <int V>
 __device__ __forceinline__ void run_ray(const double* __restrict__ u_in,
                                         const double* __restrict__ aux, int i,
                                         const MegaParams& P, double* __restrict__ uf,
@@ -87,8 +92,8 @@ __device__ __forceinline__ void run_ray(const double* __restrict__ u_in,
   __syncwarp();  // the zeros land before any lane writes a record over them
 
   R.lnt = lnt0;
-  rhs(P, R.u, R.lnt, erg, photon, R.f0);
-  R.g0 = condition(P, R.u, R.lnt);
+  rhs<V>(P, R.u, R.lnt, erg, photon, R.f0);
+  R.g0 = condition<V>(P, R.u, R.lnt);
   const double span = lnt1 - lnt0;
   bool done = span <= 0.0;
   R.dt = initial_dt(P, R.u, R.f0, span);
@@ -112,7 +117,7 @@ __device__ __forceinline__ void run_ray(const double* __restrict__ u_in,
     }
   };
   while (!done) {
-    code = dp5_step_warp(P, R, lnt1, erg, photon, x0c, lnt_mid, save_mid, lane, record);
+    code = dp5_step_warp<V>(P, R, lnt1, erg, photon, x0c, lnt_mid, save_mid, lane, record);
     done = code != 0;
   }
 
@@ -129,7 +134,9 @@ __device__ __forceinline__ void run_ray(const double* __restrict__ u_in,
   }
 }
 
-// Warps w < warps pull rays from *head until B is reached.
+// Warps w < warps pull rays from *head until B is reached.  One
+// instantiation per dispersion variant (physics.cuh Disp).
+template <int V>
 __global__ void __launch_bounds__(kThreads)
     mega_kernel(const double* __restrict__ u_in, const double* __restrict__ aux, int B,
                 int warps, int* __restrict__ head, MegaParams P, double* __restrict__ uf,
@@ -143,13 +150,15 @@ __global__ void __launch_bounds__(kThreads)
     if (lane == 0) i = atomicAdd(head, 1);
     i = __shfl_sync(kFullMask, i, 0);
     if (i >= B) return;
-    run_ray(u_in, aux, i, P, uf, lntf, diag, cru, crlnt, save_out, pcx, lane);
+    run_ray<V>(u_in, aux, i, P, uf, lntf, diag, cru, crlnt, save_out, pcx, lane);
   }
 }
 
 // One device function at a time on [B] states (for the card-side checks of
 // the torch twins): which = 0 metric, 1 dipole, 2 omega_p, 3 condition,
-// 4 rhs, 5 prob, 6 hermite (u rows then hold u0, u1, f0, f1, h, tau).
+// 4 rhs, 5 prob, 6 hermite (u rows then hold u0, u1, f0, f1, h, tau); V the
+// dispersion variant of condition and rhs.
+template <int V>
 __global__ void probe_kernel(int which, const double* __restrict__ u,
                              const double* __restrict__ lnt, const double* __restrict__ erg,
                              const double* __restrict__ is_ph, double* __restrict__ out, int B,
@@ -186,10 +195,10 @@ __global__ void probe_kernel(int which, const double* __restrict__ u,
       }
       break;
     case 3:
-      out[i] = art::condition(P, x, lnt[i]);
+      out[i] = art::condition<V>(P, x, lnt[i]);
       break;
     case 4:
-      rhs(P, x, lnt[i], erg[i], is_ph[i] > 0.5, out + (size_t)i * 7);
+      rhs<V>(P, x, lnt[i], erg[i], is_ph[i] > 0.5, out + (size_t)i * 7);
       break;
     case 5:
       out[i] = prob_nd(P, x, erg[i]);
@@ -200,38 +209,68 @@ __global__ void probe_kernel(int which, const double* __restrict__ u,
   }
 }
 
+using MegaKernel = void (*)(const double*, const double*, int, int, int*, MegaParams, double*,
+                           double*, double*, double*, double*, double*, double*);
+// indexed by art::Disp
+const MegaKernel kMegaKernels[4] = {mega_kernel<kMelrose>, mega_kernel<kMelroseBndry>,
+                                    mega_kernel<kIso>, mega_kernel<kIsoBndry>};
+using ProbeKernel = void (*)(int, const double*, const double*, const double*, const double*,
+                             double*, int, double, MegaParams);
+const ProbeKernel kProbeKernels[4] = {probe_kernel<kMelrose>, probe_kernel<kMelroseBndry>,
+                                      probe_kernel<kIso>, probe_kernel<kIsoBndry>};
+
+
+// The warps the scene's instantiation keeps resident at once on the current
+// device: active blocks per SM (occupancy at its registers) x SMs x 4, asked
+// once per device and variant.
+int resident_warps(const MegaParams& P, int* out) {
+  constexpr int kDevices = 64;
+  static int cache[kDevices][4] = {};
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const int v = disp_of(P);
+  if (dev < kDevices && cache[dev][v] > 0) {
+    *out = cache[dev][v];
+    return 0;
+  }
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kMegaKernels[v], kThreads, 0);
+  *out = per_sm * sms * kWarps;
+  if (err == cudaSuccess && dev < kDevices) cache[dev][v] = *out;
+  return (int)err;
+}
+
 }  // namespace
 
 // u_in [B, 7], aux [B, 8] (lnt0, lnt1, erg, x0(3), is_photon, pad); outputs
 // uf [B, 7], lntf [B], diag [B, 4] (steps, code, n_cross, n_dense_scans),
 // cru [B, S, 7], crlnt [B, S], save_mid [B, 7], pcx [B, S]; all f64,
 // contiguous, on the device, S = P.max_crossings <= 16.  head: one int32 in
-// device memory, zeroed by the caller on `stream`; `warps` >= 1 warps pull
-// the rays (the wrapper gives min(B, resident warps)).  Returns
-// cudaGetLastError().
+// device memory, zeroed by the caller on `stream`.  The instantiation is the
+// scene's dispersion variant (art::disp_of); min(B, its resident warps)
+// warps pull the rays.  Returns cudaGetLastError().
 extern "C" int art_megakernel(const double* u_in, const double* aux, int B, MegaParams P,
                               double* uf, double* lntf, double* diag, double* cru,
                               double* crlnt, double* save_mid, double* pcx, int* head,
-                              int warps, void* stream) {
+                              void* stream) {
   if (B <= 0) return 0;
-  if (P.max_crossings < 1 || P.max_crossings > kMaxSlots || warps < 1)
-    return (int)cudaErrorInvalidValue;
+  if (P.max_crossings < 1 || P.max_crossings > kMaxSlots) return (int)cudaErrorInvalidValue;
+  int resident = 0;
+  const int err = resident_warps(P, &resident);
+  if (err != 0) return err;
+  const int warps = resident < 1 ? 1 : (resident < B ? resident : B);
   const int blocks = (warps + kWarps - 1) / kWarps;
-  mega_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  kMegaKernels[disp_of(P)]<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       u_in, aux, B, warps, head, P, uf, lntf, diag, cru, crlnt, save_mid, pcx);
   return (int)cudaGetLastError();
 }
 
-// The warps K2 keeps resident at once on the current device: active blocks
-// per SM (occupancy at K2's registers) x SMs x 4.
-extern "C" int art_megakernel_resident_warps(int* out) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mega_kernel, kThreads, 0);
-  *out = per_sm * sms * kWarps;
-  return (int)err;
+// The warps art_megakernel launches at most for P's scene (its
+// instantiation's resident warps on the current device).
+extern "C" int art_megakernel_resident_warps(MegaParams P, int* out) {
+  return resident_warps(P, out);
 }
 
 extern "C" int art_probe(int which, const double* u, const double* lnt, const double* erg,
@@ -239,7 +278,7 @@ extern "C" int art_probe(int which, const double* u, const double* lnt, const do
                          void* stream) {
   if (B <= 0) return 0;
   const int blocks = (B + kThreads - 1) / kThreads;
-  probe_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(which, u, lnt, erg, is_ph, out,
-                                                              B, b0_abs, P);
+  kProbeKernels[disp_of(P)]<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      which, u, lnt, erg, is_ph, out, B, b0_abs, P);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 // Device physics shared by the K1 line scan (line_scan.cu, f32) and the K2
 // megakernel (megakernel.cu, f64): Schwarzschild inverse metric with the
 // interior branch, the Goldreich-Julian dipole, the plasma frequency and the
-// two forms of the level-crossing condition.
+// two forms of the level-crossing condition, with the boundary-layer plasma
+// term and the isotropic dispersion.
 //
 // Transcribed from the JAX reference (adiabatic_raytracer_tpu/ops/
 // megakernel.py _metric/_dipole_unit/_omega_p/_condition and
@@ -24,10 +25,13 @@ constexpr double GAUSS_TO_EV2 = 1.95e-2;
 constexpr double SQRT_4PI_ALPHA = 0.30286190409413793;  // sqrt(4 pi / 137)
 constexpr double PI = 3.141592653589793;
 
-// K1 scene scalars (ops/line_scan.py LineScene).
+// K1 scene scalars (ops/line_scan.py LineScene).  bndry_lyr <= 0: no
+// boundary layer; else its pole value [eV], rmax * bndry_lyr and the
+// reciprocal of the decay length 0.1 rmax [km].
 struct LineScene {
   float cm, sm, omega, b0, r_ns, r_metric, rs0, mass_a;
   int isotropic;
+  float bndry_lyr, bndry_pole, bndry_center, bndry_inv_decay;
 };
 
 // K2 scene + numerics scalars (ops/megakernel.py MegaParams, same order).
@@ -37,7 +41,21 @@ struct MegaParams {
   double safety, min_fac, max_fac, pi_beta, expo1, gate_theta, stall_min;
   int max_steps, interp, interp_coarse, bisect, stall_window;
   int max_roots, max_crossings, species, with_prob;
+  double bndry_lyr, bndry_pole_t, bndry_rmax;
+  int isotropic;
 };
+
+// The dispersion variants of the f64 device code, a template parameter, so
+// that each instantiation holds only its own branches: the anisotropic
+// Melrose form (the production scene; K3 and K4 run only this one) or the
+// isotropic one, each with or without the boundary-layer plasma term.
+enum Disp : int { kMelrose = 0, kMelroseBndry = 1, kIso = 2, kIsoBndry = 3 };
+__host__ __device__ constexpr bool disp_iso(int v) { return v >= kIso; }
+__host__ __device__ constexpr bool disp_bndry(int v) { return (v & 1) != 0; }
+// The variant a scene needs, picked at launch.
+inline int disp_of(const MegaParams& P) {
+  return (P.isotropic ? kIso : kMelrose) + (P.bndry_lyr > 0.0 ? 1 : 0);
+}
 
 template <typename T>
 struct Metric {
@@ -97,6 +115,17 @@ __device__ __forceinline__ T omega_p(T omega, T bz) {
   return dsqrt(T(4) * T(PI) * nelec / T(INV_ALPHA) / T(M_E_EV));
 }
 
+// K2's boundary-layer plasma addition to omega_p in mass_a units, before
+// its support r > r_ns is applied (models/magnetosphere._bndry_lyr_term,
+// RayTracer.jl:1155-1162): pole_t (r_ns / r)^1.5 exp(-(r - rmax lyr) /
+// (0.1 rmax)), pole_t = omega_p at the pole / mass_a, rmax the aligned
+// dipole's conversion radius.
+__device__ __forceinline__ double bndry_term(double r, double r_ns, double pole_t, double rmax,
+                                             double lyr) {
+  const double q = r_ns / r;
+  return pole_t * (q * sqrt(q)) * exp(-(r - rmax * lyr) / (0.1 * rmax));
+}
+
 // K1: thick-surface condition at a Cartesian point of a sampling line, the
 // momentum renormalized onto the axion shell along the local-velocity
 // direction (sampler._line_condition; pallas_kernels._condition_block).
@@ -126,7 +155,15 @@ __device__ __forceinline__ float line_condition(float px, float py, float pz, fl
   br *= S.b0;
   bth *= S.b0;
   bph *= S.b0;
-  const float wp = omega_p<float>(S.omega, br * cz - bth * st);
+  float wp = omega_p<float>(S.omega, br * cz - bth * st);
+  if (S.bndry_lyr > 0.f && rr >= S.r_ns) {
+    // the boundary layer [eV] where r >= r_ns, in the plain version's f32
+    // operations and order (torch: r_ns / r as (1 / r) * r_ns, a division by
+    // a scalar as a product with its reciprocal), none fused into the sum
+    const float q = __fmul_rn(1.f / rr, S.r_ns);
+    const float decay = expf(__fmul_rn(-(rr - S.bndry_center), S.bndry_inv_decay));
+    wp = __fadd_rn(wp, __fmul_rn(__fmul_rn(S.bndry_pole, powf(q, 1.5f)), decay));
+  }
   float kp = 0.f;
   if (!S.isotropic) {
     const float bl_r = br / sqrtf(g.rr), bl_t = bth / sqrtf(g.thth), bl_p = bph / sqrtf(g.pp);
@@ -141,7 +178,10 @@ __device__ __forceinline__ float line_condition(float px, float py, float pz, fl
 
 // K2: strength-reduced crossing condition on the integration state
 // u = (r, theta, phi, w_r, w_th, w_ph, e7) at log-time lnt (the reference's
-// cond_mode "fast"): 0.5 ma^2 (wp2t (1 - kp^2/e2) - 1) / e7^2.
+// cond_mode "fast"): 0.5 ma^2 (wp2t mel - 1) / e7^2 with mel = 1 - kp^2/e2
+// (Melrose) or 1 (isotropic), and wp2t = (sqrt(wp2t) + bt)^2 with the
+// boundary layer.
+template <int V = kMelrose>
 __device__ __forceinline__ double condition(const MegaParams& P, const double* u, double lnt) {
   const double t = exp(lnt);
   const double r = u[0];
@@ -154,15 +194,26 @@ __device__ __forceinline__ double condition(const MegaParams& P, const double* u
   dipole_unit<double>(P.cm, P.sm, P.b0_sign, P.r_ns, r, c_th, s_th, c_ph, s_ph, swt, cwt,
                       &br, &bth, &bph);
   const double bz = br * c_th - bth * s_th;
-  const double wp2t = r <= P.r_ns ? 0.0 : P.wp2_scale * fabs(bz);
+  double wp2t = r <= P.r_ns ? 0.0 : P.wp2_scale * fabs(bz);
+  if constexpr (disp_bndry(V)) {
+    const double bt =
+        r > P.r_ns ? bndry_term(r, P.r_ns, P.bndry_pole_t, P.bndry_rmax, P.bndry_lyr)
+                   : 0.0;
+    const double wpt = sqrt(wp2t) + bt;
+    wp2t = wpt * wpt;
+  }
   const double e72 = u[6] * u[6];
   const double inv_e72 = 1.0 / e72;
-  const double wsq = g.rr * u[3] * u[3] + g.thth * u[4] * u[4] + g.pp * u[5] * u[5];
-  const double nrm2 = (-e72 * g.tt - P.mass_a * P.mass_a) / wsq;
-  const double inv_r = 1.0 / r;
-  const double n_w = sqrt(g.rr) * u[3] * br + inv_r * u[4] * bth + inv_r / fabs(s_th) * u[5] * bph;
-  const double bm2 = br * br + bth * bth + bph * bph;
-  const double mel = 1.0 - nrm2 * n_w * n_w * g.rr * inv_e72 / bm2;
+  double mel = 1.0;
+  if constexpr (!disp_iso(V)) {
+    const double wsq = g.rr * u[3] * u[3] + g.thth * u[4] * u[4] + g.pp * u[5] * u[5];
+    const double nrm2 = (-e72 * g.tt - P.mass_a * P.mass_a) / wsq;
+    const double inv_r = 1.0 / r;
+    const double n_w =
+        sqrt(g.rr) * u[3] * br + inv_r * u[4] * bth + inv_r / fabs(s_th) * u[5] * bph;
+    const double bm2 = br * br + bth * bth + bph * bph;
+    mel = 1.0 - nrm2 * n_w * n_w * g.rr * inv_e72 / bm2;
+  }
   return (0.5 * P.mass_a * P.mass_a) * (wp2t * mel - 1.0) * inv_e72;
 }
 

@@ -43,6 +43,7 @@ constexpr unsigned kFullMask = 0xffffffffu;
 // bit the serial midpoint, and evaluates the condition there.  Then every lane walks the round's levels from the
 // root, reading each node's tm and g by shuffle and applying the serial rule
 // sgn(g) == sgn(glo) (sgn 0 included).  tlo and thi end as the serial ones.
+template <int V>
 __device__ __forceinline__ void bisect_warp(const MegaParams& P, const double* u0,
                                             const double* u1, const double* f0,
                                             const double* f1, double h, double lnt0, int lane,
@@ -62,7 +63,7 @@ __device__ __forceinline__ void bisect_warp(const MegaParams& P, const double* u
     if (depth < levels) {
       double um[7];
       hermite(u0, u1, f0, f1, h, tm, um);
-      gm = condition(P, um, lnt0 + tm * h);
+      gm = condition<V>(P, um, lnt0 + tm * h);
     }
     int node = 1;
     for (int d = 0; d < levels; ++d) {
@@ -85,6 +86,7 @@ __device__ __forceinline__ void bisect_warp(const MegaParams& P, const double* u
 // h]: lane l's point j = base + l + 1 (g_end where j == K), g(j - 1) in *gp
 // (lane 0: carry), the lanes whose pair (g(j - 1), g(j)) changed sign as a
 // ballot; carry becomes the round's last value.
+template <int V>
 __device__ __forceinline__ unsigned scan_round(const MegaParams& P, const double* u0,
                                                const double* u1, const double* f0,
                                                const double* f1, double h, double lnt0,
@@ -96,7 +98,7 @@ __device__ __forceinline__ unsigned scan_round(const MegaParams& P, const double
     const double tau = (double)j / K;
     double uj[7];
     hermite(u0, u1, f0, f1, h, tau, uj);
-    g = condition(P, uj, lnt0 + tau * h);
+    g = condition<V>(P, uj, lnt0 + tau * h);
   }
   double left = __shfl_up_sync(kFullMask, g, 1);
   if (lane == 0) left = carry;
@@ -118,8 +120,10 @@ __device__ __forceinline__ unsigned scan_round(const MegaParams& P, const double
 // save_mid is given and the accepted step spans lnt_mid, the interpolant at
 // lnt_mid is written there (K2's midpoint; K3 and K4 pass nullptr).
 // Returns 0 to go on, else the end code, warp-uniform: 1 lnt1 reached, 2
-// photon at the star, 3 crossing cap, 4 step cap, 5 stalled.
-template <class Record>
+// photon at the star, 3 crossing cap, 4 step cap, 5 stalled.  V is the
+// dispersion variant (physics.cuh Disp) of the RHS and the condition; K3 and
+// K4 run only the Melrose one.
+template <int V = kMelrose, class Record>
 __device__ __forceinline__ int dp5_step_warp(const MegaParams& P, Ray& R, double lnt1, double erg,
                                              bool photon, const double x0c[3], double lnt_mid,
                                              double* save_mid, int lane, Record&& record) {
@@ -136,7 +140,7 @@ __device__ __forceinline__ int dp5_step_warp(const MegaParams& P, Ray& R, double
         if (kA[s][j] != 0.0) acc += kA[s][j] * k[j][c];
       ui[c] = R.u[c] + h * acc;
     }
-    rhs(P, ui, R.lnt + kC[s] * h, erg, photon, k[s]);
+    rhs<V>(P, ui, R.lnt + kC[s] * h, erg, photon, k[s]);
   }
   double u_new[7];
   double err = 0.0;
@@ -168,7 +172,7 @@ __device__ __forceinline__ int dp5_step_warp(const MegaParams& P, Ray& R, double
   const double t1 = R.lnt + h;
   if (save_mid != nullptr && accept && lnt_mid > R.lnt && lnt_mid <= t1)
     hermite(R.u, u_new, k[0], k[6], h, (lnt_mid - R.lnt) / h, save_mid);
-  const double g_new = condition(P, u_new, t1);
+  const double g_new = condition<V>(P, u_new, t1);
 
   // commit (the pool's order: the event scan below uses the step's start)
   double u_prev[7];
@@ -195,7 +199,7 @@ __device__ __forceinline__ int dp5_step_warp(const MegaParams& P, Ray& R, double
       bool low = fabs(g_prev) < P.gate_theta;
       double carry = g_prev, gj, gp;
       for (int base = 0; base < Kc; base += 32) {
-        flip_c = scan_round(P, u_prev, u_new, k[0], k[6], h, lnt_prev, g_new, Kc, base, lane,
+        flip_c = scan_round<V>(P, u_prev, u_new, k[0], k[6], h, lnt_prev, g_new, Kc, base, lane,
                             carry, &gj, &gp) != 0u || flip_c;
         low = __any_sync(kFullMask, base + lane + 1 <= Kc && fabs(gj) < P.gate_theta) || low;
       }
@@ -207,7 +211,7 @@ __device__ __forceinline__ int dp5_step_warp(const MegaParams& P, Ray& R, double
       double carry = g_prev;
       for (int base = 0; base < K && roots < P.max_roots && !done; base += 32) {
         double gj, gp;
-        unsigned flips = scan_round(P, u_prev, u_new, k[0], k[6], h, lnt_prev, g_new, K, base,
+        unsigned flips = scan_round<V>(P, u_prev, u_new, k[0], k[6], h, lnt_prev, g_new, K, base,
                                     lane, carry, &gj, &gp);
         while (flips != 0u && roots < P.max_roots && !done) {
           const int l = __ffs(flips) - 1;
@@ -216,7 +220,7 @@ __device__ __forceinline__ int dp5_step_warp(const MegaParams& P, Ray& R, double
           roots += 1;
           R.nbisect += 1;
           double tlo = (double)(j - 1) / K, thi = (double)j / K;
-          bisect_warp(P, u_prev, u_new, k[0], k[6], h, lnt_prev, lane, tlo, thi,
+          bisect_warp<V>(P, u_prev, u_new, k[0], k[6], h, lnt_prev, lane, tlo, thi,
                       __shfl_sync(kFullMask, gp, l));
           const double ts = 0.5 * (tlo + thi);
           double us[7];

@@ -43,12 +43,18 @@ def dipole_sph(x_sph, t, theta_m, omega_pul, b0, r_ns):
     return br, btheta, bphi
 
 
+def bndry_lyr_scalars(mass_a, omega_pul, b0, r_ns):
+    """(pole_val, rmax) of the boundary layer: omega_p [eV] at the pole and
+    the aligned dipole's conversion radius [km] (RayTracer.jl:1155-1162)."""
+    pole_val = float(_omega_p_of_bz(torch.tensor(float(b0), dtype=torch.float64),
+                                    omega_pul))
+    return pole_val, r_ns * (pole_val / mass_a) ** (2.0 / 3.0)
+
+
 def _bndry_lyr_term(r, mass_a, bndry_lyr, omega_pul, b0, r_ns):
     """Boundary-layer addition to omega_p for r >= r_NS
     (RayTracer.jl:1155-1162); 0 where disabled or inside the star."""
-    pole_val = float(_omega_p_of_bz(torch.tensor(float(b0), dtype=torch.float64),
-                                    omega_pul))
-    rmax = r_ns * (pole_val / mass_a) ** (2.0 / 3.0)
+    pole_val, rmax = bndry_lyr_scalars(mass_a, omega_pul, b0, r_ns)
     term = pole_val * (r_ns / r) ** 1.5 * torch.exp(
         -(r - rmax * bndry_lyr) / (0.1 * rmax))
     on = (bndry_lyr > 0.0) & (r >= r_ns)

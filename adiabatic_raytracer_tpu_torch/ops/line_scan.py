@@ -2,7 +2,10 @@
 
 Evaluates the thick-surface level-crossing condition at [B, N] points along
 B straight sampling lines, in f32 like the TPU kernel it replaces
-(adiabatic_raytracer_tpu/ops/pallas_kernels.py:line_scan_pallas).
+(adiabatic_raytracer_tpu/ops/pallas_kernels.py:line_scan_pallas).  Unlike
+that kernel, whose condition has no boundary-layer term, it adds the
+boundary layer to omega_p as its plain version does (the sampler's
+_line_condition, the Julia reference's condition).
 `line_scan` launches the CUDA kernel for CUDA tensors and runs
 `line_scan_plain` (the sampler's torch _line_condition on the grid) for CPU
 tensors.
@@ -13,30 +16,41 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from adiabatic_raytracer_tpu_torch.config import Scene
 from adiabatic_raytracer_tpu_torch.constants import C_KM, G_NEW
+from adiabatic_raytracer_tpu_torch.models.magnetosphere import bndry_lyr_scalars
 from adiabatic_raytracer_tpu_torch.ops import cuda_lib
 
 
 class LineScene(ctypes.Structure):
-    """Scene scalars passed by value at launch (csrc/line_scan.cu)."""
+    """Scene scalars passed by value at launch (csrc/physics.cuh, same order)."""
 
     _fields_ = [("cm", ctypes.c_float), ("sm", ctypes.c_float),
                 ("omega", ctypes.c_float), ("b0", ctypes.c_float),
                 ("r_ns", ctypes.c_float), ("r_metric", ctypes.c_float),
                 ("rs0", ctypes.c_float),
-                ("mass_a", ctypes.c_float), ("isotropic", ctypes.c_int)]
+                ("mass_a", ctypes.c_float), ("isotropic", ctypes.c_int),
+                ("bndry_lyr", ctypes.c_float), ("bndry_pole", ctypes.c_float),
+                ("bndry_center", ctypes.c_float), ("bndry_inv_decay", ctypes.c_float)]
 
 
 def line_scene(sc: Scene, mass_ns) -> LineScene:
     # the metric's interior branch sits at 10 km, as in the plain version
-    # (sampler._line_condition -> metric_inverse's default)
+    # (sampler._line_condition -> metric_inverse's default).  The boundary
+    # layer's scalars (bndry_lyr <= 0: none) are rounded to f32 as the plain
+    # version rounds them: the pole value, rmax * bndry_lyr, and the f32
+    # reciprocal of the decay length 0.1 rmax it divides by
+    pole_val, rmax = bndry_lyr_scalars(float(sc.mass_a), float(sc.omega_pul),
+                                       float(sc.b0), float(sc.r_ns))
+    inv_decay = np.float32(1.0) / np.float32(0.1 * rmax)
     return LineScene(math.cos(float(sc.theta_m)), math.sin(float(sc.theta_m)),
                      float(sc.omega_pul), float(sc.b0), float(sc.r_ns), 10.0,
                      2.0 * G_NEW * float(mass_ns) / C_KM**2, float(sc.mass_a),
-                     int(bool(sc.isotropic)))
+                     int(bool(sc.isotropic)), float(sc.bndry_lyr), pole_val,
+                     rmax * float(sc.bndry_lyr), float(inv_decay))
 
 
 def bind(lib):

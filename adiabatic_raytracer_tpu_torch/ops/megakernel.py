@@ -9,7 +9,10 @@ the in-kernel conversion probability per crossing.  The step is the one K3
 and K4 run (csrc/tree_warp.cuh): the serial chain replicated in the 32
 lanes, the event scan and the bisection spread over them.  min(B, resident
 warps) warps pull rays from a queue in device memory, so a ray's result
-does not depend on which warp ran it.
+does not depend on which warp ran it.  The dispersion (anisotropic Melrose
+or isotropic, each with or without the boundary-layer plasma term) is a
+template parameter of the device code: the launch picks the scene's
+instantiation from MegaParams (art::disp_of).
 
 Precision: f64 state and physics.  The TPU kernel's float-float state,
 Cody-Waite sin/cos/exp and f32 bisection cap were workarounds for a chip
@@ -24,17 +27,17 @@ ray's own `interp_coarse`-point pass flipped sign or dipped below
 then the pool's algorithm exactly.
 
 This module also holds the torch twins of the device functions K2, K3 and
-K4 share (_metric, _dipole_unit, _omega_p, _condition, _grad_h_hand, _rhs,
-_prob_nd, _hermite; csrc/physics.cuh, csrc/mega_device.cuh), written on
-tuples of [B] tensors against the same MegaParams struct the kernels
-receive; the card checks each one through `probe`.
+K4 share (_metric, _dipole_unit, _omega_p, _bndry_t, _condition,
+_grad_h_hand, _rhs, _prob_nd, _hermite; csrc/physics.cuh,
+csrc/mega_device.cuh), written on tuples of [B] tensors against the same
+MegaParams struct the kernels receive; the card checks each one through
+`probe`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 import math
 
 import torch
@@ -71,7 +74,8 @@ METRIC_R_NS = 10.0
 
 class MegaParams(ctypes.Structure):
     """Scene and numerics scalars, passed by value at launch (csrc/physics.cuh
-    declares the same struct), so a new scene needs no rebuild."""
+    declares the same struct), so a new scene needs no rebuild.  bndry_lyr
+    and isotropic also pick the kernel's dispersion variant (art::disp_of)."""
 
     _fields_ = [(n, ctypes.c_double) for n in (
         "cm", "sm", "omega", "b0_sign", "r_ns", "r_metric", "rs0", "mass_a", "wp2_scale",
@@ -79,7 +83,9 @@ class MegaParams(ctypes.Structure):
         "safety", "min_fac", "max_fac", "pi_beta", "expo1", "gate_theta",
         "stall_min")] + [(n, ctypes.c_int) for n in (
         "max_steps", "interp", "interp_coarse", "bisect", "stall_window",
-        "max_roots", "max_crossings", "species", "with_prob")]
+        "max_roots", "max_crossings", "species", "with_prob")] + [
+        (n, ctypes.c_double) for n in ("bndry_lyr", "bndry_pole_t", "bndry_rmax")] + [
+        ("isotropic", ctypes.c_int)]
 
 
 def can_prob(sc: Scene) -> bool:
@@ -91,13 +97,10 @@ def can_prob(sc: Scene) -> bool:
 
 def check_supported(sc: Scene, cfg: NumericsConfig, max_crossings: int):
     """Raise on what the kernel does not cover, naming the ROADMAP item."""
-    if sc.isotropic or not sc.melrose:
-        raise NotImplementedError("megakernel: only the anisotropic Melrose "
-                                  "dispersion is ported (ROADMAP Queue 2a, \"K2's "
-                                  "isotropic-dispersion branch\")")
-    if float(sc.bndry_lyr) > 0:
-        raise NotImplementedError("megakernel: boundary layer not ported "
-                                  "(ROADMAP Queue 2a, \"K2's boundary-layer term\")")
+    if not sc.isotropic and not sc.melrose:
+        raise NotImplementedError("megakernel: the non-Melrose anisotropic dispersion "
+                                  "has no kernel branch, in the reference either "
+                                  "(ROADMAP Queue 1, \"Left unported on purpose\")")
     if cfg.rhs_mode != "hand" or cfg.cond_mode != "fast":
         raise NotImplementedError("megakernel: rhs_mode='vjp' / cond_mode="
                                   "'canonical' are left unported on purpose (ROADMAP "
@@ -111,6 +114,22 @@ def check_supported(sc: Scene, cfg: NumericsConfig, max_crossings: int):
         raise ValueError(f"max_crossings must be in 1..{MAX_SLOTS}")
 
 
+def _wp2_scale(sc: Scene) -> float:
+    """(omega_p / mass_a)^2 per unit |B_z / b0|."""
+    return (4.0 * math.pi / (INV_ALPHA * M_E_EV)
+            * (2.0 * abs(float(sc.omega_pul) * float(sc.b0)) / SQRT_4PI_ALPHA * GAUSS_TO_EV2
+               * HBAR) / float(sc.mass_a) ** 2)
+
+
+def bndry_scalars(sc: Scene):
+    """(bndry_lyr, pole_t, rmax) of the boundary-layer plasma term
+    (models/magnetosphere._bndry_lyr_term; SceneConsts of the reference):
+    pole_t = omega_p at the pole / mass_a, rmax = r_ns pole_t^(2/3), the
+    aligned dipole's conversion radius."""
+    pole_t = math.sqrt(_wp2_scale(sc))
+    return float(sc.bndry_lyr), pole_t, float(sc.r_ns) * pole_t ** (2.0 / 3.0)
+
+
 def mega_params(sc: Scene, cfg: NumericsConfig, *, max_crossings: int = 1,
                 species: str = "photon", with_prob: bool = False) -> MegaParams:
     mass_eff = float(sc.mass_ns_eff)
@@ -118,9 +137,8 @@ def mega_params(sc: Scene, cfg: NumericsConfig, *, max_crossings: int = 1,
     omega = float(sc.omega_pul)
     mass_a = float(sc.mass_a)
     mass_full = float(sc.mass_ns)
-    wp2_scale = (4.0 * math.pi / (INV_ALPHA * M_E_EV)
-                 * (2.0 * abs(omega * b0) / SQRT_4PI_ALPHA * GAUSS_TO_EV2 * HBAR)
-                 / mass_a**2)
+    wp2_scale = _wp2_scale(sc)
+    lyr, pole_t, rmax = bndry_scalars(sc)
     b_s = abs(b0) * GAUSS_TO_EV2
     prob_scale = ((math.pi / 2.0) * (float(sc.ax_g) * 1e-9 * b_s) ** 2
                   / (mass_a * C_KM * HBAR))
@@ -141,7 +159,9 @@ def mega_params(sc: Scene, cfg: NumericsConfig, *, max_crossings: int = 1,
         interp_coarse=kc if 0 < kc < int(cfg.interp_points) else 0,
         bisect=int(cfg.bisect_iters), stall_window=int(cfg.stall_window),
         max_roots=int(cfg.max_roots_per_step), max_crossings=int(max_crossings),
-        species=SPECIES[species], with_prob=int(bool(with_prob) and can_prob(sc)))
+        species=SPECIES[species], with_prob=int(bool(with_prob) and can_prob(sc)),
+        bndry_lyr=lyr, bndry_pole_t=pole_t, bndry_rmax=rmax,
+        isotropic=int(bool(sc.isotropic)))
 
 
 # ---------------------------------------------------------------------------
@@ -204,10 +224,21 @@ def _omega_p(P, br, btheta, cz, sin_th, r, b0_abs):
     return torch.where(r <= P.r_ns, torch.zeros_like(wp), wp)
 
 
+def _bndry_t(P, r):
+    """Boundary-layer omega_p addition in mass_a units where r > r_NS
+    (megakernel.py:312 of the reference; models/magnetosphere._bndry_lyr_term,
+    whose support r >= r_NS is cut to r > r_NS by the zeroed interior)."""
+    q = P.r_ns / r
+    term = P.bndry_pole_t * (q * torch.sqrt(q)) * torch.exp(
+        -(r - P.bndry_rmax * P.bndry_lyr) / (0.1 * P.bndry_rmax))
+    return torch.where(r > P.r_ns, term, torch.zeros_like(term))
+
+
 def _condition(P, u, lnt):
     """Strength-reduced crossing condition (the reference's cond_mode
     "fast", megakernel.py:433): after the axion-shell renormalization the
-    condition is 0.5 ma^2 (wp2t (1 - kp^2/e2) - 1) / e7^2."""
+    condition is 0.5 ma^2 (wp2t mel - 1) / e7^2, mel = 1 - kp^2/e2 (Melrose)
+    or 1 (isotropic); the boundary layer adds bt to sqrt(wp2t)."""
     x1, x2, x3, w1, w2, w3, e7 = u
     t = torch.exp(lnt)
     r = x1
@@ -217,8 +248,12 @@ def _condition(P, u, lnt):
     br, bth, bph = _dipole_unit(P, r, c_th, s_th, c_ph, s_ph, t)
     bz = br * c_th - bth * s_th
     wp2t = torch.where(r <= P.r_ns, torch.zeros_like(bz), P.wp2_scale * torch.abs(bz))
+    if P.bndry_lyr > 0:
+        wp2t = (torch.sqrt(wp2t) + _bndry_t(P, r)) ** 2
     e72 = e7 * e7
     inv_e72 = 1.0 / e72
+    if P.isotropic:
+        return (0.5 * P.mass_a**2) * (wp2t - 1.0) * inv_e72
     wsq = g_rr * w1**2 + g_thth * w2**2 + g_pp * w3**2
     nrm2 = (-e72 * g_tt - P.mass_a**2) / wsq
     inv_r = 1.0 / r
@@ -231,8 +266,10 @@ def _condition(P, u, lnt):
 
 def _grad_h_hand(P, x1, x2, x3, kt1, kt2, kt3, time, ergt_ph, ergt_ax, photon):
     """Hand adjoint of the nondimensionalized Hamiltonians (megakernel.py:602
-    of the reference): (dH~/dx (3), dH~/dk~ (3), dH~/dt), Melrose photon
-    branch (exterior metric) and axion branch (metric only)."""
+    of the reference): (dH~/dx (3), dH~/dk~ (3), dH~/dt), Melrose or
+    isotropic photon branch (exterior metric) and axion branch (metric only).
+    The boundary layer enters the photon's time derivative only, not its
+    spatial gradients (RayTracer.jl:84-88)."""
     z = torch.zeros_like(x1)
     s_th, c_th = torch.sin(x2), torch.cos(x2)
     if P.species != SPECIES["photon"]:
@@ -241,8 +278,11 @@ def _grad_h_hand(P, x1, x2, x3, kt1, kt2, kt3, time, ergt_ph, ergt_ax, photon):
         ax_k = (grr_a * kt1, gthth_a * kt2, gpp_a * kt3)
         ax_r = 0.5 * (dgtt * ergt_ax**2 + dgrr * kt1**2 + dgthth * kt2**2 + dgpp * kt3**2)
         ax_th = -gpp_a * (c_th / s_th) * kt3**2
+        ax = (ax_r, ax_th, z), ax_k, z
         if P.species == SPECIES["axion"]:
-            return (ax_r, ax_th, z), ax_k, z
+            return ax
+    else:
+        ax = None
 
     s_ph, c_ph = torch.sin(x3), torch.cos(x3)
     r = torch.clamp(x1, min=P.r_ns)
@@ -272,6 +312,22 @@ def _grad_h_hand(P, x1, x2, x3, kt1, kt2, kt3, time, ergt_ph, ergt_ax, photon):
         - 2.0 * inv_r2 * inv_r * (kt2**2 + inv_s * inv_s * kt3**2)
     dinv_s = -inv_s * inv_s * c_th
     dksqr_th = 2.0 * inv_r2 * inv_s * dinv_s * kt3**2
+    bndry = P.bndry_lyr > 0
+
+    if P.isotropic:   # H = 0.5 (ksqr + wp2): no anisotropy chain
+        dbz_r = -3.0 * bz * inv_r
+        dbz_th = -3.0 * bth * c_th - 1.5 * br * s_th
+        dbz_ph = -3.0 * s_th * c_th * bph
+        dbz_t = 3.0 * bnorm * P.sm * s_th * c_th * P.omega * sp
+        ph_r = 0.5 * (dksqr_r + w_fac * dbz_r)
+        ph_th = 0.5 * (dksqr_th + w_fac * dbz_th)
+        ph_ph = 0.5 * w_fac * dbz_ph
+        ph_k = (A * kt1, inv_r2 * kt2, g_pp * kt3)
+        ph_t = 0.5 * w_fac * dbz_t
+        if bndry:
+            wpt = torch.sqrt(torch.clamp(wp2, min=1e-30))
+            ph_t = ph_t + 0.5 * (_bndry_t(P, r) / wpt) * w_fac * dbz_t
+        return _photon_or_axion(P, x1, photon, (ph_r, ph_th, ph_ph), ph_k, ph_t, ax)
 
     sqA = torch.sqrt(A)
     q1 = sqA * kt1
@@ -321,10 +377,25 @@ def _grad_h_hand(P, x1, x2, x3, kt1, kt2, kt3, time, ergt_ph, ergt_ax, photon):
     dbm2_t = 2.0 * (br * dbr_t + bth * dbth_t + bph * dbph_t)
     dkp2_t = inv_bm2 * (2.0 * n * dn_t - kp2 * dbm2_t)
     ph_t = 0.5 * (w_fac * dbz_t * F - wp2 * aE * dkp2_t)
+    if bndry:
+        # the excess 0.5 (2 wpt bt + bt^2) F; bt does not depend on time
+        wpt = torch.sqrt(torch.clamp(wp2, min=1e-30))
+        bt = _bndry_t(P, r)
+        dwp2_t = w_fac * dbz_t
+        ph_t = ph_t + 0.5 * ((bt / wpt) * dwp2_t * F + (2.0 * wpt * bt + bt * bt)
+                             * (-aE * dkp2_t))
+    return _photon_or_axion(P, x1, photon, (ph_r, ph_th, ph_ph), ph_k, ph_t, ax)
 
+
+def _photon_or_axion(P, x1, photon, ph_x, ph_k, ph_t, ax):
+    """_grad_h_hand's output: the photon branch, its r-gradient zeroed at the
+    r-clamp, selected per ray against the axion branch `ax`."""
+    ph_r, ph_th, ph_ph = ph_x
+    z = torch.zeros_like(x1)
     ph_r = torch.where(x1 > P.r_ns, ph_r, z)
     if P.species == SPECIES["photon"]:
         return (ph_r, ph_th, ph_ph), ph_k, ph_t
+    (ax_r, ax_th, _), ax_k, _ = ax
     w = torch.where
     return ((w(photon, ph_r, ax_r), w(photon, ph_th, ax_th), w(photon, ph_ph, z)),
             tuple(w(photon, p, a) for p, a in zip(ph_k, ax_k)), w(photon, ph_t, z))
@@ -504,27 +575,21 @@ def bind(lib):
                               ctypes.c_double, MegaParams, p]
     lib.art_probe.restype = ctypes.c_int
     lib.art_megakernel.argtypes = [p, p, ctypes.c_int, MegaParams,
-                                   p, p, p, p, p, p, p, p, ctypes.c_int, p]
+                                   p, p, p, p, p, p, p, p, p]
     lib.art_megakernel.restype = ctypes.c_int
-    lib.art_megakernel_resident_warps.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.art_megakernel_resident_warps.argtypes = [MegaParams, ctypes.POINTER(ctypes.c_int)]
     lib.art_megakernel_resident_warps.restype = ctypes.c_int
 
 
-@functools.lru_cache(maxsize=None)
-def resident_warps(device_index: int) -> int:
-    """The warps K2 keeps resident at once on a card: blocks per SM at its
-    registers (CUDA occupancy) x SMs x 4."""
+def resident_warps(P: MegaParams, device: torch.device) -> int:
+    """The warps K2's instantiation for P's scene keeps resident at once on
+    the card: blocks per SM at its registers (CUDA occupancy) x SMs x 4.  A
+    launch of B rays runs min(B, this) warps."""
     out = ctypes.c_int(0)
-    with torch.cuda.device(device_index):
-        cuda_lib.check(cuda_lib.lib().art_megakernel_resident_warps(ctypes.byref(out)),
+    with torch.cuda.device(device):
+        cuda_lib.check(cuda_lib.lib().art_megakernel_resident_warps(P, ctypes.byref(out)),
                        "megakernel occupancy")
     return out.value
-
-
-def launch_warps(B: int, device: torch.device) -> int:
-    """The warps K2 launches for B rays: min(B, resident warps)."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    return max(1, min(B, resident_warps(index)))
 
 
 # ---------------------------------------------------------------------------
@@ -633,7 +698,7 @@ def integrate_mega(u0, lnt0, lnt1, erg, x0_cart, sc: Scene, cfg: NumericsConfig,
     code = lib.art_megakernel(
         u_in.data_ptr(), aux.data_ptr(), B, P, uf.data_ptr(), lntf.data_ptr(),
         diag.data_ptr(), cru.data_ptr(), crlnt.data_ptr(), save_mid.data_ptr(),
-        pcx.data_ptr(), head.data_ptr(), launch_warps(B, dev), cuda_lib.stream_ptr(u_in))
+        pcx.data_ptr(), head.data_ptr(), cuda_lib.stream_ptr(u_in))
     cuda_lib.check(code, "megakernel launch")
     cuda_lib.LAUNCHES["megakernel"] += 1
     return (uf, lntf, diag[:, 0], diag[:, 1], diag[:, 2], cru, crlnt, save_mid, pcx,

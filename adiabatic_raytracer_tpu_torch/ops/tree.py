@@ -232,9 +232,9 @@ def check_tree_engine(sc: Scene, cfg: NumericsConfig):
         raise NotImplementedError(
             "tree_engine='kernel' covers engine='mega' with in_kernel_prob on an "
             "anisotropic Melrose, curved-space scene without boundary layer; other "
-            "configurations run --tree_engine queue (ROADMAP Queue 2a: \"K2's "
-            "boundary-layer term\", \"K2 at r_NS < 10 km\", \"K2's isotropic-dispersion "
-            "branch\")")
+            "configurations run --tree_engine queue, where K2 runs each tree iteration "
+            "(ROADMAP Queue 1, \"Left unported on purpose\": K3/K4 at scenes without "
+            "the in-kernel probability)")
 
 
 def forward_tree(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,

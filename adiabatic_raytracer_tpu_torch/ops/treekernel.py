@@ -59,6 +59,7 @@ from adiabatic_raytracer_tpu_torch.ops.megakernel import (
     _metric,
     _prob_nd,
     _rhs,
+    can_prob,
     check_supported,
     mega_params,
 )
@@ -105,6 +106,19 @@ def kernel_params(sc: Scene, cfg: NumericsConfig) -> MegaParams:
     """K2's scene/numerics struct for a tree segment: species mixed, one
     crossing slot, in-kernel probability."""
     return mega_params(sc, cfg, max_crossings=1, species="mixed", with_prob=True)
+
+
+def check_tree_scene(sc: Scene, cfg: NumericsConfig):
+    """Raise on a scene K3 and K4 do not run: they need the in-kernel
+    probability, and are built for the anisotropic Melrose dispersion
+    without a boundary layer only."""
+    check_supported(sc, cfg, 1)
+    if not can_prob(sc):
+        raise NotImplementedError(
+            "K3/K4 need the in-kernel probability, which covers the anisotropic Melrose, "
+            "curved-space scene without boundary layer; elsewhere the tree runs the host "
+            "queue (ROADMAP Queue 1, \"Left unported on purpose\": K3/K4 at scenes "
+            "without the in-kernel probability)")
 
 
 def bind(lib):
@@ -698,7 +712,7 @@ def tree_kernel_launch(uin, aux, uni, qin, sc: Scene, cfg: NumericsConfig, tcfg:
     if uin.device.type == "cpu":
         return tree_kernel_launch_plain(uin, aux, uni, qin, sc, cfg, tcfg, nf=nf, qd=qd,
                                         it_cap=it_cap)
-    check_supported(sc, cfg, 1)
+    check_tree_scene(sc, cfg)
     lib = cuda_lib.lib()
     B = uin.shape[0]
     uu = uni.shape[1]
@@ -834,7 +848,7 @@ def tree_refill_launch(uin, aux, uni, qin, sc: Scene, cfg: NumericsConfig, tcfg:
     _check_refill(epart, refill_k, it_cap, 1 if warps is None else warps)
     E = uin.shape[0]
     warps = refill_warps(E, epart, uin.device) if warps is None else warps
-    check_supported(sc, cfg, 1)
+    check_tree_scene(sc, cfg)
     lib = cuda_lib.lib()
     _require_blocks(uin, aux, uni, qin, qd)
     uout, auxout, qout = uin.clone(), aux.clone(), qin.clone()

@@ -3,7 +3,8 @@
 Builds the hand-written kernels (adiabatic_raytracer_tpu_torch/csrc/) from
 this checkout, checks each against its plain PyTorch version on the card at
 the shapes the main path gives it, then drives the port's main path through
-its CLI entry point at the production default scene and checks the output.
+its CLI entry point at the production default scene, and at a boundary-layer
+and an isotropic scene, and checks the output.
 
     python3 chip_smoke.py            # needs one CUDA device
 
@@ -15,7 +16,9 @@ non-zero):
      figures must equal K2_PTXAS, K3's and K4's are printed beside theirs
      before K2 shared their warp step
   3. K1 line scan vs its plain version on a sampler chunk (16384 lines x the
-     production grid): g to f32 rounding, sampled roots within 2e-3 km
+     production grid): g to f32 rounding; sampling the same key: lines whose
+     success or crossing count differs (f32 near-tangent root pairs) at most
+     1 in 1000, sampled roots within 2e-3 km on the others
   4. device functions of K2/K3 (probe) vs their torch twins, f64, rtol 1e-12
   5. K2 vs integrate_mega_plain on a 2048-event production backtrace; the
      slowest ray's steps, dense passes, bisected roots (plain version) and
@@ -46,8 +49,8 @@ non-zero):
      ids and steps identical, the probe's own checks, every event written
      once and flushed at a refill boundary or the loop's end, and its entry
      point (refill_probe.main) with the counters reset just before it
- 10. K4 vs tree_refill_launch_plain at the refill path's partitions: 512
-     production events in two partitions of 256, each served by 32 warps
+ 10. K4 vs tree_refill_launch_plain at the refill path's partitions: 256
+     production events in two partitions of 128, each served by 16 warps
      (eight events a warp; the plain version: 128 lockstep lanes): phase
      6's bars, and some events must start after another ended
  11. K4 against K3 (one launch) on 2048 events at tree_refill 128 and 1,
@@ -59,7 +62,20 @@ non-zero):
  12. the refill path: driver.run with engine mega, tree_engine kernel,
      tree_refill 1, 2 x 2048 events, saveMode 1, warm under torch.profiler,
      counters reset just before it; K1, K2 and K4 must have launched, K3 not
- 13. the kernels' JSON line: each kernel's launches on its path, and its
+ 13. the boundary-layer and isotropic path (K2's other dispersion variants,
+     the boundary layer in K1): (a) phase 3 at bndry_lyr 0.5; (b) phase 4's
+     condition and RHS, photon, axion and mixed, at bndry_lyr 0.5 and at an
+     isotropic scene; (c) K2 vs integrate_mega_plain at bndry_lyr 0.5 on a
+     backtrace (axion, B flipped, 16 slots) and on a queue-path tree
+     iteration (photon and axion mixed, one slot), 512 rays each (the plain
+     version is slow), dense and gated, at phase 5's bars, with the slowest
+     ray's steps and microseconds per step; (d) the mixed launch at the
+     isotropic scene; (e) the CLI at --bndry_lyr 0.5, 2 x 2048 events
+     (--tree_engine auto -> queue), warm under torch.profiler, counters
+     reset just before it: K1 and K2 must launch, K3 not; events/s, the
+     census verdict, mega_kernel's device time; (f) driver.run at the
+     isotropic scene, one batch of 2048, the same checks
+ 14. the kernels' JSON line: each kernel's launches on its path, and its
      time, plain time, error and bound from its comparison with its plain
      version (phases 3, 5, 6, 9 and 10, each on one input); the nvidia-smi
      line, the result line
@@ -314,7 +330,9 @@ def phase_build():
                f"; before K2 shared the warp step {before}")
     k2 = ptxas_figures(summary.get("mega_kernel", ""))
     log(2, f"mega_kernel registers, stack, spill stores/loads {k2}; expected {K2_PTXAS}; "
-           f"same {k2 == K2_PTXAS}")
+           f"same {k2 == K2_PTXAS}; its other dispersion variants: "
+           + ", ".join(f"<{v}> {ptxas_figures(summary.get(f'mega_kernel<{v}>', ''))}"
+                       for v in (1, 2, 3)))
     if k2 != K2_PTXAS:
         raise AssertionError(f"K2's ptxas figures changed: {k2}, expected {K2_PTXAS}")
 
@@ -350,13 +368,18 @@ def source_names(symbol):
 
 def ptxas_summary(build_log):
     """{kernel: 'stack/spill; registers'} from nvcc -Xptxas -v output; a
-    kernel is matched by its whole name."""
+    kernel is matched by its whole name.  A kernel template's instantiation
+    on an int V other than 0 (K2's dispersion variants, csrc/physics.cuh
+    art::Disp; 0 is the production Melrose one) is keyed 'name<V>'."""
     out, name = {}, None
     for ln in build_log.splitlines():
         if "Function properties for" in ln:
-            names = source_names(ln.split("Function properties for", 1)[1].strip())
-            name = next((k for k in KERNEL_NAMES if k in names), None)
+            symbol = ln.split("Function properties for", 1)[1].strip()
+            name = next((k for k in KERNEL_NAMES if k in source_names(symbol)), None)
             if name:
+                m = re.search(rf"{len(name)}{name}ILi(\d+)E", symbol)
+                if m and m.group(1) != "0":
+                    name = f"{name}<{m.group(1)}>"
                 out[name] = ""
         elif name and ("registers" in ln or "spill" in ln):
             part = ln.split(":", 1)[-1].strip()
@@ -364,24 +387,28 @@ def ptxas_summary(build_log):
     return out
 
 
-def scene_setup(device):
+def scene_setup(device, **scene):
+    """The production default scene (with `scene`'s fields changed), its
+    numerics and tree configs, maxR and the sampler's grid."""
     from adiabatic_raytracer_tpu_torch.config import NumericsConfig, Scene, TreeConfig
     from adiabatic_raytracer_tpu_torch.models.magnetosphere import conversion_surface_radius
     from adiabatic_raytracer_tpu_torch.ops import sampler
 
-    sc = Scene(mass_a=1e-5, theta_m=0.2, b0=1e14)
+    sc = Scene(mass_a=1e-5, theta_m=0.2, b0=1e14, **scene)
     cfg = NumericsConfig(atol=1e-6, rtol=1e-7, compute_dtype="f32", engine="mega")
     maxR = conversion_surface_radius(sc.mass_a, sc.theta_m, sc.omega_pul, sc.b0, sc.r_ns)
     return sc, cfg, TreeConfig(), maxR, sampler.default_n_grid(maxR)
 
 
-def phase_line_scan(device, n_lines):
+def phase_line_scan(device, n_lines, phase=3, **scene):
+    """K1 against its plain version on a sampler chunk of n_lines lines at
+    the production scene (with `scene`'s fields changed)."""
     import torch
 
     from adiabatic_raytracer_tpu_torch.ops import line_scan, sampler
     from adiabatic_raytracer_tpu_torch.utils import rng
 
-    sc, cfg, tcfg, maxR, n_grid = scene_setup(device)
+    sc, cfg, tcfg, maxR, n_grid = scene_setup(device, **scene)
     key = rng.PRNGKey(20261016, device=device)
     geo = sampler._draw(rng.split(key, n_lines), maxR, sc, 220.0, True, torch.float32)
     s_grid = torch.linspace(0.0, 2.2 * maxR, n_grid, dtype=torch.float64,
@@ -421,21 +448,48 @@ def phase_line_scan(device, n_lines):
     rp = sampler.sample_batch(key, n_lines, maxR, sc, sc.mass_ns, line_engine="plain", **kw)
     same = rk.success == rp.success
     both = rk.success & rp.success
-    root_err = torch.abs(rk.xpos - rp.xpos)[both].max().item() if bool(both.any()) else 0.0
     n_diff = int((~same).sum())
-    if n_diff > max(1, n_lines // 1000) or not root_err <= 2e-3:
-        raise AssertionError(f"K1 sampling disagrees: {n_diff} success flips, "
-                             f"root err {root_err:.3g} km")
+    # Phase 3 holds the root bar on every line both scans drew from.  At a
+    # boundary-layer scene (phase 13a) a root pair at the shell can be so
+    # near tangency that f32 rounding decides whether the grid sees it; such
+    # a line's crossing count differs between the two f32 scans and its
+    # drawn root may be another one.  There a line whose counts differ
+    # leaves the root bar only with a witness, and fails the phase without
+    # one: the condition in f64 along it has as many grid sign changes as
+    # exactly one of the two f32 scans.
+    changes = lambda g: int((torch.sign(g[1:]) * torch.sign(g[:-1]) < 0).sum())
+    excused = torch.zeros_like(both)
+    for i in (both & (rk.weight != rp.weight)).nonzero().squeeze(1).tolist():
+        pp = par[i].double()
+        g64 = sampler._line_condition(pp[None, 0:3] + s_grid.double()[:, None] * pp[None, 3:6],
+                                      pp[None, 6:9], pp[9], sc, sc.mass_ns)
+        c_k, c_p, c64 = changes(g_k[i]), changes(g_p[i]), changes(g64)
+        witness = (c64 == c_k) != (c64 == c_p)
+        log(phase, f"  crossing counts differ on line {i}: kernel {int(rk.weight[i])} plain "
+                   f"{int(rp.weight[i])}; grid sign changes kernel {c_k} plain {c_p} f64 "
+                   f"{c64}; drawn root r {rk.xpos[i].norm().item():.6g} vs "
+                   f"{rp.xpos[i].norm().item():.6g} km; f64 witness {witness}")
+        if scene and not witness:
+            raise AssertionError(f"K1 sampling disagrees: line {i}'s crossing counts differ "
+                                 f"without an f64 witness")
+        excused[i] = bool(scene)
+    held = both & ~excused
+    n_exc = int(excused.sum())   # counted against the flip allowance too
+    root_err = torch.abs(rk.xpos - rp.xpos)[held].max().item() if bool(held.any()) else 0.0
+    if n_diff + n_exc > max(1, n_lines // 1000) or not root_err <= 2e-3:
+        raise AssertionError(f"K1 sampling disagrees: {n_diff} success flips, {n_exc} "
+                             f"near-tangent lines, root err {root_err:.3g} km")
     ms = cuda_ms(lambda: line_scan.line_scan(*args), 20)
     plain_ms = cuda_ms(lambda: line_scan.line_scan_plain(*args), 20)
     b_ms, b_by = bound(4 * (n_lines * 10 + n_grid + n_lines * n_grid),
                        FLOP_LINE_POINT * n_lines * n_grid, F32_PER_S)
-    log(3, f"K1 [{n_lines} x {n_grid}] rel err vs f64: max {rel:.3g} (plain f32 "
+    log(phase, f"K1 [{n_lines} x {n_grid}]{scene or ''} rel err vs f64: max {rel:.3g} (plain f32 "
            f"{rel_plain:.3g}), p99.9 {k999:.3g} (plain {p999:.3g}); kernel-plain max "
            f"abs {max_abs:.3g}, sign flips away from roots 0; sampling: "
-           f"{int(rk.success.sum())} successes, {n_diff} flips, root err "
-           f"{root_err:.3g} km (bar 2e-3); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-           f"bound {b_ms:.4f} ms ({b_by})")
+           f"{int(rk.success.sum())} successes, {n_diff} flips and {n_exc} near-tangent "
+           f"lines with an f64 witness (bar {max(1, n_lines // 1000)} together), root err "
+           f"{root_err:.3g} km (bar 2e-3) on the other lines both drew from; kernel "
+           f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None}
 
@@ -469,13 +523,16 @@ def sample_events(n, device, sc, cfg, maxR, n_grid, seed):
     return x, k, e
 
 
-def phase_probe(device):
+def phase_probe(device, phase=4, **scene):
+    """The device functions against their torch twins on conversion-surface
+    states of the production scene; with `scene`'s fields changed (K2's
+    other dispersion variants), the condition and the RHS of each species."""
     import torch
 
     from adiabatic_raytracer_tpu_torch.ops import megakernel as mk
     from adiabatic_raytracer_tpu_torch.ops.propagate import launch_state
 
-    sc, cfg, tcfg, maxR, n_grid = scene_setup(device)
+    sc, cfg, tcfg, maxR, n_grid = scene_setup(device, **scene)
     x, k, e = sample_events(512, device, sc, cfg, maxR, n_grid, seed=7)
     B = x.shape[0]
     u = launch_state(x, k, sc, e, -torch.ones_like(e)).contiguous()
@@ -485,6 +542,8 @@ def phase_probe(device):
     worst = 0.0
     parts = []
     cases = [("photon", w) for w in mk.PROBE_FUNCS] + [("axion", "rhs"), ("mixed", "rhs")]
+    if scene:
+        cases = [(sp, w) for sp in ("photon", "axion", "mixed") for w in ("condition", "rhs")]
     for species, which in cases:
         P = mk.mega_params(sc, cfg, species=species, with_prob=True)
         uu = u
@@ -503,21 +562,22 @@ def phase_probe(device):
                                  f"finite {ok_n}")
         worst = max(worst, err)
         parts.append(f"{which}/{species[0]} {err:.1e}")
-    log(4, f"probe vs torch twins on {B} states, f64: worst {worst:.2e} (bar 1e-12 of "
-           f"|value| + column scale); " + ", ".join(parts))
+    log(phase, f"probe{scene or ''} vs torch twins on {B} states, f64: worst {worst:.2e} (bar "
+               f"1e-12 of |value| + column scale); " + ", ".join(parts))
     return worst
 
 
-def k2_backtrace_inputs(device, n, seed):
-    """K2's inputs on the main path's backtrace of n production events:
-    (u0, lnt0, lnt1, erg, x0, flipped scene, cfg, keywords): species axion,
-    16 crossing slots, in-kernel probability."""
+def k2_backtrace_inputs(device, n, seed, **scene):
+    """K2's inputs on the main path's backtrace of n production events (of
+    the production scene with `scene`'s fields changed): (u0, lnt0, lnt1,
+    erg, x0, flipped scene, cfg, keywords): species axion, 16 crossing
+    slots, in-kernel probability."""
     import torch
 
     from adiabatic_raytracer_tpu_torch.ops.propagate import launch_state
     from adiabatic_raytracer_tpu_torch.ops.tree import _negate_b
 
-    sc, cfg, tcfg, maxR, n_grid = scene_setup(device)
+    sc, cfg, tcfg, maxR, n_grid = scene_setup(device, **scene)
     x, k, e = sample_events(n, device, sc, cfg, maxR, n_grid, seed=seed)
     B = x.shape[0]
     sc_b = _negate_b(sc)
@@ -529,6 +589,29 @@ def k2_backtrace_inputs(device, n, seed):
                                                                      device=device),
               species="axion", with_prob=True)
     return u0, lnt0, lnt1, e, x, sc_b, cfg, kw
+
+
+def k2_queue_inputs(device, n, seed, **scene):
+    """K2's inputs as the queue path's tree iterations give them: n
+    production events (of the production scene with `scene`'s fields
+    changed), photon and axion nodes mixed (each species with probability
+    1/2, numpy seed), forward from the conversion point to the end, one
+    crossing slot, in-kernel probability; the tuple of k2_backtrace_inputs."""
+    import numpy as np
+    import torch
+
+    from adiabatic_raytracer_tpu_torch.ops.propagate import launch_state
+
+    sc, cfg, tcfg, maxR, n_grid = scene_setup(device, **scene)
+    x, k, e = sample_events(n, device, sc, cfg, maxR, n_grid, seed=seed)
+    B = x.shape[0]
+    f64 = torch.float64
+    is_ph = torch.as_tensor(np.random.default_rng(seed).random(B) < 0.5, device=device)
+    u0 = launch_state(x, k, sc, e, -torch.ones_like(e))
+    lnt0 = torch.full((B,), float(cfg.ln_t_start), dtype=f64, device=device)
+    lnt1 = torch.zeros(B, dtype=f64, device=device)
+    kw = dict(max_crossings=1, is_photon=is_ph, species="mixed", with_prob=True)
+    return u0, lnt0, lnt1, e, x, sc, cfg, kw
 
 
 def phase_megakernel(device, n_events):
@@ -615,18 +698,88 @@ def phase_megakernel(device, n_events):
     pool = mk.pool_run(u0[sl], lnt0[sl], lnt1[sl], e[sl], x[sl], sc_b, cfg,
                        max_crossings=S, is_photon=kw["is_photon"][sl], species="axion")
     steps_slow, steps_slow_d = out_g[2][slow].item(), out_k[2].max().item()
-    index = device.index if device.index is not None else torch.cuda.current_device()
+    resident = mk.resident_warps(P, device)
     log(5, f"K2 slowest ray {slow}: {int(steps_slow)} steps, {int(out_g[11][slow].item())} dense "
            f"passes, {int(pool.n_bisect[0].item())} bisected roots (plain version, dense scan), "
            f"{int(out_g[4][slow].item())} crossings; {ms * 1e3 / steps_slow:.2f} us per step of "
            f"it gated, {ms_dense * 1e3 / steps_slow_d:.2f} dense ({int(steps_slow_d)} steps); "
-           f"warps launched {mk.launch_warps(B, device)}, resident warps "
-           f"{mk.resident_warps(index)}; steps per ray mean {out_g[2].mean().item():.1f}")
+           f"warps launched {min(B, resident)}, resident warps {resident}; steps per ray "
+           f"mean {out_g[2].mean().item():.1f}")
     if not (frac >= 0.99 and med < 1e-8 and pcx_bad <= 0.01 * int(used.sum())
             and own_rel < 1e-10 and gate_same >= 0.99):
         raise AssertionError("K2 disagrees with its plain version")
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None}
+
+
+def census_cfg(device, **scene):
+    """The gate configuration the main path runs at the production scene with
+    `scene`'s fields changed: driver._apply_scan_gate_guard's choice
+    (default gate, widened, or the dense scan) and its verdict."""
+    from adiabatic_raytracer_tpu_torch import driver
+
+    sc, cfg, _, maxR, _ = scene_setup(device, **scene)
+    stats = driver.RunStats()
+    out = driver._apply_scan_gate_guard(sc, cfg, maxR, 0.0, stats, device)
+    return out, stats.scan_gate
+
+
+def phase_k2_variant(device, n, launch, phase, **scene):
+    """K2's instantiation for a scene with `scene`'s fields changed (the
+    boundary-layer or isotropic dispersion variant) against
+    integrate_mega_plain at phase 5's bars, with the dense scan and with the
+    gate the main path runs there (the scan-gate census's choice, whose
+    verdict is printed; the production default gate's agreement is printed
+    beside it): `launch` "backtrace" (axion, B flipped, 16 slots) or "mixed"
+    (one queue-path tree iteration: photon and axion, one slot).  n is kept
+    small (512) because the plain version takes ~34 s at 2048 rays (phase
+    5)."""
+    import dataclasses
+
+    import torch
+
+    from adiabatic_raytracer_tpu_torch.ops import megakernel as mk
+
+    make = k2_backtrace_inputs if launch == "backtrace" else k2_queue_inputs
+    u0, lnt0, lnt1, e, x, sc, cfg, kw = make(device, n, seed=43, **scene)
+    B = x.shape[0]
+    dense = dataclasses.replace(cfg, interp_coarse=0)
+    gate, verdict = census_cfg(device, **scene)
+    run = lambda c: mk.integrate_mega(u0, lnt0, lnt1, e, x, sc, c, **kw)
+    out_d, out_g, out_0 = run(dense), run(gate), run(cfg)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out_p = mk.integrate_mega_plain(u0, lnt0, lnt1, e, x, sc, cfg, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    ms, ms_dense = cuda_ms(lambda: run(gate), 3), cuda_ms(lambda: run(dense), 3)
+    nc_p = out_p[4]
+    same = lambda out: (out[4] == nc_p).double().mean().item()
+    same_d, same_g, same_0 = same(out_d), same(out_g), same(out_0)
+    end = (out_d[3] == 1) & (out_p[3] == 1)
+    rel = (torch.abs(out_d[0] - out_p[0]) / (torch.abs(out_p[0]) + 1e-30)).amax(dim=1)
+    med = rel[end].median().item() if bool(end.any()) else float("nan")
+    finite = bool(torch.isfinite(out_g[0]).all() and torch.isfinite(out_d[0]).all())
+    for i in (out_0[4] != nc_p).nonzero().squeeze(1).tolist()[:5]:
+        log(phase, f"  default gate vs plain, ray {i}: {int(out_0[4][i])} vs {int(nc_p[i])} "
+                   f"crossings at lnt {out_p[6][i, :int(nc_p[i])].tolist()}")
+    slow = int(torch.argmax(out_g[2]).item())
+    steps_slow = out_g[2][slow].item()
+    species = {"backtrace": "axion, B flipped, 16 slots", "mixed": "photon and axion, 1 slot"}
+    log(phase, f"K2 {launch} {B} rays {scene} ({species[launch]}): dense kernel vs plain "
+               f"identical "
+               f"crossing counts {same_d:.4f} (bar 0.99), endpoint median rel err {med:.3g} "
+               f"(bar 1e-8) on {int(end.sum())} end-reached rays; census {verdict} (coarse "
+               f"{gate.interp_coarse}, theta {gate.scan_gate_theta}): gated vs plain identical "
+               f"counts {same_g:.4f} (bar 0.99); the production default gate (coarse "
+               f"{cfg.interp_coarse}, theta {cfg.scan_gate_theta}) {same_0:.4f}; crossings "
+               f"{int(nc_p.sum().item())}; kernel {ms:.3f} ms gated / {ms_dense:.3f} ms dense, "
+               f"plain {plain_ms:.1f} ms; slowest ray {slow}: {int(steps_slow)} steps, "
+               f"{int(out_g[11][slow].item())} dense passes, {ms * 1e3 / steps_slow:.2f} us per "
+               f"step of it gated; steps per ray mean {out_g[2].mean().item():.1f}")
+    if not (same_d >= 0.99 and same_g >= 0.99 and med < 1e-8 and finite
+            and int(end.sum()) > 0 and verdict != "off"):
+        raise AssertionError(f"K2 {launch} at {scene} disagrees with its plain version")
 
 
 def phase_treekernel(device, n_plain, n_tree):
@@ -962,55 +1115,98 @@ def phase_refill_vs_tree(device, n_tree):
                 f"K4 bound {b_ms:.4f} ms ({b_by}); K4 vs K3 bitwise {r['bitwise']}")
 
 
-def phase_refill_path(device, n_events, batch):
-    """The refill path through driver.run: engine mega, tree_engine kernel,
-    tree_refill 1, saveMode 1, warm under torch.profiler, with the launch
-    counters reset just before it and read just after."""
+def profiled_driver_run(device, sc, cfg, tcfg, n_events, batch, phase, tag, what,
+                        must_launch, must_not_launch):
+    """driver.run on the card, warm under torch.profiler, with the launch
+    counters reset just before it and read just after: the rows must be
+    finite with positive weights, every kernel of must_launch must have
+    launched and none of must_not_launch, and the scan-gate census must have
+    run.  Logs events/s, the stage times and the launches; returns (launches,
+    rows, stats)."""
     import numpy as np
     import torch
 
-    from adiabatic_raytracer_tpu_torch.config import NumericsConfig, Scene, TreeConfig
     from adiabatic_raytracer_tpu_torch.driver import run
     from adiabatic_raytracer_tpu_torch.ops import cuda_lib
 
-    sc = Scene(mass_a=1e-5, theta_m=0.2, b0=1e14)
-    cfg = NumericsConfig(atol=1e-6, rtol=1e-7, compute_dtype="f32", engine="mega",
-                         tree_engine="kernel", tree_kernel_chunk=64, tree_refill=1)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         cuda_lib.reset_launch_counts()
         t0 = time.time()
-        _, path, stats = run(sc, cfg, TreeConfig(), n_events + 1, seed=1769, save_mode=1,
-                             file_tag="smoke_refill", dir_tag=os.path.join(OUT, "slice"),
+        _, path, stats = run(sc, cfg, tcfg, n_events + 1, seed=1769, save_mode=1,
+                             file_tag=f"smoke_{tag}", dir_tag=os.path.join(OUT, "slice"),
                              event_batch=batch, verbose=False, device=device)
         wall = time.time() - t0
         launches = dict(cuda_lib.LAUNCHES)
-    write_profile(prof, wall, 12, "refill")
+    write_profile(prof, wall, phase, tag)
     rows = np.load(path)
     if not (rows.ndim == 2 and rows.shape[1] == 29 and rows.shape[0] > 0):
-        raise AssertionError(f"refill path output has shape {rows.shape}")
+        raise AssertionError(f"{what} output has shape {rows.shape}")
     if not np.all(np.isfinite(rows)) or not np.all(rows[:, 8] > 0):
-        raise AssertionError("refill path rows not finite or weights not positive")
-    if not all(launches[n] > 0 for n in ("line_scan", "megakernel", "treerefill")):
-        raise AssertionError(f"the refill path did not launch K1, K2 and K4: {launches}")
-    if launches["treekernel"]:
-        raise AssertionError(f"the refill path launched K3: {launches}")
+        raise AssertionError(f"{what} rows not finite or weights not positive")
+    if not all(launches[n] > 0 for n in must_launch):
+        raise AssertionError(f"{what} did not launch {must_launch}: {launches}")
+    if any(launches[n] for n in must_not_launch):
+        raise AssertionError(f"{what} launched one of {must_not_launch}: {launches}")
     if stats.scan_gate == "off":
         raise AssertionError("scan-gate census check did not run")
-    log(12, f"refill path (driver.run, tree_refill 1): {stats.events} events, {rows.shape[0]} "
-            f"rows; warm run {wall:.2f} s = {stats.events / wall:.1f} events/s (gate check "
-            f"{stats.t_gate:.2f} s, sample {stats.t_sample:.2f} s, pipeline "
-            f"{stats.t_pipeline:.2f} s, rows {stats.t_rows:.2f} s, K4 warp iterations max "
-            f"per batch summed {stats.tree_iters}); scan_gate={stats.scan_gate}; info "
-            f"{stats.info_hist}; launches {launches}")
+    log(phase, f"{what}: {stats.events} events, {rows.shape[0]} rows; warm run {wall:.2f} s = "
+               f"{stats.events / wall:.1f} events/s (gate check {stats.t_gate:.2f} s, sample "
+               f"{stats.t_sample:.2f} s, pipeline {stats.t_pipeline:.2f} s, rows "
+               f"{stats.t_rows:.2f} s, tree iterations or K4 warp iterations max per batch "
+               f"summed {stats.tree_iters}); scan_gate={stats.scan_gate}; info "
+               f"{stats.info_hist}; launches {launches}")
+    return launches, rows, stats
+
+
+def phase_refill_path(device, n_events, batch):
+    """The refill path through driver.run: engine mega, tree_engine kernel,
+    tree_refill 1, saveMode 1; K1, K2 and K4 must launch, K3 not."""
+    from adiabatic_raytracer_tpu_torch.config import NumericsConfig, Scene, TreeConfig
+
+    sc = Scene(mass_a=1e-5, theta_m=0.2, b0=1e14)
+    cfg = NumericsConfig(atol=1e-6, rtol=1e-7, compute_dtype="f32", engine="mega",
+                         tree_engine="kernel", tree_kernel_chunk=64, tree_refill=1)
+    launches, rows, _ = profiled_driver_run(
+        device, sc, cfg, TreeConfig(), n_events, batch, 12, "refill",
+        "refill path (driver.run, tree_refill 1)", ("line_scan", "megakernel", "treerefill"),
+        ("treekernel",))
     return launches, rows
 
 
-def phase_slice(device, n_events, batch, tree_engine, phase, cold_run=True):
+def phase_driver_iso(device, n_events, batch, phase):
+    """driver.run at the production scene made isotropic (K2's isotropic
+    variant; the forward tree on the host queue, as --tree_engine auto
+    picks there): K1 and K2 must launch, K3 and K4 not."""
+    sc, cfg, tcfg, _, _ = scene_setup(device, isotropic=True)
+    profiled_driver_run(device, sc, cfg, tcfg, n_events, batch, phase, "iso",
+                        "driver.run isotropic", ("line_scan", "megakernel"),
+                        ("treekernel", "treerefill"))
+
+
+def phase_variants(device):
+    """Phase 13: the boundary-layer and isotropic path (K1 with the boundary
+    layer, K2's boundary-layer and isotropic instantiations)."""
+    bndry, iso = dict(bndry_lyr=0.5), dict(isotropic=True)
+    phase_line_scan(device, 16384, phase="13a", **bndry)
+    phase_probe(device, phase="13b", **bndry)
+    phase_probe(device, phase="13b", **iso)
+    phase_k2_variant(device, 512, "backtrace", "13c", **bndry)
+    phase_k2_variant(device, 512, "mixed", "13c", **bndry)
+    phase_k2_variant(device, 512, "mixed", "13d", **iso)
+    phase_slice(device, 4096, 2048, "auto", "13e", cold_run=False,
+                extra=["--bndry_lyr", "0.5"], uses_tree_kernel=False)
+    phase_driver_iso(device, 2048, 2048, "13f")
+
+
+def phase_slice(device, n_events, batch, tree_engine, phase, cold_run=True, extra=(),
+                uses_tree_kernel=None):
     """The main path through the CLI: a cold run when asked (one CLI
     invocation in a fresh process, what a user's call costs), then a warm run
     in this process under torch.profiler, with the launch counters reset just
-    before it and read just after."""
+    before it and read just after.  `extra`: more CLI flags; K3 must launch
+    when uses_tree_kernel is true (default: tree_engine "auto"), and must
+    not when it is false."""
     import numpy as np
     import torch
 
@@ -1021,7 +1217,7 @@ def phase_slice(device, n_events, batch, tree_engine, phase, cold_run=True):
         return (["--device", "cuda", "--event_batch", str(batch), "--Nts",
                  str(n_events + 1), "--saveMode", "1", "--seed", "1769", "--dir_tag",
                  os.path.join(OUT, "slice"), "--ftag", tag, "--tree_engine", tree_engine]
-                + SCENE_ARGS)
+                + SCENE_ARGS + list(extra))
 
     cold_msg = ""
     if cold_run:   # one CLI invocation in a fresh process: imports and warm-up included
@@ -1036,26 +1232,30 @@ def phase_slice(device, n_events, batch, tree_engine, phase, cold_run=True):
         cold_msg = (f"cold run (a fresh process) {cold_wall:.2f} s = "
                     f"{n_events / cold_wall:.1f} events/s ({summary.split(' -> ')[0]}); ")
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    tag = tree_engine + (f"_{phase}" if extra else "")
     with torch.profiler.profile(activities=acts) as prof:
         cuda_lib.reset_launch_counts()
         t0 = time.time()
-        rows, path, stats = cli.run_from_args(argv(f"smoke_{tree_engine}"))
+        rows, path, stats = cli.run_from_args(argv(f"smoke_{tag}"))
         wall = time.time() - t0
         launches = dict(cuda_lib.LAUNCHES)
-    write_profile(prof, wall, phase, tree_engine)
+    write_profile(prof, wall, phase, tag)
     rows = np.load(path)
     if not (rows.ndim == 2 and rows.shape[1] == 29 and rows.shape[0] > 0):
         raise AssertionError(f"slice output has shape {rows.shape}")
     if not np.all(np.isfinite(rows)) or not np.all(rows[:, 8] > 0):
         raise AssertionError("slice rows not finite or weights not positive")
-    need = ("line_scan", "megakernel") + (("treekernel",) if tree_engine == "auto" else ())
+    if uses_tree_kernel is None:
+        uses_tree_kernel = tree_engine == "auto"
+    need = ("line_scan", "megakernel") + (("treekernel",) if uses_tree_kernel else ())
     if not all(launches[n] > 0 for n in need):
         raise AssertionError(f"main path did not launch every kernel: {launches}")
-    if tree_engine == "queue" and launches["treekernel"]:
+    if not uses_tree_kernel and launches["treekernel"]:
         raise AssertionError(f"the queue path launched K3: {launches}")
     if stats.scan_gate == "off":
         raise AssertionError("scan-gate census check did not run")
-    log(phase, f"slice --tree_engine {tree_engine}: {stats.events} events, {rows.shape[0]} rows; "
+    log(phase, f"slice --tree_engine {tree_engine} {' '.join(extra)}: {stats.events} events, "
+               f"{rows.shape[0]} rows; "
                f"{cold_msg}warm run {wall:.2f} s = {stats.events / wall:.1f} events/s (gate "
                f"check {stats.t_gate:.2f} s, sample {stats.t_sample:.2f} s, pipeline "
                f"{stats.t_pipeline:.2f} s, rows {stats.t_rows:.2f} s, tree iterations or "
@@ -1065,22 +1265,33 @@ def phase_slice(device, n_events, batch, tree_engine, phase, cold_run=True):
 
 
 def write_profile(prof, wall, phase, tag):
-    """Device busy share and the top operators of the profiled warm run."""
-    ka = prof.key_averages()
-    rows = sorted(ka, key=lambda e: getattr(e, "self_device_time_total", 0.0), reverse=True)
-    busy_us = sum(getattr(e, "self_device_time_total", 0.0) for e in ka)
+    """Device busy share and the device time and launches of the top kernels
+    and of K2-K4, read from the raw trace (key_averages() takes minutes on a
+    trace of millions of host ops): only events on the card count, an eager
+    op's kernel once, not again under the op that launched it.  The top 40
+    kernels and the top 40 host events by summed duration (a host op's time
+    includes the ops it calls) go to profile_<tag>.txt."""
+    from torch.autograd import DeviceType
+
+    per = {DeviceType.CPU: {}, DeviceType.CUDA: {}}
+    for e in prof.profiler.kineto_results.events():
+        side = per[DeviceType.CPU if e.device_type() == DeviceType.CPU else DeviceType.CUDA]
+        t, n = side.get(e.name(), (0.0, 0))
+        side[e.name()] = (t + e.duration_ns() / 1e3, n + 1)
+    ranked = {k: sorted(v.items(), key=lambda kv: -kv[1][0]) for k, v in per.items()}
+    busy_us = sum(t for t, _ in per[DeviceType.CUDA].values())
     os.makedirs(OUT, exist_ok=True)
     with open(os.path.join(OUT, f"profile_{tag}.txt"), "w") as f:
-        f.write(ka.table(sort_by="self_cuda_time_total", row_limit=40))
-    top = ", ".join(f"{e.key[:40]} {getattr(e, 'self_device_time_total', 0.0) / 1e3:.1f} ms"
-                    f" x{e.count}" for e in rows[:8])
+        for side, title in ((DeviceType.CUDA, "device kernels"), (DeviceType.CPU, "host events")):
+            f.write(f"# {title}: total us, count, name\n")
+            f.writelines(f"{t:14.1f} {n:8d}  {k}\n" for k, (t, n) in ranked[side][:40])
+    top = ", ".join(f"{k[:40]} {t / 1e3:.1f} ms x{n}" for k, (t, n) in ranked[DeviceType.CUDA][:8])
     log(phase, f"profile ({tag}): device busy {busy_us / 1e3:.1f} ms of {wall * 1e3:.1f} ms wall "
-           f"({100 * busy_us / 1e6 / wall:.1f}% busy, summed kernel time); top: {top}")
+           f"({100 * busy_us / 1e6 / wall:.1f}% busy, summed kernel time); top kernels: {top}")
     for name in ("mega_kernel", "tree_kernel", "tree_refill_kernel"):
-        hits = [e for e in ka if re.search(rf"\b{name}\b", e.key)]
-        dev_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in hits) / 1e3
-        log(phase, f"profile ({tag}): {name} device time {dev_ms:.1f} ms over "
-                   f"{sum(e.count for e in hits)} launches")
+        hits = [v for k, v in per[DeviceType.CUDA].items() if re.search(rf"\b{name}\b", k)]
+        log(phase, f"profile ({tag}): {name} device time {sum(t for t, _ in hits) / 1e3:.1f} ms "
+                   f"over {sum(n for _, n in hits)} launches")
 
 
 def main():
@@ -1105,6 +1316,7 @@ def main():
                 f", weight max rel diff "
                 f"{float(abs(rows_refill[:, 8] / rows_kernel[:, 8] - 1).max()):.3g}"
                 if same_shape else ""))
+    phase_variants(device)
     kernels = [
         {"name": "line_scan", "route": "cuda",
          "source": "adiabatic_raytracer_tpu_torch/csrc/line_scan.cu",

@@ -1,9 +1,13 @@
-"""K2, K3 and K4 of two checkouts of the PyTorch + CUDA port on one GPU, in turns.
+"""K1, K2, K3 and K4 of two checkouts of the PyTorch + CUDA port on one GPU, in turns.
 
     python3 scripts/torch_tree_ab.py --parent DIR     # DIR: another checkout
 
 Runs the kernels of the checkout at DIR ("parent") and of this one ("this")
 in separate processes, in the order parent, this, this, parent.
+
+K1 (the sampler's line scan) on chip_smoke.py phase 3's input: 16384
+production lines x the production grid; its [B, N] output is compared
+element by element with the parent's.
 
 K2 (the backtrace and queue-path megakernel) on: chip_smoke.py phase 5's
 2048-ray axion backtrace (16 slots, in-kernel probability), with the gated
@@ -41,6 +45,8 @@ import time
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RAW = os.path.join(HERE, "build", "tree_ab")
 LOGS = os.path.join(HERE, "chiprun_out", "tree_ab")
+K1_LINES = 16384
+K1_INPUT = f"K1 {K1_LINES} production lines"
 K2_INPUTS = ("K2 backtrace 2048 rays, gated", "K2 backtrace 2048 rays, dense",
              "K2 queue-path launch 700 rays, mixed, one slot", "K2 backtrace 1 ray",
              "K2 backtrace 3 x resident warps")
@@ -51,27 +57,21 @@ INPUTS = (("512 events, default cutoffs", 512, 13, 2027, {}),
            dict(num_cutoff=50, mc_nodes=10, max_nodes=100)))
 
 
-def k2_queue_inputs(smoke, device, n, seed):
-    """K2's inputs as the queue path's tree iterations give them: n
-    production events, photon and axion nodes mixed (each species with
-    probability 1/2, numpy seed), forward from the conversion point to the
-    end, one crossing slot, in-kernel probability; the tuple of
-    chip_smoke.k2_backtrace_inputs."""
-    import numpy as np
+def k1_worker(smoke, dev, res):
+    """Time and keep K1 of the imported checkout on phase 3's lines."""
     import torch
 
-    from adiabatic_raytracer_tpu_torch.ops.propagate import launch_state
+    from adiabatic_raytracer_tpu_torch.ops import line_scan, sampler
+    from adiabatic_raytracer_tpu_torch.utils import rng
 
-    sc, cfg, tcfg, maxR, n_grid = smoke.scene_setup(device)
-    x, k, e = smoke.sample_events(n, device, sc, cfg, maxR, n_grid, seed=seed)
-    B = x.shape[0]
-    f64 = torch.float64
-    is_ph = torch.as_tensor(np.random.default_rng(seed).random(B) < 0.5, device=device)
-    u0 = launch_state(x, k, sc, e, -torch.ones_like(e))
-    lnt0 = torch.full((B,), float(cfg.ln_t_start), dtype=f64, device=device)
-    lnt1 = torch.zeros(B, dtype=f64, device=device)
-    kw = dict(max_crossings=1, is_photon=is_ph, species="mixed", with_prob=True)
-    return u0, lnt0, lnt1, e, x, sc, cfg, kw
+    sc, cfg, tcfg, maxR, n_grid = smoke.scene_setup(dev)
+    geo = sampler._draw(rng.split(rng.PRNGKey(20261016, device=dev), K1_LINES), maxR, sc,
+                        220.0, True, torch.float32)
+    s_grid = torch.linspace(0.0, 2.2 * maxR, n_grid, dtype=torch.float64,
+                            device=dev).to(torch.float32)
+    fn = lambda: line_scan.line_scan(geo.x0, geo.vvec, geo.vvec_loc, geo.erg_inf, s_grid, sc,
+                                     sc.mass_ns)
+    res[K1_INPUT] = {"x": geo.x0.cpu(), "K1": fn().cpu(), "ms": smoke.cuda_ms(fn, 20)}
 
 
 def k2_worker(smoke, dev, n3, res):
@@ -85,14 +85,17 @@ def k2_worker(smoke, dev, n3, res):
     back = smoke.k2_backtrace_inputs(dev, 2048, seed=11)
     one = tuple(a[:1] if torch.is_tensor(a) else a for a in back[:5]) + back[5:7] + (
         {k: v[:1] if torch.is_tensor(v) else v for k, v in back[7].items()},)
-    inputs = (back, back, k2_queue_inputs(smoke, dev, 700, seed=23), one,
+    inputs = (back, back, smoke.k2_queue_inputs(dev, 700, seed=23), one,
               smoke.k2_backtrace_inputs(dev, n3, seed=29))
     for name, (u0, lnt0, lnt1, e, x, sc, cfg, kw) in zip(K2_INPUTS, inputs):
         if "dense" in name:
             cfg = dataclasses.replace(cfg, interp_coarse=0)
         fn = lambda: mk.integrate_mega(u0, lnt0, lnt1, e, x, sc, cfg, **kw)
         out = tuple(t.cpu() for t in fn())
-        warps = mk.launch_warps(u0.shape[0], dev) if hasattr(mk, "launch_warps") else None
+        if hasattr(mk, "launch_warps"):   # a checkout whose wrapper picks the warps
+            warps = mk.launch_warps(u0.shape[0], dev)
+        else:
+            warps = min(u0.shape[0], mk.resident_warps(mk.mega_params(sc, cfg), dev))
         res[name] = {"x": x.cpu(), "K2": out, "ms": smoke.cuda_ms(fn, 3), "warps": warps}
 
 
@@ -120,6 +123,7 @@ def worker(root, save, n3):
     res = {"gpu": smoke.smi_line(),
            "ptxas": {k: smoke.ptxas_figures(summary.get(k, ""))
                      for k in ("mega_kernel", "tree_kernel", "tree_refill_kernel")}}
+    k1_worker(smoke, dev, res)
     k2_worker(smoke, dev, n3, res)
     for name, n, seed, kseed, cut in INPUTS:
         tcfg = TreeConfig(**cut)
@@ -187,7 +191,9 @@ def main(argv=None):
     from adiabatic_raytracer_tpu_torch.ops import cuda_lib
     from adiabatic_raytracer_tpu_torch.ops import megakernel as mk
 
-    n3 = 3 * mk.resident_warps(0)   # this checkout's resident K2 warps on this card
+    dev = torch.device("cuda", 0)
+    # this checkout's resident K2 warps on this card, at the production scene
+    n3 = 3 * mk.resident_warps(mk.mega_params(*chip_smoke.scene_setup(dev)[:2]), dev)
     summary = chip_smoke.ptxas_summary(cuda_lib.BUILD_LOG)
     print(f"[ab] this checkout: K2 resident warps {n3 // 3}; ptxas (registers, stack, spill "
           f"stores, loads) " + ", ".join(
@@ -214,6 +220,14 @@ def main(argv=None):
             "; ptxas (registers, stack, spill stores, loads) "
             + ", ".join(f"{k} {v}" for k, v in built.items()) if built else ""), flush=True)
     print(f"[ab] {runs[0][1]['gpu']}")
+    par, this = runs[0][1][K1_INPUT], runs[1][1][K1_INPUT]
+    assert torch.equal(par["x"], this["x"])   # the same lines
+    same = [int((r[K1_INPUT]["K1"].view(torch.int32) == par["K1"].view(torch.int32)).sum())
+            for _, r in runs[1:3]]
+    ms = " / ".join(f"{r[K1_INPUT]['ms']:.4f}" for _, r in runs)
+    print(f"[ab] {K1_INPUT} x {par['K1'].shape[1]} points: K1 ms (parent / this / this / "
+          f"parent) {ms}; points bitwise the parent's (runs 2, 3) {same[0]}/{par['K1'].numel()}, "
+          f"{same[1]}/{par['K1'].numel()}", flush=True)
     for name in K2_INPUTS:
         par, this = runs[0][1][name], runs[1][1][name]
         assert torch.equal(par["x"], this["x"]), name   # the same rays

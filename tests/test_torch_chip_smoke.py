@@ -20,6 +20,12 @@ ptxas info    : Function properties for _ZN12_GLOBAL__N_112probe_kernelEiPKdS1_
 ptxas info    : Used 96 registers, used 1 barriers
 ptxas info    : Function properties for _ZN3art7prob_ndERKNS_10MegaParamsEPKdd
     8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Function properties for _ZN12_GLOBAL__N_111mega_kernelILi0EEEvPKdS2_iiPiN3art10MegaParamsEPdS6_S6_S6_S6_S6_S6_
+    480 bytes stack frame, 88 bytes spill stores, 56 bytes spill loads
+ptxas info    : Used 255 registers, used 0 barriers, 480 bytes cumulative stack size
+ptxas info    : Function properties for _ZN12_GLOBAL__N_111mega_kernelILi3EEEvPKdS2_iiPiN3art10MegaParamsEPdS6_S6_S6_S6_S6_S6_
+    464 bytes stack frame, 80 bytes spill stores, 48 bytes spill loads
+ptxas info    : Used 255 registers, used 0 barriers, 464 bytes cumulative stack size
 == refill_probe.cu
 ptxas info    : Function properties for _ZN12_GLOBAL__N_119refill_probe_kernelEPKfPfiiiiii
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
@@ -33,9 +39,14 @@ ptxas info    : Used 255 registers, used 1 barriers
 
 def test_ptxas_summary_matches_whole_kernel_names():
     """P1's refill_probe_kernel is not taken for K2's probe_kernel, nor K4's
-    tree_refill_kernel for K3's tree_kernel; device functions are skipped."""
+    tree_refill_kernel for K3's tree_kernel; device functions are skipped;
+    K2's dispersion variants are keyed by their template argument, the
+    production one (0) by the plain name."""
     got = chip_smoke.ptxas_summary(LOG)
-    assert set(got) == {"probe_kernel", "refill_probe_kernel", "tree_refill_kernel"}
+    assert set(got) == {"probe_kernel", "refill_probe_kernel", "tree_refill_kernel",
+                        "mega_kernel", "mega_kernel<3>"}
+    assert chip_smoke.ptxas_figures(got["mega_kernel"]) == chip_smoke.K2_PTXAS
+    assert chip_smoke.ptxas_figures(got["mega_kernel<3>"]) == (255, 464, 80, 48)
     assert got["probe_kernel"].endswith("Used 96 registers, used 1 barriers")
     assert got["refill_probe_kernel"].startswith("0 bytes stack frame")
     assert "96 bytes spill stores" in got["tree_refill_kernel"]

@@ -87,15 +87,16 @@ def test_megakernel_matches_plain(dev):
     assert rel.median().item() < 1e-8
 
 
-def surface_rays(dev, n, seed):
-    """n conversion-surface events of the production scene (sampled with K1;
-    repeated in turn where the draw has fewer): x, photon k, erg, on dev."""
+def surface_rays(dev, n, seed, **scene):
+    """n conversion-surface events of the production scene, or of it with
+    `scene`'s fields changed (sampled with K1; repeated in turn where the
+    draw has fewer): x, photon k, erg, on dev."""
     from adiabatic_raytracer_tpu_torch.models.magnetosphere import conversion_surface_radius
     from adiabatic_raytracer_tpu_torch.ops import sampler
     from adiabatic_raytracer_tpu_torch.ops.dispersion import k_norm_cart
     from adiabatic_raytracer_tpu_torch.utils import rng
 
-    sc = tcfg.Scene(**KW)
+    sc = tcfg.Scene(**KW, **scene)
     maxR = conversion_surface_radius(sc.mass_a, sc.theta_m, sc.omega_pul, sc.b0, sc.r_ns)
     r = sampler.sample_batch(rng.PRNGKey(seed, device=dev), 4096, maxR, sc, sc.mass_ns,
                              n_grid=sampler.default_n_grid(maxR), compute_dtype="f32",
@@ -118,7 +119,8 @@ def test_megakernel_warp_queue_matches_plain(dev, size, species):
     gate.  Axion: the backtrace (B flipped, 16 slots); photon: forward from
     the conversion point, one slot, as the queue path's tree nodes; mixed:
     both species in one launch."""
-    B = {"1": 1, "33": 33}.get(size) or mk.launch_warps(10**9, dev) + 37
+    resident = mk.resident_warps(mk.mega_params(tcfg.Scene(**KW), tcfg.NumericsConfig()), dev)
+    B = {"1": 1, "33": 33}.get(size) or resident + 37
     x, k, e = surface_rays(dev, B, seed=31)
     sc = tcfg.Scene(**KW)
     if species == "axion":
@@ -166,6 +168,103 @@ def test_probe_matches_twins(dev, species):
         got = mk.probe(P, which, u.to(dev), lnt.to(dev), erg.to(dev), is_ph.to(dev), 1e14)
         want = mk.probe_plain(P, which, u, lnt, erg, is_ph, 1e14)
         scale = want.abs().amax(dim=0, keepdim=True).clamp(min=1e-300)  # zero columns
+        assert ((got.cpu() - want).abs() / (want.abs() + scale)).max().item() < 1e-12, which
+
+
+VARIANTS = {"bndry": dict(bndry_lyr=0.5), "iso": dict(isotropic=True)}
+
+
+@pytest.mark.cuda
+def test_line_scan_kernel_bndry_matches_plain(dev):
+    """K1 at bndry_lyr 0.5 against its plain version, at the bars of
+    test_line_scan_kernel_matches_plain; the term changes the output."""
+    sc = tcfg.Scene(**KW, bndry_lyr=0.5)
+    rng = np.random.default_rng(1)
+    B, N = 256, 2221
+    vvec = rng.normal(size=(B, 3))
+    vvec /= np.linalg.norm(vvec, axis=1, keepdims=True)
+    vloc = rng.normal(size=(B, 3))
+    vloc /= np.linalg.norm(vloc, axis=1, keepdims=True)
+    T = lambda a: torch.as_tensor(a, dtype=F64, device=dev)
+    args = (T(rng.normal(size=(B, 3)) * 5.0 - vvec * 27.0), T(vvec), T(vloc),
+            T(np.full(B, 1.0000005e-5)), T(np.linspace(0.0, 55.0, N)))
+    got = line_scan.line_scan(*args, sc, sc.mass_ns)
+    torch.cuda.synchronize()
+    want = line_scan.line_scan_plain(*args, sc, sc.mass_ns)
+    rel = torch.abs(got - want) / (1.0 + torch.abs(want))
+    assert torch.quantile(rel.flatten(), 0.999).item() < 1e-5
+    away = torch.abs(want) > 1e-3
+    assert bool((torch.sign(got) == torch.sign(want))[away].all())
+    base = line_scan.line_scan(*args, tcfg.Scene(**KW), sc.mass_ns)
+    assert (torch.abs(got - base) > 1e-3 * (1.0 + torch.abs(got))).double().mean().item() > 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["bndry", "iso"])
+@pytest.mark.parametrize("launch", ["backtrace", "mixed"])
+def test_megakernel_variant_matches_plain(dev, variant, launch):
+    """K2's boundary-layer and isotropic instantiations against
+    integrate_mega_plain on 256 conversion-surface rays of the scene, at
+    chip_smoke.py phase 5's bars, dense and with the gate the main path runs
+    there (the scan-gate census's choice: at bndry_lyr 0.5 the default gate
+    misses close crossing pairs at the boundary-layer shell): the backtrace
+    (axion, B flipped, 16 slots) and a queue-path tree iteration (photon and
+    axion mixed, one slot; photons are where the boundary layer enters the
+    RHS)."""
+    from adiabatic_raytracer_tpu_torch import driver
+    from adiabatic_raytracer_tpu_torch.models.magnetosphere import conversion_surface_radius
+
+    B = 256
+    scene = VARIANTS[variant]
+    x, k, e = surface_rays(dev, B, seed=41, **scene)
+    sc = tcfg.Scene(**KW, **scene)
+    if launch == "backtrace":
+        sc, k = _negate_b(sc), -k
+        is_ph = torch.zeros(B, dtype=torch.bool, device=dev)
+        kw = dict(max_crossings=16, species="axion")
+    else:
+        is_ph = torch.as_tensor(np.random.default_rng(B).random(B) < 0.5, device=dev)
+        kw = dict(max_crossings=1, species="mixed")
+    u0 = launch_state(x, k, sc, e, -torch.ones(B, dtype=F64, device=dev))
+    lnt0 = torch.full((B,), -30.0, dtype=F64, device=dev)
+    lnt1 = torch.zeros(B, dtype=F64, device=dev)
+    kw.update(is_photon=is_ph, with_prob=True)
+    want = mk.integrate_mega_plain(u0, lnt0, lnt1, e, x, sc, tcfg.NumericsConfig(), **kw)
+    sc0 = tcfg.Scene(**KW, **scene)
+    maxR = conversion_surface_radius(sc0.mass_a, sc0.theta_m, sc0.omega_pul, sc0.b0, sc0.r_ns)
+    stats = driver.RunStats()
+    gated = driver._apply_scan_gate_guard(sc0, tcfg.NumericsConfig(engine="mega"), maxR, 0.0,
+                                          stats, dev)
+    assert stats.scan_gate in ("ok", "widened", "fallback_plain")
+    for cfg in (tcfg.NumericsConfig(interp_coarse=0), gated):
+        got = mk.integrate_mega(u0, lnt0, lnt1, e, x, sc, cfg, **kw)
+        assert (got[4] == want[4]).double().mean().item() >= 0.99
+        end = (got[3] == 1) & (want[3] == 1)
+        assert int(end.sum()) > B // 4
+        rel = ((got[0] - want[0]).abs() / want[0].abs().clamp(min=1e-300)).amax(dim=1)[end]
+        assert rel.median().item() < 1e-8
+        assert bool((got[8] == 0).all())   # no in-kernel probability at these scenes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["bndry", "iso"])
+@pytest.mark.parametrize("species", ["photon", "axion", "mixed"])
+def test_probe_variant_matches_twins(dev, variant, species):
+    """The condition and the RHS of K2's boundary-layer and isotropic
+    instantiations against their torch twins, rtol 1e-12, on states around
+    the boundary-layer shell."""
+    x, k, erg = rays(256, seed=5, r_lo=10.2, r_hi=30.0)
+    sc = tcfg.Scene(**KW, **VARIANTS[variant])
+    B = x.shape[0]
+    u = launch_state(x, k, sc, erg, -torch.ones(B, dtype=F64))
+    gen = torch.Generator().manual_seed(1)
+    lnt = torch.rand(B, generator=gen, dtype=F64) * 10.0 - 10.0
+    is_ph = (torch.rand(B, generator=gen, dtype=F64) > 0.5).to(F64)
+    P = mk.mega_params(sc, tcfg.NumericsConfig(), species=species)
+    for which in ("condition", "rhs"):
+        got = mk.probe(P, which, u.to(dev), lnt.to(dev), erg.to(dev), is_ph.to(dev), 1e14)
+        want = mk.probe_plain(P, which, u, lnt, erg, is_ph, 1e14)
+        scale = want.abs().amax(dim=0, keepdim=True).clamp(min=1e-300)
         assert ((got.cpu() - want).abs() / (want.abs() + scale)).max().item() < 1e-12, which
 
 

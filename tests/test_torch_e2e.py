@@ -42,6 +42,31 @@ def test_golden_pinned_rows(tmp_path):
     assert stats.events == 3 and stats.finals == 6 and stats.f_inx == 17
 
 
+# The slice at a boundary-layer scene, pinned from the JAX CLI:
+#   python -m adiabatic_raytracer_tpu --Nts 4 --seed 1769 --ThetaM 0.2 --saveMode 1 \
+#       --event_batch 3 --platform cpu --bndry_lyr 0.5 --maxNodes 6
+BNDRY_ARGS = ["--bndry_lyr", "0.5", "--maxNodes", "6"]
+BNDRY_WEIGHTS = [5.9290423177e-04, 9.0323405102e-03, 6.1673195411e-05]
+BNDRY_SPECIES = [1, 1, 0]
+BNDRY_COUNT = [1, 3, 3]
+BNDRY_INFO = [2, 2, 2]
+
+
+def test_bndry_lyr_pinned_rows(tmp_path):
+    """--bndry_lyr 0.5 through the port's CLI on CPU (the pool engine; the
+    forward tree on the host queue, since the in-kernel probability does not
+    cover the boundary layer) reproduces the JAX CLI's rows: weights at rtol
+    1e-6, species, node counts and stop codes exact."""
+    rows, _, stats = run_from_args(GOLDEN_ARGS + BNDRY_ARGS + ["--dir_tag", str(tmp_path),
+                                                               "--ftag", "bndry"])
+    assert rows.shape == (3, 29)
+    np.testing.assert_allclose(rows[:, 8], BNDRY_WEIGHTS, rtol=1e-6)
+    np.testing.assert_array_equal(rows[:, 1], BNDRY_SPECIES)
+    np.testing.assert_array_equal(rows[:, 20], BNDRY_COUNT)
+    np.testing.assert_array_equal(rows[:, 21], BNDRY_INFO)
+    assert np.all(np.isfinite(rows)) and np.all(rows[:, 7] > 0)
+
+
 def test_mega_engine_on_cpu_reproduces_golden(tmp_path):
     """engine=mega on CPU tensors runs K2's plain version (pool + the
     in-kernel probability twin) and the scan-gate census: same rows."""

@@ -2,7 +2,9 @@
 
 The JAX side runs its plain XLA path (the Pallas kernel body _condition_block
 is plain jnp); the CUDA kernel itself is checked on the card
-(tests/test_torch_cuda.py)."""
+(tests/test_torch_cuda.py).  At a boundary-layer scene the comparison is
+with the JAX XLA condition (sampler._line_condition) only: the Pallas body
+has no boundary-layer term, while the port's K1 has it."""
 
 import numpy as np
 import pytest
@@ -74,12 +76,33 @@ def test_line_scan_cpu_wrapper_is_f32_plain():
     np.testing.assert_array_equal(np.sign(got[mask]), np.sign(want[mask]))
 
 
-@pytest.mark.parametrize("compute_dtype,engine", [("state", "plain"), ("f32", "kernel")])
-def test_sample_batch_matches_jax(compute_dtype, engine):
-    """Same key, same events: the draw stream is bit-identical, successes and
-    crossing counts agree, roots within 2e-3 km (tests/test_pallas.py:79-80)."""
-    jsc = jcfg.Scene(**dict(KW, theta_m=0.2))
-    tsc = tcfg.Scene(**dict(KW, theta_m=0.2))
+def test_plain_condition_matches_jax_xla_bndry_f64():
+    """K1's plain condition (sampler._line_condition, which line_scan_plain
+    evaluates in f32) at a boundary-layer scene against the JAX XLA
+    condition, both in f64, rtol 1e-10; the term is live on these lines."""
+    sc = tcfg.Scene(**KW, bndry_lyr=0.5)
+    jsc = jcfg.Scene(**KW, bndry_lyr=0.5)
+    x0, vvec, vloc, erg, s = lines()
+    p = x0[:, None, :] + s[None, :, None] * vvec[:, None, :]
+    T = lambda a: torch.as_tensor(a, dtype=torch.float64)
+    got = sampler._line_condition(T(p), T(vloc)[:, None, :], T(erg)[:, None], sc,
+                                  sc.mass_ns).numpy()
+    cond = jax.vmap(jax.vmap(lambda pp, vl, e: jsamp._line_condition(
+        pp, vl, e, jsc, jsc.mass_ns, True), (0, None, None)), (0, 0, 0))
+    want = np.asarray(cond(jnp.asarray(p), jnp.asarray(vloc), jnp.asarray(erg)))
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-10 * np.abs(want).max())
+    base = sampler._line_condition(T(p), T(vloc)[:, None, :], T(erg)[:, None],
+                                   tcfg.Scene(**KW), sc.mass_ns).numpy()
+    assert np.mean(np.abs(got - base) > 1e-3 * (1.0 + np.abs(got))) > 0.05
+    # the CPU wrapper: the same condition in f32, to f32 rounding
+    got32 = line_scan.line_scan(T(x0), T(vvec), T(vloc), T(erg), T(s), sc, sc.mass_ns)
+    rel = np.abs(got32.numpy().astype(np.float64) - want) / (1.0 + np.abs(want))
+    assert np.max(rel) < 1e-4, np.max(rel)
+
+
+def check_sample_batch(compute_dtype, engine, **scene):
+    jsc = jcfg.Scene(**dict(KW, theta_m=0.2, **scene))
+    tsc = tcfg.Scene(**dict(KW, theta_m=0.2, **scene))
     kw = dict(n_grid=768, n_max=6, compute_dtype=compute_dtype)
     ref = jsamp.sample_batch(jax.random.PRNGKey(42), 32, 25.0, jsc, jsc.mass_ns,
                              line_engine="xla", **kw)
@@ -96,3 +119,23 @@ def test_sample_batch_matches_jax(compute_dtype, engine):
                                atol=atol)
     np.testing.assert_allclose(got.v_loc.numpy()[ok], np.asarray(ref.v_loc)[ok],
                                rtol=1e-6 if compute_dtype == "f32" else 1e-12)
+    return got
+
+
+@pytest.mark.parametrize("compute_dtype,engine", [("state", "plain"), ("f32", "kernel")])
+def test_sample_batch_matches_jax(compute_dtype, engine):
+    """Same key, same events: the draw stream is bit-identical, successes and
+    crossing counts agree, roots within 2e-3 km (tests/test_pallas.py:79-80)."""
+    check_sample_batch(compute_dtype, engine)
+
+
+@pytest.mark.parametrize("compute_dtype,engine", [("state", "plain"), ("f32", "kernel")])
+def test_sample_batch_bndry_matches_jax(compute_dtype, engine):
+    """test_sample_batch_matches_jax at bndry_lyr 0.5, against the JAX XLA
+    line engine (never the Pallas kernel, which drops the term): the
+    boundary layer changes the sampled surface."""
+    got = check_sample_batch(compute_dtype, engine, bndry_lyr=0.5)
+    base = sampler.sample_batch(rng.PRNGKey(42), 32, 25.0, tcfg.Scene(**dict(KW, theta_m=0.2)),
+                                1.0, n_grid=768, n_max=6, compute_dtype=compute_dtype,
+                                line_engine=engine)
+    assert not torch.equal(got.weight, base.weight)
