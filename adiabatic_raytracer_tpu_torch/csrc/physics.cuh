@@ -1,8 +1,9 @@
-// Device physics shared by the K1 line scan (line_scan.cu, f32) and the K2
+// Device physics shared by the K1 kernels (line_scan.cu: the grid scan in
+// f32, the fused roots kernel's bisection in f32 or f64) and the K2
 // megakernel (megakernel.cu, f64): Schwarzschild inverse metric with the
 // interior branch, the Goldreich-Julian dipole, the plasma frequency and the
 // two forms of the level-crossing condition, with the boundary-layer plasma
-// term and the isotropic dispersion.
+// term and the isotropic dispersion, and the sampler's recording filter.
 //
 // Transcribed from the JAX reference (adiabatic_raytracer_tpu/ops/
 // megakernel.py _metric/_dipole_unit/_omega_p/_condition and
@@ -25,14 +26,18 @@ constexpr double GAUSS_TO_EV2 = 1.95e-2;
 constexpr double SQRT_4PI_ALPHA = 0.30286190409413793;  // sqrt(4 pi / 137)
 constexpr double PI = 3.141592653589793;
 
-// K1 scene scalars (ops/line_scan.py LineScene).  bndry_lyr <= 0: no
-// boundary layer; else its pole value [eV], rmax * bndry_lyr and the
+// K1 scene scalars in the type T of the arithmetic (ops/line_scan.py
+// LineScene for float, LineScene64 for double; same order).  bndry_lyr <= 0:
+// no boundary layer; else its pole value [eV], rmax * bndry_lyr and the
 // reciprocal of the decay length 0.1 rmax [km].
-struct LineScene {
-  float cm, sm, omega, b0, r_ns, r_metric, rs0, mass_a;
+template <typename T>
+struct LineSceneT {
+  T cm, sm, omega, b0, r_ns, r_metric, rs0, mass_a;
   int isotropic;
-  float bndry_lyr, bndry_pole, bndry_center, bndry_inv_decay;
+  T bndry_lyr, bndry_pole, bndry_center, bndry_inv_decay;
 };
+using LineScene = LineSceneT<float>;
+using LineScene64 = LineSceneT<double>;
 
 // K2 scene + numerics scalars (ops/megakernel.py MegaParams, same order).
 struct MegaParams {
@@ -65,6 +70,9 @@ struct Metric {
 template <typename T> __device__ __forceinline__ T dsqrt(T x);
 template <> __device__ __forceinline__ float dsqrt<float>(float x) { return sqrtf(x); }
 template <> __device__ __forceinline__ double dsqrt<double>(double x) { return sqrt(x); }
+template <typename T> __device__ __forceinline__ T dmax(T a, T b);
+template <> __device__ __forceinline__ float dmax<float>(float a, float b) { return fmaxf(a, b); }
+template <> __device__ __forceinline__ double dmax<double>(double a, double b) { return fmax(a, b); }
 
 // Inverse Schwarzschild metric (g^tt, g^rr, g^thth, g^pp) with the
 // reference's interior continuation below rn (models/metric.py).
@@ -126,54 +134,96 @@ __device__ __forceinline__ double bndry_term(double r, double r_ns, double pole_
   return pole_t * (q * sqrt(q)) * exp(-(r - rmax * lyr) / (0.1 * rmax));
 }
 
+// K1: the dipole (b0 times the unit field: *br, *bth, *bph [Gauss]) and
+// omega_p [eV] at a Cartesian point of a sampling line with radius rr, cos
+// theta cz and sin theta st, t = 0 (the azimuthal trig from Cartesian
+// ratios), with the boundary layer where the scene has one and rr >= r_ns
+// (models/magnetosphere.omega_p_cart; the Cartesian evaluator never zeroes
+// the interior).  T = float keeps the plain version's f32 operations and
+// order in the boundary-layer term.
+template <typename T>
+__device__ __forceinline__ T line_omega_p(T px, T py, T rr, T cz, T st,
+                                          const LineSceneT<T>& S, T* br, T* bth, T* bph) {
+  dipole_unit<T>(S.cm, S.sm, T(1), S.r_ns, rr, cz, st, px / (rr * st), py / (rr * st), T(0),
+                 T(1), br, bth, bph);
+  *br *= S.b0;
+  *bth *= S.b0;
+  *bph *= S.b0;
+  T wp = omega_p<T>(S.omega, *br * cz - *bth * st);
+  if (S.bndry_lyr > T(0) && rr >= S.r_ns) {
+    if constexpr (sizeof(T) == sizeof(float)) {
+      // the boundary layer [eV] in the plain version's f32 operations and
+      // order (torch: r_ns / r as (1 / r) * r_ns, a division by a scalar as
+      // a product with its reciprocal), none fused into the sum
+      const float q = __fmul_rn(1.f / rr, S.r_ns);
+      const float decay = expf(__fmul_rn(-(rr - S.bndry_center), S.bndry_inv_decay));
+      wp = __fadd_rn(wp, __fmul_rn(__fmul_rn(S.bndry_pole, powf(q, 1.5f)), decay));
+    } else {
+      const T q = S.r_ns / rr;
+      wp += S.bndry_pole * pow(q, T(1.5)) * exp(-(rr - S.bndry_center) * S.bndry_inv_decay);
+    }
+  }
+  return wp;
+}
+
 // K1: thick-surface condition at a Cartesian point of a sampling line, the
 // momentum renormalized onto the axion shell along the local-velocity
 // direction (sampler._line_condition; pallas_kernels._condition_block).
-// t = 0, so the azimuthal trig comes from Cartesian ratios.
-__device__ __forceinline__ float line_condition(float px, float py, float pz, float vlx,
-                                                float vly, float vlz, float erg,
-                                                const LineScene& S) {
-  const float rr = sqrtf(px * px + py * py + pz * pz);
-  const float cz = pz / rr;
-  const float st = sqrtf(fmaxf(1.f - cz * cz, 1e-30f));
-  const float aa = rr < S.r_ns ? 1.f : 1.f - S.rs0 / rr;
-  const float dr_dt = (px * vlx + py * vly + pz * vlz) / rr;
-  const float v_th = (pz * dr_dt - rr * vlz) / (rr * st);
-  const float v_ph = (-py * vlx + px * vly) / (rr * st);
-  float w_r = dr_dt / sqrtf(aa) / aa;
-  float w_t = v_th * rr / aa;
-  float w_p = v_ph * (rr * st) / aa;
-  const Metric<float> g = metric<float>(rr, st, S.rs0, S.r_metric);
-  const float wsq = g.rr * w_r * w_r + g.thth * w_t * w_t + g.pp * w_p * w_p;
-  const float nrm = sqrtf((-(erg * erg) * g.tt - S.mass_a * S.mass_a) / wsq);
+template <typename T>
+__device__ __forceinline__ T line_condition(T px, T py, T pz, T vlx, T vly, T vlz, T erg,
+                                            const LineSceneT<T>& S) {
+  const T rr = dsqrt(px * px + py * py + pz * pz);
+  const T cz = pz / rr;
+  const T st = dsqrt(dmax(T(1) - cz * cz, T(1e-30)));
+  const T aa = rr < S.r_ns ? T(1) : T(1) - S.rs0 / rr;
+  const T dr_dt = (px * vlx + py * vly + pz * vlz) / rr;
+  const T v_th = (pz * dr_dt - rr * vlz) / (rr * st);
+  const T v_ph = (-py * vlx + px * vly) / (rr * st);
+  T w_r = dr_dt / dsqrt(aa) / aa;
+  T w_t = v_th * rr / aa;
+  T w_p = v_ph * (rr * st) / aa;
+  const Metric<T> g = metric<T>(rr, st, S.rs0, S.r_metric);
+  const T wsq = g.rr * w_r * w_r + g.thth * w_t * w_t + g.pp * w_p * w_p;
+  const T nrm = dsqrt((-(erg * erg) * g.tt - S.mass_a * S.mass_a) / wsq);
   w_r *= nrm;
   w_t *= nrm;
   w_p *= nrm;
-  float br, bth, bph;
-  dipole_unit<float>(S.cm, S.sm, 1.f, S.r_ns, rr, cz, st, px / (rr * st), py / (rr * st),
-                     0.f, 1.f, &br, &bth, &bph);
-  br *= S.b0;
-  bth *= S.b0;
-  bph *= S.b0;
-  float wp = omega_p<float>(S.omega, br * cz - bth * st);
-  if (S.bndry_lyr > 0.f && rr >= S.r_ns) {
-    // the boundary layer [eV] where r >= r_ns, in the plain version's f32
-    // operations and order (torch: r_ns / r as (1 / r) * r_ns, a division by
-    // a scalar as a product with its reciprocal), none fused into the sum
-    const float q = __fmul_rn(1.f / rr, S.r_ns);
-    const float decay = expf(__fmul_rn(-(rr - S.bndry_center), S.bndry_inv_decay));
-    wp = __fadd_rn(wp, __fmul_rn(__fmul_rn(S.bndry_pole, powf(q, 1.5f)), decay));
-  }
-  float kp = 0.f;
+  T br, bth, bph;
+  const T wp = line_omega_p<T>(px, py, rr, cz, st, S, &br, &bth, &bph);
+  T kp = T(0);
   if (!S.isotropic) {
-    const float bl_r = br / sqrtf(g.rr), bl_t = bth / sqrtf(g.thth), bl_p = bph / sqrtf(g.pp);
-    const float bmag = sqrtf(g.rr * bl_r * bl_r + g.thth * bl_t * bl_t + g.pp * bl_p * bl_p);
+    const T bl_r = br / dsqrt(g.rr), bl_t = bth / dsqrt(g.thth), bl_p = bph / dsqrt(g.pp);
+    const T bmag = dsqrt(g.rr * bl_r * bl_r + g.thth * bl_t * bl_t + g.pp * bl_p * bl_p);
     kp = (g.rr * w_r * bl_r + g.thth * w_t * bl_t + g.pp * w_p * bl_p) / bmag;
   }
-  const float e2n = erg * erg;
-  const float ksqr = g.tt * e2n + g.rr * w_r * w_r + g.thth * w_t * w_t + g.pp * w_p * w_p;
-  const float e2 = e2n / g.rr;
-  return 0.5f * (ksqr + wp * wp * (e2 - kp * kp) / e2) / e2n;
+  const T e2n = erg * erg;
+  const T ksqr = g.tt * e2n + g.rr * w_r * w_r + g.thth * w_t * w_t + g.pp * w_p * w_p;
+  const T e2 = e2n / g.rr;
+  return T(0.5) * (ksqr + wp * wp * (e2 - kp * kp) / e2) / e2n;
+}
+
+// K1: the condition at s along the line par = (x0[3], vvec[3], vloc[3],
+// erg), at the point x0 + s * vvec.  The grid kernel and the fused roots
+// kernel both scan through this one function, so their f32 scans agree bit
+// for bit (same source, same contraction into FMAs).
+template <typename T>
+__device__ __forceinline__ T line_point_condition(const T* par, T s, const LineSceneT<T>& S) {
+  return line_condition<T>(par[0] + s * par[3], par[1] + s * par[4], par[2] + s * par[5],
+                           par[6], par[7], par[8], par[9], S);
+}
+
+// K1: the sampler's recording filter at a root p (affect!,
+// RayTracer.jl:1585-1597; sampler._accept_crossing): outside the star and
+// locally propagating, erg / sqrt(g^rr) > omega_p.
+template <typename T>
+__device__ __forceinline__ bool line_accept(T px, T py, T pz, T erg, const LineSceneT<T>& S) {
+  const T rr = dsqrt(px * px + py * py + pz * pz);
+  const T cz = pz / rr;
+  const T st = dsqrt(dmax(T(1) - cz * cz, T(1e-30)));
+  const Metric<T> g = metric<T>(rr, st, S.rs0, S.r_metric);
+  T br, bth, bph;
+  const T wp = line_omega_p<T>(px, py, rr, cz, st, S, &br, &bth, &bph);
+  return rr > S.r_ns && erg / dsqrt(g.rr) > wp;
 }
 
 // K2: strength-reduced crossing condition on the integration state

@@ -7,10 +7,13 @@ line, bisect the sign changes, and draw a crossing index.  The draws use the
 threefry stream of utils/rng.py, so a key gives the same events as the JAX
 sampler.  Batched: every function works on [B, ...] tensors directly.
 
-The dense line scan is the sampler's hot loop.  line_engine="kernel" routes
-it through ops/line_scan.line_scan (the K1 CUDA kernel on a CUDA tensor, its
-plain f32 version on a CPU tensor); line_engine="plain" evaluates
-_line_condition on the grid in the compute dtype.
+The dense line scan and the refinement of its sign changes are the
+sampler's hot loop.  line_engine="kernel" routes them through
+ops/line_scan.line_roots: on a CUDA tensor the fused K1 kernel, which scans,
+bisects and filters each line in one launch; on a CPU tensor its plain
+version, the f32 grid (line_scan_plain) followed by _roots.
+line_engine="plain" evaluates _line_condition on the grid in the compute
+dtype and calls _roots.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from adiabatic_raytracer_tpu_torch.ops.dispersion import k_par
 from adiabatic_raytracer_tpu_torch.utils import rng
 
 MAX_LINE_CROSSINGS = 16
+BISECT_ITERS = 50
 
 
 class SampleResult(NamedTuple):
@@ -139,54 +143,86 @@ def _draw(keys, maxR, sc: Scene, vmean, flat_sampling: bool, dtype) -> _Geometry
     return _Geometry(x0, vvec, vvec_loc, erg_inf, r_rnd, v_ifty, ks[:, 7])
 
 
-def _select(geo: _Geometry, g, s_grid, sc: Scene, mass_ns, *, thick: bool,
-            n_max: int, bisect_iters: int) -> SampleResult:
-    """Root-refine the scanned condition and draw a crossing
-    (RayTracer.jl:1585-1647).  g: [B, N] condition on the s grid."""
+def _flip_slots(g):
+    """The first MAX_LINE_CROSSINGS sign-change intervals of each line of the
+    condition g [B, N], in line order (the reference's top_k trick: slots past
+    the line's count hold the fill interval N - 2): (slot_idx [B, MAXC], the
+    interval's left grid index; g_lo [B, MAXC], g there; n_flips [B] int32,
+    the line's count).  A flip is sign(g[n]) * sign(g[n+1]) < 0; zeros and
+    NaNs (torch.sign 0) are none."""
     B, n_grid = g.shape
-    x0, vvec, vloc, erg = geo.x0, geo.vvec, geo.vvec_loc, geo.erg_inf
-
-    def cond_at(s):                                           # s [B, M]
-        p = x0[:, None, :] + s[..., None] * vvec[:, None, :]
-        return _line_condition(p, vloc[:, None, :], erg[:, None], sc, mass_ns, thick)
-
     sign = torch.sign(g)
     flips = sign[:, 1:] * sign[:, :-1] < 0                   # [B, N-1]
     idx = torch.arange(n_grid - 1, device=g.device).expand(B, -1)
     keyed = torch.where(flips, idx, torch.full_like(idx, n_grid - 2))
-    # first MAXC flip intervals in line order (the reference's top_k trick)
     slot_idx = torch.topk(keyed, MAX_LINE_CROSSINGS, dim=1, largest=False,
                           sorted=True).values
-    has_root = (torch.arange(MAX_LINE_CROSSINGS, device=g.device)[None, :]
-                < flips.sum(dim=1, keepdim=True))
+    return slot_idx, torch.gather(g, 1, slot_idx), flips.sum(dim=1).to(torch.int32)
 
+
+def _bisect(cond_at, s_grid, slot_idx, g_lo, iters: int):
+    """`iters` halvings of each interval [s_grid[i], s_grid[i + 1]], i in
+    slot_idx, keeping the half whose left end has g_lo's sign; the midpoint
+    of the last one."""
     s_lo = s_grid[slot_idx]
     s_hi = s_grid[slot_idx + 1]
-    g_lo = torch.gather(g, 1, slot_idx)
-    for _ in range(bisect_iters):
+    for _ in range(iters):
         s_mid = 0.5 * (s_lo + s_hi)
         g_mid = cond_at(s_mid)
         left = torch.sign(g_mid) == torch.sign(g_lo)
         s_lo, s_hi, g_lo = (torch.where(left, s_mid, s_lo),
                             torch.where(left, s_hi, s_mid),
                             torch.where(left, g_mid, g_lo))
-    s_star = 0.5 * (s_lo + s_hi)
-    p_star = x0[:, None, :] + s_star[..., None] * vvec[:, None, :]   # [B, MAXC, 3]
+    return 0.5 * (s_lo + s_hi)
 
-    ok = has_root & _accept_crossing(p_star, erg[:, None], sc, mass_ns)
+
+def _cond_along(x0, vvec, vloc, erg, sc: Scene, mass_ns, thick: bool):
+    """The condition at s [B, M] along the lines x0 + s vvec."""
+    def cond_at(s):
+        p = x0[:, None, :] + s[..., None] * vvec[:, None, :]
+        return _line_condition(p, vloc[:, None, :], erg[:, None], sc, mass_ns, thick)
+    return cond_at
+
+
+def _accept_at(x0, vvec, erg, s_star, sc: Scene, mass_ns):
+    """The recording filter at the points x0 + s_star vvec, s_star [B, M]."""
+    p_star = x0[:, None, :] + s_star[..., None] * vvec[:, None, :]
+    return _accept_crossing(p_star, erg[:, None], sc, mass_ns)
+
+
+def _roots(x0, vvec, vloc, erg, g, s_grid, sc: Scene, mass_ns, *, thick: bool = True):
+    """Root-refine the scanned condition g [B, N] on the grid s_grid
+    (RayTracer.jl:1585-1597): the first MAX_LINE_CROSSINGS sign changes of
+    each line, bisected in the compute dtype of x0, and the recording filter
+    at each root.  Returns (s_star [B, MAXC], ok [B, MAXC] = has a root and
+    passes the filter, n_flips [B] int32)."""
+    slot_idx, g_lo, n_flips = _flip_slots(g)
+    has_root = (torch.arange(MAX_LINE_CROSSINGS, device=g.device)[None, :]
+                < n_flips[:, None])
+    s_star = _bisect(_cond_along(x0, vvec, vloc, erg, sc, mass_ns, thick), s_grid, slot_idx,
+                     g_lo, BISECT_ITERS)
+    ok = has_root & _accept_at(x0, vvec, erg, s_star, sc, mass_ns)
+    return s_star, ok, n_flips
+
+
+def _pick(geo: _Geometry, s_star, ok, sc: Scene, mass_ns, n_max: int) -> SampleResult:
+    """Draw one of each line's accepted crossings (RayTracer.jl:1615-1647)."""
+    B = ok.shape[0]
     n_accepted = ok.sum(dim=1)
     rand_inx = rng.randint(geo.key_pick, (), 1, n_max + 1)
     success = n_accepted >= rand_inx
     acc_order = torch.cumsum(ok.to(torch.int64), dim=1)
     pick = torch.argmax(((acc_order == rand_inx[:, None]) & ok).to(torch.int8), dim=1)
-    xpos = p_star[torch.arange(B, device=g.device), pick]
+    s_pick = s_star[torch.arange(B, device=ok.device), pick]
+    xpos = geo.x0 + s_pick[:, None] * geo.vvec
 
     v_ifty_mag = torch.sqrt(torch.sum(geo.v_ifty**2, dim=-1))
     rmag = torch.sqrt(torch.sum(xpos**2, dim=-1))
     vmag_loc = torch.sqrt(v_ifty_mag**2 + 2.0 * G_NEW * mass_ns / rmag) / C_KM
     return SampleResult(success=success, xpos=xpos, r_disk=geo.r_rnd,
-                        weight=n_accepted.to(g.dtype), v_loc=vloc * vmag_loc[:, None],
-                        v_ifty=geo.v_ifty / C_KM, erg_inf=erg)
+                        weight=n_accepted.to(s_star.dtype),
+                        v_loc=geo.vvec_loc * vmag_loc[:, None],
+                        v_ifty=geo.v_ifty / C_KM, erg_inf=geo.erg_inf)
 
 
 def sample_batch(key, batch: int, maxR, sc: Scene, mass_ns, *, n_grid: int,
@@ -202,18 +238,19 @@ def sample_batch(key, batch: int, maxR, sc: Scene, mass_ns, *, n_grid: int,
     s_grid = torch.linspace(0.0, 2.2 * maxR, n_grid, dtype=torch.float64,
                             device=key.device).to(dtype)
     if line_engine == "kernel" and thick:
-        from adiabatic_raytracer_tpu_torch.ops.line_scan import line_scan
+        from adiabatic_raytracer_tpu_torch.ops.line_scan import line_roots
 
-        g = line_scan(geo.x0, geo.vvec, geo.vvec_loc, geo.erg_inf, s_grid,
-                      sc, mass_ns).to(dtype)
+        s_star, ok, _ = line_roots(geo.x0, geo.vvec, geo.vvec_loc, geo.erg_inf, s_grid,
+                                   sc, mass_ns)
     elif line_engine in ("plain", "kernel"):
         p = geo.x0[:, None, :] + s_grid[None, :, None] * geo.vvec[:, None, :]
         g = _line_condition(p, geo.vvec_loc[:, None, :], geo.erg_inf[:, None],
                             sc, mass_ns, thick)
+        s_star, ok, _ = _roots(geo.x0, geo.vvec, geo.vvec_loc, geo.erg_inf, g, s_grid, sc,
+                               mass_ns, thick=thick)
     else:
         raise ValueError(f"line_engine must be 'plain' or 'kernel', got {line_engine!r}")
-    return _select(geo, g, s_grid, sc, mass_ns, thick=thick, n_max=n_max,
-                   bisect_iters=50)
+    return _pick(geo, s_star, ok, sc, mass_ns, n_max)
 
 
 def default_n_grid(maxR: float, march_dt: float = 0.5, scan_per_step: int = 20) -> int:

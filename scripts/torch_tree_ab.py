@@ -1,6 +1,7 @@
 """K1, K2, K3 and K4 of two checkouts of the PyTorch + CUDA port on one GPU, in turns.
 
     python3 scripts/torch_tree_ab.py --parent DIR     # DIR: another checkout
+    python3 scripts/torch_tree_ab.py --parent DIR --sampler
 
 Runs the kernels of the checkout at DIR ("parent") and of this one ("this")
 in separate processes, in the order parent, this, this, parent.
@@ -28,6 +29,18 @@ the parent's, and the microseconds per step of the slowest tree.
 
 Each process builds its own checkout's kernels, prints their ptxas figures
 and times each launch with CUDA events (mean of 3 after one warm-up).
+
+With --sampler, each process (parent, this, this, parent, twice) times the
+sampler and the warm kernel path instead: one `sample_batch` of 16384 lines
+at the production default scene (MassA 1e-5, B0 1e14, ThetaM 0.2), f32 as
+the card's CLI samples, through line_engine="kernel" (host clock with a
+synchronise, the median of 3 calls after one warm-up; its successes); and
+the kernel path through the CLI entry point (`cli.run_from_args`, the
+card's defaults: engine mega, --tree_engine auto, event_batch 2048), 4096
+events, saveMode 1, seed 1769, as chip_smoke.py phase 7 runs it: one run to
+warm up, then a timed one (wall, events/s, gate check, sampling and
+pipeline times, the output rows); then the medians per side.
+
 Writes each run's log under chiprun_out/tree_ab/ and its raw outputs under
 build/tree_ab/.  Needs one CUDA device.
 """
@@ -46,6 +59,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RAW = os.path.join(HERE, "build", "tree_ab")
 LOGS = os.path.join(HERE, "chiprun_out", "tree_ab")
 K1_LINES = 16384
+SAMPLER_EVENTS = 4096
 K1_INPUT = f"K1 {K1_LINES} production lines"
 K2_INPUTS = ("K2 backtrace 2048 rays, gated", "K2 backtrace 2048 rays, dense",
              "K2 queue-path launch 700 rays, mixed, one slot", "K2 backtrace 1 ray",
@@ -150,6 +164,72 @@ def worker(root, save, n3):
     torch.save(res, save)
 
 
+def sampler_worker(root, save):
+    """Time sample_batch and the warm kernel path of the checkout at root."""
+    sys.path.insert(0, root)
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from adiabatic_raytracer_tpu_torch import cli
+    from adiabatic_raytracer_tpu_torch.ops import sampler
+    from adiabatic_raytracer_tpu_torch.utils import rng
+
+    spec = importlib.util.spec_from_file_location("smoke", os.path.join(HERE, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    dev = torch.device("cuda")
+    sc, _, _, maxR, n_grid = smoke.scene_setup(dev)
+    key = rng.PRNGKey(1769, device=dev)
+    sample = lambda: sampler.sample_batch(key, K1_LINES, maxR, sc, sc.mass_ns, n_grid=n_grid,
+                                          compute_dtype="f32", line_engine="kernel")
+    succ = int(sample().success.sum())
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.time()
+        sample()
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+    argv = lambda tag: (["--device", "cuda", "--event_batch", "2048", "--Nts",
+                         str(SAMPLER_EVENTS + 1), "--saveMode", "1", "--seed", "1769",
+                         "--dir_tag", os.path.join(RAW, "rows"), "--ftag", tag,
+                         "--tree_engine", "auto"] + smoke.SCENE_ARGS)
+    with open(os.devnull, "w") as null:
+        stdout, sys.stdout = sys.stdout, null
+        try:
+            cli.run_from_args(argv("warm_up"))
+            t0 = time.time()
+            _, path, stats = cli.run_from_args(argv("timed"))
+            wall = time.time() - t0
+        finally:
+            sys.stdout = stdout
+    rows = np.load(path)
+    torch.save({"gpu": smoke.smi_line(), "sample_s": statistics.median(walls),
+                "sample_calls": walls, "successes": succ, "wall": wall,
+                "events_per_s": stats.events / wall, "t_gate": stats.t_gate,
+                "t_sample": stats.t_sample, "t_pipeline": stats.t_pipeline,
+                "rows": int(rows.shape[0]), "weight_sum": float(rows[:, 8].sum())}, save)
+
+
+def report_sampler(runs):
+    """One line per --sampler run, then the medians per side."""
+    import statistics
+
+    for i, (who, r) in enumerate(runs):
+        print(f"[ab] run {i} ({who}): sample_batch {K1_LINES} lines {r['sample_s']:.4f} s "
+              f"(calls " + ", ".join(f"{t:.4f}" for t in r["sample_calls"])
+              + f"; {r['successes']} successes); kernel path {SAMPLER_EVENTS} events warm "
+              f"{r['wall']:.2f} s = {r['events_per_s']:.1f} events/s (gate {r['t_gate']:.2f} s, "
+              f"sample {r['t_sample']:.2f} s, pipeline {r['t_pipeline']:.2f} s), {r['rows']} "
+              f"rows, weight sum {r['weight_sum']:.6g}")
+    med = lambda who, k: statistics.median(r[k] for w, r in runs if w == who)
+    print(f"[ab] {runs[0][1]['gpu']}; medians parent / this: " + "; ".join(
+        f"{k} {med('parent', k):.4g} / {med('this', k):.4g}"
+        for k in ("sample_s", "events_per_s", "wall", "t_gate", "t_sample", "t_pipeline")))
+
+
 def rays_bitwise(a, b):
     """Rays whose 12 K2 outputs are all bit for bit equal (NaN included)."""
     import torch
@@ -174,12 +254,17 @@ def bitwise(a, b):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", help="another checkout of the repo")
+    ap.add_argument("--sampler", action="store_true",
+                    help="time sample_batch and the warm kernel path instead of the kernels")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--save", help=argparse.SUPPRESS)
     ap.add_argument("--rays", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        worker(args.worker, args.save, args.rays)
+        if args.sampler:
+            sampler_worker(args.worker, args.save)
+        else:
+            worker(args.worker, args.save, args.rays)
         return 0
     import torch
 
@@ -203,22 +288,26 @@ def main(argv=None):
     os.makedirs(LOGS, exist_ok=True)
     roots = {"parent": os.path.abspath(args.parent), "this": HERE}
     runs = []
-    for i, who in enumerate(("parent", "this", "this", "parent")):
+    mode = ["--sampler"] if args.sampler else []
+    for i, who in enumerate(("parent", "this", "this", "parent") * (2 if args.sampler else 1)):
         save = os.path.join(RAW, f"run{i}_{who}.pt")
         t0 = time.time()
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker",
-                               roots[who], "--save", save, "--rays", str(n3)], cwd=roots[who],
-                              capture_output=True, text=True, timeout=900)
+                               roots[who], "--save", save, "--rays", str(n3)] + mode,
+                              cwd=roots[who], capture_output=True, text=True, timeout=900)
         with open(os.path.join(LOGS, f"run{i}_{who}.log"), "w") as f:
             f.write(proc.stdout + proc.stderr)
         if proc.returncode != 0:
             print(f"{who} run {i} failed:\n{proc.stderr[-3000:]}", file=sys.stderr)
             return 1
         runs.append((who, torch.load(save)))
-        built = {k: v for k, v in runs[-1][1]["ptxas"].items() if v[0] is not None}
+        built = {k: v for k, v in runs[-1][1].get("ptxas", {}).items() if v[0] is not None}
         print(f"[ab] run {i} ({who}) {time.time() - t0:.1f} s" + (
             "; ptxas (registers, stack, spill stores, loads) "
             + ", ".join(f"{k} {v}" for k, v in built.items()) if built else ""), flush=True)
+    if args.sampler:
+        report_sampler(runs)
+        return 0
     print(f"[ab] {runs[0][1]['gpu']}")
     par, this = runs[0][1][K1_INPUT], runs[1][1][K1_INPUT]
     assert torch.equal(par["x"], this["x"])   # the same lines

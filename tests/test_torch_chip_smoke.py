@@ -26,6 +26,13 @@ ptxas info    : Used 255 registers, used 0 barriers, 480 bytes cumulative stack 
 ptxas info    : Function properties for _ZN12_GLOBAL__N_111mega_kernelILi3EEEvPKdS2_iiPiN3art10MegaParamsEPdS6_S6_S6_S6_S6_S6_
     464 bytes stack frame, 80 bytes spill stores, 48 bytes spill loads
 ptxas info    : Used 255 registers, used 0 barriers, 464 bytes cumulative stack size
+== line_scan.cu
+ptxas info    : Function properties for _ZN45_GLOBAL__N__04f3c17b_12_line_scan_cu_bb73f25f17line_roots_kernelIdEEvPKfS2_PKT_S5_iiiN3art10LineSceneTIfEENS7_IS3_EEPS3_PhPiSC_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 94 registers, used 0 barriers, 1024 bytes smem
+ptxas info    : Function properties for _ZN45_GLOBAL__N__04f3c17b_12_line_scan_cu_bb73f25f17line_roots_kernelIfEEvPKfS2_PKT_S5_iiiN3art10LineSceneTIfEENS7_IS3_EEPS3_PhPiSC_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 55 registers, used 0 barriers, 1024 bytes smem
 == refill_probe.cu
 ptxas info    : Function properties for _ZN12_GLOBAL__N_119refill_probe_kernelEPKfPfiiiiii
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
@@ -41,10 +48,13 @@ def test_ptxas_summary_matches_whole_kernel_names():
     """P1's refill_probe_kernel is not taken for K2's probe_kernel, nor K4's
     tree_refill_kernel for K3's tree_kernel; device functions are skipped;
     K2's dispersion variants are keyed by their template argument, the
-    production one (0) by the plain name."""
+    production one (0) by the plain name, K1's fused kernel by its type."""
     got = chip_smoke.ptxas_summary(LOG)
     assert set(got) == {"probe_kernel", "refill_probe_kernel", "tree_refill_kernel",
-                        "mega_kernel", "mega_kernel<3>"}
+                        "mega_kernel", "mega_kernel<3>", "line_roots_kernel<float>",
+                        "line_roots_kernel<double>"}
+    assert chip_smoke.ptxas_figures(got["line_roots_kernel<float>"]) == (55, 0, 0, 0)
+    assert chip_smoke.ptxas_figures(got["line_roots_kernel<double>"]) == (94, 0, 0, 0)
     assert chip_smoke.ptxas_figures(got["mega_kernel"]) == chip_smoke.K2_PTXAS
     assert chip_smoke.ptxas_figures(got["mega_kernel<3>"]) == (255, 464, 80, 48)
     assert got["probe_kernel"].endswith("Used 96 registers, used 1 barriers")

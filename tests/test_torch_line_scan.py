@@ -139,3 +139,92 @@ def test_sample_batch_bndry_matches_jax(compute_dtype, engine):
                                 1.0, n_grid=768, n_max=6, compute_dtype=compute_dtype,
                                 line_engine=engine)
     assert not torch.equal(got.weight, base.weight)
+
+
+# The fused K1 kernel's algorithm (line_scan.line_roots_warp: the scan in
+# rounds of 32 points with a carry, flips ranked in ballot order, a
+# bisection per slot) against the sampler's torch route (sampler._roots: the
+# top_k compaction and the batched bisection), bit for bit: flip counts,
+# ok, and the intervals and roots of every slot that holds a root.
+
+def sampler_lines(B, dtype, **scene):
+    """B sampling lines of the production default scene (with `scene`'s
+    fields changed) as the sampler draws them, and its grid."""
+    from adiabatic_raytracer_tpu_torch.models.magnetosphere import conversion_surface_radius
+
+    sc = tcfg.Scene(mass_a=1e-5, theta_m=0.2, b0=1e14, **scene)
+    maxR = conversion_surface_radius(sc.mass_a, sc.theta_m, sc.omega_pul, sc.b0, sc.r_ns)
+    geo = sampler._draw(rng.split(rng.PRNGKey(20261017), B), maxR, sc, 220.0, True, dtype)
+    s_grid = torch.linspace(0.0, 2.2 * maxR, sampler.default_n_grid(maxR),
+                            dtype=torch.float64).to(dtype)
+    return sc, (geo.x0, geo.vvec, geo.vvec_loc, geo.erg_inf), s_grid
+
+
+def synthetic_grid(N=200):
+    """Condition grids whose sign changes test the compaction's edges, f32:
+    none, exact zeros, a NaN, more than 16, the last interval, across round
+    boundaries (carry) and the first interval, and seeded random signs."""
+    g = np.ones((8, N), np.float32)
+    g[1, 10:13] = [1.0, 0.0, -1.0]            # through a zero: no flip
+    g[1, 13:] = -1.0
+    g[1, 150:] = 2.0                           # one flip at 149
+    g[2, 20:23] = [1.0, np.nan, -1.0]          # through a NaN: no flip
+    g[2, 23:] = -1.0
+    g[2, 60:] = 0.5                            # one flip at 59
+    g[3, 5:45] = np.where(np.arange(40) % 2, -1.0, 1.0)   # 40 flips
+    g[4, N - 1] = -3.0                         # the last interval only
+    g[5, 32:] = -1.0                           # 31|32, 63|64 and 95|96
+    g[5, 64:] = 1.0
+    g[5, 96:] = -1.0
+    g[6, 1:] = -1.0                            # the first interval
+    r = np.random.default_rng(5).normal(size=N).astype(np.float32)
+    r[::17] = 0.0
+    g[7] = r                                   # dozens of flips, zeros among them
+    return torch.from_numpy(g)
+
+
+def check_warp_model(g32, lines, s_grid, sc):
+    """line_roots_warp on g32 against sampler._roots on g32 in the lines'
+    dtype, bit for bit on every slot that holds a root."""
+    x0 = lines[0]
+    s_w, ok_w, n_w, idx_w = line_scan.line_roots_warp(*lines, g32, s_grid, sc, sc.mass_ns)
+    s_r, ok_r, n_r = sampler._roots(*lines, g32.to(x0.dtype), s_grid, sc, sc.mass_ns)
+    idx_r, g_lo_r, _ = sampler._flip_slots(g32)
+    has = torch.arange(sampler.MAX_LINE_CROSSINGS)[None, :] < n_r[:, None].long()
+    assert n_w.dtype == n_r.dtype == torch.int32 and torch.equal(n_w, n_r)
+    assert torch.equal(idx_w >= 0, has) and torch.equal(idx_w[has], idx_r[has])
+    assert torch.equal(ok_w, ok_r)
+    assert s_w.dtype == x0.dtype and torch.equal(s_w[has], s_r[has])
+    assert bool((s_w[~has] == 0).all())
+    return n_r, ok_r
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("scene", [{}, {"bndry_lyr": 0.5}], ids=["production", "bndry"])
+def test_line_roots_warp_matches_roots(scene, dtype):
+    """On 48 sampling lines of the production and the boundary-layer scene
+    (the f32 grid of line_scan_plain, the bisection in the compute dtype)."""
+    sc, lines, s_grid = sampler_lines(48, dtype, **scene)
+    g32 = line_scan.line_scan_plain(*lines, s_grid, sc, sc.mass_ns)
+    n, ok = check_warp_model(g32, lines, s_grid, sc)
+    assert int((n >= 2).sum()) >= 3 and int(ok.sum()) >= 10
+    # the CPU wrapper is the plain version: the f32 grid, then _roots, with
+    # s_star 0 past the flip count as the kernel writes it
+    s_g, ok_g, n_g = line_scan.line_roots(*lines, s_grid, sc, sc.mass_ns)
+    s_r, ok_r, n_r = sampler._roots(*lines, g32.to(dtype), s_grid, sc, sc.mass_ns)
+    has = torch.arange(sampler.MAX_LINE_CROSSINGS)[None, :] < n_r[:, None]
+    assert torch.equal(n_g, n_r) and torch.equal(ok_g, ok_r)
+    assert torch.equal(s_g, torch.where(has, s_r, torch.zeros_like(s_r)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_line_roots_warp_synthetic_grids(dtype):
+    """On synthetic grids (synthetic_grid) along real lines: the compaction's
+    edge cases, and the bisection and filter of the slots they give."""
+    g32 = synthetic_grid()
+    x0, vvec, vloc, erg, _ = lines(B=8, N=g32.shape[1], seed=3)
+    T = lambda a: torch.as_tensor(a, dtype=dtype)
+    sc = tcfg.Scene(**KW)
+    s_grid = T(np.linspace(0.0, 55.0, g32.shape[1]))
+    n, _ = check_warp_model(g32, (T(x0), T(vvec), T(vloc), T(erg)), s_grid, sc)
+    assert n.tolist() == [0, 1, 1, 40, 1, 3, 1, int(n[7])] and int(n[7]) > 16
