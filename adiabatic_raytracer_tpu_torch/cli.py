@@ -10,8 +10,11 @@ compute dtype f32 (the K1 kernel); on cpu those of the JAX package's CPU
 path (pool engine, event_batch=16, f64).  `--tree_engine auto` picks the
 in-kernel tree engine K3 (`kernel`) when the engine is mega, saveMode <= 1
 and the scene is one the in-kernel probability covers, else the host work
-queue (`queue`), as the JAX CLI does.  Options the port does not run yet
-raise NotImplementedError.
+queue (`queue`), as the JAX CLI does.  `--tree_window -1` (auto) runs the
+queue's streaming window (2048 events, TREE_WINDOW) with one lane per event
+whenever event_batch > 128, the JAX CLI's rule at the width the card ran
+fastest.  Options the port does not run
+yet raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -21,6 +24,14 @@ import dataclasses
 import os
 import sys
 import time
+
+# The streaming window's width under --tree_window auto.  Every width gives
+# the same events at one lane per event; on the H100 the host's per-iteration
+# glue sets the pace, so the widest window ran fastest: queue path, 2048
+# events, pipeline medians 0.591 s at 2048 against 1.134 s at 128 (the JAX
+# value) at the default cutoffs, 0.672 against 1.283 s at 50/10/100
+# (scripts/torch_tree_ab.py --window, NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+TREE_WINDOW = 2048
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -43,8 +54,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vNS_x", type=float, default=0.0, help="vel NS x in c")
     p.add_argument("--vNS_y", type=float, default=0.0, help="vel NS y in c")
     p.add_argument("--vNS_z", type=float, default=0.0, help="vel NS z in c")
-    p.add_argument("--saveMode", type=int, default=0,
-                   help="0: essentials npy; 1: more npy (2/3 not ported yet)")
+    p.add_argument("--saveMode", type=int, default=0, choices=range(4),
+                   help="0: essentials npy; 1: more npy; 2: + clear text; 3: + full tree")
     p.add_argument("--probCutoff", type=float, default=1e-10)
     p.add_argument("--numCutoff", type=int, default=5)
     p.add_argument("--MCNodes", type=int, default=5)
@@ -57,8 +68,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device; 'cuda' (the default) without a card raises")
     p.add_argument("--event_batch", type=int, default=0,
                    help="events per batch; 0 = auto (2048 on cuda, 16 on cpu)")
-    p.add_argument("--tree_window", type=int, default=0,
-                   help="forward-tree streaming window; only 0 (off) is ported")
+    p.add_argument("--tree_window", type=int, default=-1,
+                   help="forward-tree streaming window (active events per "
+                        "iteration; finished events refill from the batch); "
+                        "-1 = auto (2048 when event_batch > 128 on any "
+                        "device), 0 = off")
     p.add_argument("--tree_engine", choices=["auto", "queue", "kernel"], default="auto",
                    help="auto = kernel (K3, whole trees in one kernel) when engine is "
                         "mega, saveMode <= 1 and the scene is covered; else queue")
@@ -77,8 +91,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh", type=int, default=0, help="device mesh (not ported)")
     p.add_argument("--pipeline_depth", type=int, default=0,
                    help="batches in flight; only 0/1 (depth 1) is ported")
-    p.add_argument("--checkpoint", action="store_true", help="not ported")
-    p.add_argument("--resume", action="store_true", help="not ported")
+    p.add_argument("--checkpoint", action="store_true",
+                   help="write a per-batch resume state (RNG key + event "
+                        "counter + partial rows) next to the output npy")
+    p.add_argument("--resume", action="store_true",
+                   help="resume a killed run from its checkpoint")
     return p
 
 
@@ -106,8 +123,12 @@ def run_from_args(argv=None):
                      else args.computeDtype)
     engine = ("mega" if on_cuda else "pool") if args.engine == "auto" else args.engine
     event_batch = args.event_batch if args.event_batch > 0 else (2048 if on_cuda else 16)
+    # auto: the JAX CLI's rule (JAX cli.py:161-171); every width gives the
+    # same events at one lane per event, so the width is a schedule choice
+    tree_window = args.tree_window if args.tree_window >= 0 else (
+        TREE_WINDOW if event_batch > 128 else 0)
     cfg = NumericsConfig(atol=1e-6, rtol=1e-7, compute_dtype=compute_dtype,
-                         engine=engine, tree_window=args.tree_window,
+                         engine=engine, tree_window=tree_window,
                          tree_engine=args.tree_engine, tree_kernel_chunk=args.tree_kernel_chunk,
                          **({"scan_gate_check": args.scan_gate_check}
                             if args.scan_gate_check >= 0 else {}))
@@ -124,7 +145,8 @@ def run_from_args(argv=None):
     t0 = time.time()
     out = None
     if args.run_RT == 1:
-        os.makedirs(os.path.join(args.dir_tag, "npy"), exist_ok=True)
+        for sub in ("npy", "event", "tree"):
+            os.makedirs(os.path.join(args.dir_tag, sub), exist_ok=True)
         out = run(sc, cfg, tcfg, args.Nts, seed=args.seed, save_mode=args.saveMode,
                   file_tag=args.ftag, dir_tag=args.dir_tag, event_batch=event_batch,
                   mesh_devices=args.mesh, checkpoint=args.checkpoint, resume=args.resume,

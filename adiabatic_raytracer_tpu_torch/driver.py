@@ -2,9 +2,12 @@
 
 Port of adiabatic_raytracer_tpu/driver.py at pipeline depth 1.  Per batch:
 conversion-surface sampling -> launch kinematics and importance weights ->
-axion backtrace -> forward photon tree -> row assembly and npy output.
+axion backtrace -> forward photon tree -> row assembly and npy output, and
+at saveMode 2/3 the reference's event_/final_ text and per-event tree dumps.
 Everything up to row assembly runs as torch on `device`; row assembly and
-file writing are host numpy.
+file writing are host numpy.  checkpoint=True writes a resume state after
+every batch, in the JAX package's format, so either package resumes a run
+the other stopped.
 
 Sampling-attempt accounting reproduces the reference's f_inx bookkeeping
 (MainRunner.jl:401,469-477,711-713,749), and the random stream is the JAX
@@ -21,7 +24,9 @@ applied at row assembly, so the column semantics are unchanged.
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -39,6 +44,8 @@ from adiabatic_raytracer_tpu_torch.ops.dispersion import k_norm_cart, k_sphere
 from adiabatic_raytracer_tpu_torch.ops.geometry import cart_to_sph
 from adiabatic_raytracer_tpu_torch.utils import rng
 from adiabatic_raytracer_tpu_torch.utils.npyio import save_npy, tree_filename
+from adiabatic_raytracer_tpu_torch.utils.textio import EventFiles, TreeFile
+
 
 @dataclass
 class RunStats:
@@ -56,6 +63,7 @@ class RunStats:
     t_pipeline: float = 0.0   # kinematics + backtrace + tree (s)
     t_rows: float = 0.0       # host row assembly (s)
     t_gate: float = 0.0       # per-scene scan-gate census check (s)
+    t_text: float = 0.0       # saveMode >= 2 text and tree writers (s)
     vns: tuple = (0.0, 0.0, 0.0)
     scan_gate: str = "off"    # "off" | "ok" | "widened" | "fallback_plain" | "unchecked"
 
@@ -64,13 +72,13 @@ def check_ported(cfg: NumericsConfig, *, save_mode: int = 0, mesh_devices: int =
                  pipeline_depth: int = 0, checkpoint: bool = False,
                  resume: bool = False):
     """Raise NotImplementedError on options the port does not run yet, naming
-    the ROADMAP item; none of them quietly runs something else.  A
-    tree_engine='kernel' configuration K3 does not cover raises in
-    tree.forward_tree."""
+    the ROADMAP item; none of them quietly runs something else.  Every run
+    option comes through here, so one that is not ported fails before
+    anything runs.  A tree_engine='kernel' configuration K3 does not cover
+    raises in tree.forward_tree."""
     todo = [
         (cfg.engine == "pool_compact", "engine='pool_compact' (ROADMAP Queue 1, Streaming)"),
         (cfg.engine not in ("pool", "mega", "pool_compact"), f"engine={cfg.engine!r}"),
-        (cfg.tree_window > 0, "tree_window > 0 (ROADMAP Queue 1, tree_window)"),
         (cfg.backtrace_chunk > 0, "backtrace_chunk > 0, K2's chunked relaunch, left unported on "
          "purpose (ROADMAP Queue 1, left unported on purpose)"),
         (bool(cfg.mc_chain), "mc_chain, left unported on purpose (ROADMAP Queue 1, left unported "
@@ -78,10 +86,8 @@ def check_ported(cfg: NumericsConfig, *, save_mode: int = 0, mesh_devices: int =
         (cfg.rhs_mode != "hand" or cfg.cond_mode != "fast" or cfg.gate_trig != "precise",
          "rhs_mode='vjp' / cond_mode='canonical' / gate_trig='native', left unported on "
          "purpose (ROADMAP Queue 1, left unported on purpose)"),
-        (save_mode >= 2, "saveMode >= 2 text and tree dumps (ROADMAP Queue 1, saveMode 2/3)"),
         (mesh_devices > 1, "mesh_devices > 1 (ROADMAP Queue 1, mesh / torch.distributed)"),
         (pipeline_depth > 1, "pipeline_depth > 1 (ROADMAP Queue 1, pipeline depth 2)"),
-        (checkpoint or resume, "checkpoint/resume (ROADMAP Queue 1, checkpoint/resume)"),
     ]
     for bad, what in todo:
         if bad:
@@ -147,7 +153,7 @@ def packed_sample(key, b, maxR, sc: Scene, cfg: NumericsConfig, n_grid, n_max,
 
 def scan_gate_census_check(sc: Scene, cfg: NumericsConfig, maxR, lnt_end, *,
                            n_events: int = 256, seed: int = 0x5CA9,
-                           rel_tol: float = 1e-2, device="cpu"):
+                           rel_tol: float = 1e-2, device="cuda"):
     """Per-scene validation of the gated event scan (driver.py:181 of the
     reference): backtrace an n_events conversion-surface ensemble with the
     gate and with the plain dense scan (interp_coarse=0), compare per-event
@@ -235,8 +241,9 @@ def _apply_scan_gate_guard(sc: Scene, cfg: NumericsConfig, maxR, lnt_end,
 def pipeline(keys, xpos, v_loc, erg_inf, sc: Scene, cfg: NumericsConfig,
              tcfg: TreeConfig, maxR, lnt_end):
     """Kinematics -> backtrace -> forward tree for one batch.  Returns the
-    finals pack [cap+1, 14] and the per-event pack [E, 12] (the reference's
-    combined pack without its padding)."""
+    finals pack [cap+1, 14], the per-event pack [E, 12] (the reference's
+    combined pack without its padding), the backtrace result and the tree's
+    pools (the last two for the saveMode >= 2 writers)."""
     E = xpos.shape[0]
     k_init, sln_base, cos_w, _ = _event_kinematics(xpos, v_loc, erg_inf, sc)
     bt = tree.backtrace(xpos, k_init, erg_inf, sc, cfg, tcfg, lnt_end=lnt_end)
@@ -248,7 +255,7 @@ def pipeline(keys, xpos, v_loc, erg_inf, sc: Scene, cfg: NumericsConfig,
     ev = torch.cat([one(sln_base), one(cos_w), one(tr.count), one(tr.info),
                     one(tr.dw_anomalies), one(bt.samp_back_weight), one(bt.prob0),
                     one(bt.c_bck), k_init.to(d), one(tr.n_iters)], dim=1)
-    return fin, ev
+    return fin, ev, bt, tr.pools
 
 
 def vns_spherical(v_ns):
@@ -265,6 +272,112 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _ckpt_paths(out_path: str):
+    d, base = os.path.split(out_path)
+    return (os.path.join(d, f".ckpt_{base}.json"),
+            os.path.join(d, f".ckpt_{base}.partial.npy"))
+
+
+def _write_checkpoint(out_path: str, key, succ_rate, event_no, remaining,
+                      stats: RunStats, rows):
+    """The resume state after a batch (driver.py:414-436 of the reference, in
+    its format): the carried key as a list of uint32, the sampler's success
+    estimate, the event counter and the accounting in JSON, the partial rows
+    in a sibling .npy."""
+    jpath, npath = _ckpt_paths(out_path)
+    os.makedirs(os.path.dirname(jpath) or ".", exist_ok=True)
+    if rows:
+        np.save(npath, np.concatenate(rows, axis=0))
+    state = {
+        "key": rng.key_to_jax(key).tolist(),
+        "succ_rate": succ_rate,
+        "event_no": event_no,
+        "remaining": remaining,
+        "stats": {k: v for k, v in dataclasses.asdict(stats).items() if k != "info_hist"},
+        "info_hist": {str(k): v for k, v in stats.info_hist.items()},
+        "has_rows": bool(rows),
+    }
+    with open(jpath + ".tmp", "w") as f:
+        json.dump(state, f)
+    os.replace(jpath + ".tmp", jpath)
+
+
+def _load_checkpoint(out_path: str, stats: RunStats):
+    """The resume state next to out_path, written by either package, or None:
+    (key, succ_rate, event_no, remaining, rows).  Sets the fields of `stats`
+    the port has and ignores the reference's other timers."""
+    jpath, npath = _ckpt_paths(out_path)
+    if not os.path.exists(jpath):
+        return None
+    with open(jpath) as f:
+        state = json.load(f)
+    names = {f.name for f in dataclasses.fields(RunStats)} - {"info_hist"}
+    for k, v in state["stats"].items():
+        if k in names:
+            setattr(stats, k, v)
+    stats.info_hist = {int(k): v for k, v in state["info_hist"].items()}
+    rows = [np.load(npath)] if state.get("has_rows") and os.path.exists(npath) else []
+    return (rng.key_from_jax(state["key"]), state["succ_rate"], state["event_no"],
+            state["remaining"], rows)
+
+
+def _clear_checkpoint(out_path: str):
+    for p in _ckpt_paths(out_path):
+        if os.path.exists(p):
+            os.remove(p)
+
+
+def _host(nt, names):
+    """The named fields of a result tuple as numpy, one copy each."""
+    return {n: getattr(nt, n).cpu().numpy() for n in names}
+
+
+def _write_text(ev_files: EventFiles, save_mode: int, dir_tag: str, file_tag: str,
+                event_no: int, t_event: float, bt, pools, ev: dict, fin: dict):
+    """One batch's event_/final_ lines and, at saveMode 3, its tree_ files
+    (driver.py:803-858 of the reference).  The event head carries the
+    incoming axion, the backtrace's endpoint (nb.x[end], nb.kx[end],
+    MainRunner.jl:600-607); a tree file holds the backtraced axion, then the
+    processed nodes in processing order."""
+    batch = ev["count"].shape[0]
+    b = _host(bt, ("x_end", "k_end") + (("raw_n_cross", "weight", "prob0", "xc", "raw_tc",
+                                          "traj", "times") if save_mode > 2 else ()))
+    if save_mode > 2:
+        p = _host(pools, ("order", "status", "has_cross", "is_photon", "weight", "prob",
+                          "parent_weight", "xc", "tcx", "traj", "times"))
+    fstart = np.searchsorted(fin["e_ids"], np.arange(batch))
+    fend = np.searchsorted(fin["e_ids"], np.arange(batch), side="right")
+    for e in range(batch):
+        en = event_no + e
+        ev_files.write_event_head(en, ev["v_ifty"][e], float(ev["sln"][e]), b["x_end"][e],
+                                  b["k_end"][e], ev["xpos"][e], ev["k_init"][e])
+        if save_mode > 2:
+            tree_f = TreeFile(dir_tag, file_tag, en)
+            nraw = int(b["raw_n_cross"][e])
+            cross = (dict(xc=b["xc"][e, :nraw, 0], yc=b["xc"][e, :nraw, 1],
+                          zc=b["xc"][e, :nraw, 2], tc=b["raw_tc"][e, :nraw]) if nraw else {})
+            tree_f.save_node("axion", float(b["weight"][e]), float(b["prob0"][e]), 1.0,
+                             traj=b["traj"][e], times=b["times"][e], **cross)
+            proc = np.nonzero(p["status"][e] == 2)[0]
+            proc = proc[np.argsort(p["order"][e][proc], kind="stable")]
+            for q in proc:
+                cross = (dict(xc=[p["xc"][e, q, 0]], yc=[p["xc"][e, q, 1]],
+                              zc=[p["xc"][e, q, 2]], tc=[p["tcx"][e, q]])
+                         if p["has_cross"][e, q] else {})
+                tree_f.save_node("photon" if p["is_photon"][e, q] else "axion",
+                                 float(p["weight"][e, q]), float(p["prob"][e, q]),
+                                 float(p["parent_weight"][e, q]), traj=p["traj"][e, q],
+                                 times=p["times"][e, q], **cross)
+            tree_f.close()
+        for j in range(fstart[e], fend[e]):
+            ev_files.write_final(en, float(fin["weight"][j]), int(fin["species"][j]),
+                                 float(fin["theta_f"][j]), float(fin["phi_f"][j]),
+                                 float(fin["absf"][j]), float(fin["theta_fx"][j]),
+                                 float(fin["phi_fx"][j]), float(fin["absfx"][j]),
+                                 float(fin["t"][j]))
+        ev_files.write_event_tail(t_event, int(ev["count"][e]))
+
+
 def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
         seed: int = -1, save_mode: int = 0, file_tag: str = "",
         dir_tag: str = "results", event_batch: int = 16, fix_time: float = 0.0,
@@ -275,13 +388,26 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
     """Run the pipeline on `device` (the card unless the caller asks for the
     CPU); returns (rows, output path, stats), or None when the conversion
     surface lies inside the star (MainRunner.jl:389-396).  `device` is used
-    as given: "cuda" without a card raises."""
+    as given: "cuda" without a card raises.
+
+    save_mode 2/3 also writes <dir_tag>/event/event_<file_tag> and final_,
+    and at 3 one <dir_tag>/tree/tree_<file_tag><event> per event.
+    checkpoint=True writes the resume state next to the output file after
+    every batch; resume=True continues from it with the same random stream,
+    appending to the text streams.  max_batches stops early: the checkpoint
+    stays, and the npy is written only when the run completes."""
     check_ported(cfg, save_mode=save_mode, mesh_devices=mesh_devices,
                  pipeline_depth=pipeline_depth, checkpoint=checkpoint, resume=resume)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() "
                            "is false")
+    if save_mode > 1 and cfg.tree_engine == "kernel":
+        # the dumps need every node's records, which K3 keeps for the finals
+        # only: the reference's recorded choice (driver.py:492-505 there)
+        cfg = dataclasses.replace(cfg, tree_engine="queue")
+        if verbose:
+            print("saveMode >= 2 writes every node's records: tree_engine kernel -> queue")
     t_run0 = time.time()
     stats = RunStats()
     if seed < 0:
@@ -301,21 +427,30 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
     out_path = tree_filename(dir_tag, sc.mass_a, sc.ax_g, sc.theta_m, sc.omega_pul,
                              sc.b0, n_trajs, ntimes, tcfg.num_cutoff, tcfg.mc_nodes,
                              tcfg.max_nodes, file_tag)
-    if verbose:
-        print(f"Using seed {stats.seed}")
-    t_g0 = time.time()
-    cfg = _apply_scan_gate_guard(sc, cfg, maxR, lnt_end, stats, device)
-    _sync(device)
-    stats.t_gate = time.time() - t_g0
 
     rows: list = []
     event_no = 1
     remaining = n_trajs - 1   # the reference loop runs while photon_trajs < Ntajs
     succ_rate = 0.25
     key = rng.PRNGKey(stats.seed, device=device)
+    ck = _load_checkpoint(out_path, stats) if resume else None
+    if ck is not None:
+        key, succ_rate, event_no, remaining, rows = ck
+        key = key.to(device)
+        if verbose:
+            print(f"Resuming at event {event_no} ({remaining} remaining)")
+    if verbose:
+        print(f"Using seed {stats.seed}")
+    t_g0 = time.time()
+    cfg = _apply_scan_gate_guard(sc, cfg, maxR, lnt_end, stats, device)
+    _sync(device)
+    stats.t_gate += time.time() - t_g0
+
     base_key = rng.PRNGKey(stats.seed, device=device)
     stats.vns = vns_spherical(sc.v_ns)
     scale = sln_scale(sc, maxR, tcfg)
+    ev_files = (EventFiles(dir_tag, file_tag, append=ck is not None)
+                if save_mode > 1 else None)
     batches = 0
 
     while remaining > 0 and (max_batches is None or batches < max_batches):
@@ -357,11 +492,12 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
         tens = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64,
                                          device=device)
         keys = rng.fold_in(base_key, torch.arange(batch, device=device) + event_no)
-        fin_t, ev_t = pipeline(keys, tens(samp[:, 0:3]), tens(samp[:, 3:6]),
-                               tens(samp[:, 6]), sc, cfg, tcfg, maxR, lnt_end)
+        fin_t, ev_t, bt, pools = pipeline(keys, tens(samp[:, 0:3]), tens(samp[:, 3:6]),
+                                          tens(samp[:, 6]), sc, cfg, tcfg, maxR, lnt_end)
         fp = fin_t.cpu().numpy()
         evp = ev_t.cpu().numpy()
-        stats.t_pipeline += time.time() - t1
+        t_batch = time.time() - t1
+        stats.t_pipeline += t_batch
         stats.tree_iters += int(evp[:, 11].max())
 
         # --- host row assembly (MainRunner.jl:670-729) ---
@@ -393,18 +529,18 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
         species_id = fin[:, 1]
         fpos = fin[:, 8:11]
         fmom = fin[:, 11:14]
+        absf = np.linalg.norm(fmom, axis=1)
         absfx = np.linalg.norm(fpos, axis=1)
+        theta_f, phi_f = np.arccos(fmom[:, 2] / absf), np.arctan2(fmom[:, 1], fmom[:, 0])
+        theta_fx, phi_fx = np.arccos(fpos[:, 2] / absfx), np.arctan2(fpos[:, 1], fpos[:, 0])
         weight = fin[:, 3] * sbw_ev[e_ids]                   # MainRunner.jl:686
         optical_depth = np.zeros(nfin)
         weight_c = np.ones(nfin)
         weight_tmp = weight * (weight_c**2 * np.exp(-optical_depth))
         vel_eng = np.sum(v_ifty**2, axis=1) / 2.0
         base = np.stack([
-            (event_no + e_ids).astype(np.float64), species_id,
-            np.arccos(fmom[:, 2] / np.linalg.norm(fmom, axis=1)),
-            np.arctan2(fmom[:, 1], fmom[:, 0]),
-            np.arccos(fpos[:, 2] / absfx), np.arctan2(fpos[:, 1], fpos[:, 0]), absfx,
-            sln_np[e_ids], weight_tmp, xpos_np[e_ids, 0], xpos_np[e_ids, 1],
+            (event_no + e_ids).astype(np.float64), species_id, theta_f, phi_f, theta_fx,
+            phi_fx, absfx, sln_np[e_ids], weight_tmp, xpos_np[e_ids, 0], xpos_np[e_ids, 1],
             xpos_np[e_ids, 2], fin[:, 2] / float(sc.mass_a) + vel_eng[e_ids]], axis=1)
         if save_mode > 0:
             extra = np.stack([
@@ -419,25 +555,42 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
         stats.f_inx += int((species_id == 1).sum())          # MainRunner.jl:711-713
         stats.finals += nfin
         stats.t_rows += time.time() - t2
+
+        if save_mode > 1:
+            t3 = time.time()
+            _write_text(ev_files, save_mode, dir_tag, file_tag, event_no, t_batch / batch,
+                        bt, pools,
+                        dict(v_ifty=v_ifty, sln=sln_np, xpos=xpos_np, k_init=k_init_np,
+                             count=count_np),
+                        dict(e_ids=e_ids, weight=weight, species=species_id.astype(np.int64),
+                             theta_f=theta_f, phi_f=phi_f, absf=absf, theta_fx=theta_fx,
+                             phi_fx=phi_fx, absfx=absfx, t=fin[:, 7]))
+            stats.t_text += time.time() - t3
         event_no += batch
         stats.events += batch
         remaining -= batch
         batches += 1
+        if checkpoint:
+            _write_checkpoint(out_path, key, succ_rate, event_no, remaining, stats, rows)
 
     _sync(device)
     save_all = (np.concatenate(rows, axis=0).astype(np.float64) if rows
                 else np.zeros((0,)))
     if remaining > 0:
+        if verbose:
+            print(f"Stopping after {batches} batches ({remaining} events remaining; "
+                  f"checkpoint {'written' if checkpoint else 'NOT written'})")
         stats.wall_time = time.time() - t_run0
         return save_all, out_path, stats
     if save_all.size:
         save_all[:, 7] /= float(stats.f_inx) if stats.f_inx else 1.0
     save_npy(out_path, save_all)
+    _clear_checkpoint(out_path)
     stats.wall_time = time.time() - t_run0
     if verbose:
         print(f"events={stats.events} finals={stats.finals} f_inx={stats.f_inx} "
               f"nodes={stats.tot_nodes} info={stats.info_hist} "
               f"wall={stats.wall_time:.1f}s (gate {stats.t_gate:.1f} sample "
-              f"{stats.t_sample:.1f} pipe {stats.t_pipeline:.1f} rows {stats.t_rows:.1f}) "
-              f"-> {out_path}")
+              f"{stats.t_sample:.1f} pipe {stats.t_pipeline:.1f} rows {stats.t_rows:.1f} "
+              f"text {stats.t_text:.1f}) -> {out_path}")
     return save_all, out_path, stats

@@ -242,9 +242,16 @@ def forward_tree(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
     """Forward branching tree from the MC-selected conversion point
     (get_tree, MainRunner.jl:126-352; parent photon MainRunner.jl:653-664).
     `key`: per-event keys [E, 2] or one key (per-event keys then fold in the
-    batch index).  Host work-queue engine without the streaming window, or,
-    at cfg.tree_engine='kernel', the in-kernel tree engine K3
-    (ops/treekernel.forward_tree_kernel).
+    batch index).  Host work-queue engine, or, at cfg.tree_engine='kernel',
+    the in-kernel tree engine K3 (ops/treekernel.forward_tree_kernel).
+
+    cfg.tree_window = N (0 < N < E) runs the loop over an N-wide streaming
+    window (tree.py:288-294 of the reference): the pools hold all E events,
+    each iteration gathers the rows of the events the window holds, and a
+    finished event's window lane takes the batch's next unstarted event.  At
+    equal K every per-event field is bitwise the unwindowed engine's
+    whenever the work queue covers all valid lanes; only n_iters and done_it
+    differ.
 
     `skip`: optional [E] bool; events marked True start done (their pools
     hold only the seeded root).  K3's host replay uses it to run only the
@@ -256,9 +263,6 @@ def forward_tree(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
 
         return forward_tree_kernel(key, xpos, k_init, erg_inf, sc, cfg, tcfg,
                                    lnt_end=lnt_end)
-    if cfg.tree_window > 0:
-        raise NotImplementedError("tree_window > 0 (streaming window) is not "
-                                  "ported (ROADMAP Queue 1, tree_window)")
     if cfg.mc_chain:
         raise NotImplementedError("mc_chain is left unported on purpose "
                                   "(ROADMAP Queue 1, left unported on purpose)")
@@ -266,7 +270,16 @@ def forward_tree(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
     dev, dtype = xpos.device, xpos.dtype
     P = 2 * tcfg.max_nodes + 4
     NS = cfg.n_save
-    K = int(min(P, cfg.tree_k)) if cfg.tree_k > 0 else int(min(P, tcfg.mc_nodes + 2))
+    # Lanes per event per iteration (tree.py:320-327 of the reference): under
+    # the window K = 1, the reference's exact per-node cutoffs; unwindowed
+    # K = mc_nodes + 2, the bound on pending nodes, keeps a draining batch's
+    # launches wide.
+    if cfg.tree_k > 0:
+        K = int(min(P, cfg.tree_k))
+    elif cfg.tree_window > 0:
+        K = 1
+    else:
+        K = int(min(P, tcfg.mc_nodes + 2))
     mega = cfg.engine == "mega"
     if mega:
         from adiabatic_raytracer_tpu_torch.ops.megakernel import can_prob, propagate_mega
@@ -297,18 +310,45 @@ def forward_tree(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
             else skip.to(device=dev, dtype=torch.bool).clone())
     it = 0
 
-    W = max(((2 * E + 127) // 128) * 128, 128)
-    W = int(min(E * K, max(W, E)))
+    # The window and the work-queue width (tree.py:374-386): lane i of the
+    # window holds event aw[i]; W and the global compaction follow Ew.
+    Ew = E if cfg.tree_window <= 0 else int(min(cfg.tree_window, E))
+    streaming = Ew < E
+    aw = torch.arange(Ew, device=dev)
+    cursor = torch.tensor(Ew, device=dev)        # next unstarted event
+    W = max(((2 * Ew + 127) // 128) * 128, 128)
+    W = int(min(Ew * K, max(W, Ew)))
     jr = torch.arange(K, device=dev)[None, :]
-    eK = torch.arange(E, device=dev)[:, None].expand(E, K)
     ln_floor = math.exp(float(cfg.ln_t_start))
+    if streaming:
+        # the window's makespan bound: Ew lanes, E events, each event
+        # holding its lane for at most max_nodes + 2 iterations
+        # (tree.py:992-999)
+        it_cap = (E // Ew + 2) * (tcfg.max_nodes + 2)
+        row = lambda a: a[aw]
 
-    while bool((~done).any()) and it <= tcfg.max_nodes + 1:
-        pending = pl.status == 1
+        def put(full, new_w):
+            full[aw] = new_w
+            return full
+
+        def running():
+            return it <= it_cap and bool((~done[aw]).any() | (cursor < E))
+    else:
+        row = lambda a: a
+        put = lambda full, new_w: new_w
+
+        def running():
+            return it <= tcfg.max_nodes + 1 and bool((~done).any())
+
+    while running():
+        eK = aw[:, None].expand(Ew, K)
+        done_w, count_w = row(done), row(count)
+        pending = row(pl.status) == 1
         has_pending = pending.any(dim=1)
-        active = ~done & has_pending
-        wmask = torch.where(pending & active[:, None], pl.weight,
-                            torch.full_like(pl.weight, -math.inf)).to(skey)
+        active = ~done_w & has_pending
+        wts = row(pl.weight)
+        wmask = torch.where(pending & active[:, None], wts,
+                            torch.full_like(wts, -math.inf)).to(skey)
         top_w, top_idx = _stable_top(wmask, K)
         valid = torch.isfinite(top_w)
         g2 = lambda buf: buf[eK, top_idx]
@@ -316,28 +356,29 @@ def forward_tree(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
         is_ph = g2(pl.is_photon)
         dw_node = torch.where(valid, g2(pl.dw), torch.full_like(w_node, -1.0))
         prob_conv_parent = g2(pl.prob_conv)
-        count_now = count[:, None] + 1 + jr
+        count_now = count_w[:, None] + 1 + jr
 
-        if W < E * K:
+        if W < Ew * K:
             # global work-queue compaction; every event's lead lane outranks
             # all others so chains always progress
             gkey = torch.where(valid, w_node.to(skey), torch.full_like(top_w, -math.inf))
             gkey = gkey + torch.where(jr == 0, 4.0, 0.0).to(skey)
-            topv, gsel = _stable_top(gkey.reshape(E * K), W)
-            sel = torch.zeros(E * K, dtype=torch.bool, device=dev)
+            topv, gsel = _stable_top(gkey.reshape(Ew * K), W)
+            sel = torch.zeros(Ew * K, dtype=torch.bool, device=dev)
             sel[gsel] = torch.isfinite(topv)
-            nsel = sel.reshape(E, K).sum(dim=1)
+            nsel = sel.reshape(Ew, K).sum(dim=1)
             valid = valid & (jr < nsel[:, None])
 
-        ve, vj = valid.nonzero(as_tuple=True)          # event-major lane order
+        vw, vj = valid.nonzero(as_tuple=True)          # window-major lane order
+        ve = aw[vw]                                    # the lanes' events
         L = ve.shape[0]
-        slot = top_idx[ve, vj]
+        slot = top_idx[vw, vj]
         t_node = pl.t[ve, slot]
         lnt0 = torch.log(torch.clamp(t_node, min=ln_floor))
         erg_l = erg_inf[ve]
-        kw = dict(erg=erg_l, delta_w=dw_node[ve, vj], lnt0=lnt0,
+        kw = dict(erg=erg_l, delta_w=dw_node[vw, vj], lnt0=lnt0,
                   lnt1=torch.full((L,), float(lnt_end), dtype=dtype, device=dev),
-                  is_photon=is_ph[ve, vj], species="mixed")
+                  is_photon=is_ph[vw, vj], species="mixed")
         pcx_l = None
         if L == 0:
             res = None
@@ -350,14 +391,14 @@ def forward_tree(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
                             max_crossings=torch.ones(L, dtype=torch.int64, device=dev),
                             **kw)
 
-        has_x = torch.zeros((E, K), dtype=torch.bool, device=dev)
+        has_x = torch.zeros((Ew, K), dtype=torch.bool, device=dev)
         rare = torch.zeros_like(has_x)
         if L:
             hx = res.n_cross >= 1
             kc0 = res.kc[:, 0]
             rr = hx & (torch.abs(kc0) > 1.0).any(dim=1)   # MainRunner.jl:213-224
-            has_x[ve, vj] = hx
-            rare[ve, vj] = rr
+            has_x[vw, vj] = hx
+            rare[vw, vj] = rr
             ok_l = hx & ~rr
             pcx_lane = torch.zeros(L, dtype=dtype, device=dev)
             if pcx_l is not None:
@@ -376,7 +417,7 @@ def forward_tree(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
             pl.mom[ve, slot] = res.mom
             pl.times[ve, slot] = res.times
             pl.has_cross[ve, slot] = ok_l
-            pl.order[ve, slot] = count_now[ve, vj]
+            pl.order[ve, slot] = count_now[vw, vj]
             oi = ok_l.nonzero().squeeze(1)
             eo, so = ve[oi], slot[oi]
             pl.xc[eo, so] = res.xc[oi, 0]
@@ -391,21 +432,21 @@ def forward_tree(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
 
         cross_ok = has_x & ~rare
         no_cross = valid & ~has_x
-        tot_prob = tot_prob + torch.where(no_cross | rare, w_node,
-                                          torch.zeros_like(w_node)).sum(dim=1)
-        count_main = count_main + no_cross.sum(dim=1)
+        tot_prob_w = row(tot_prob) + torch.where(no_cross | rare, w_node,
+                                                 torch.zeros_like(w_node)).sum(dim=1)
+        count_main_w = row(count_main) + no_cross.sum(dim=1)
         dw_bad = valid & ((dw_node > -0.5) | (dw_node < -2.0))
-        dw_anom = dw_anom + dw_bad.sum(dim=1)
+        dw_anom = put(dw_anom, row(dw_anom) + dw_bad.sum(dim=1))
 
         # spawn children (MainRunner.jl:278-305); the MC draw folds the
         # per-event node index into the event key
-        pcx = torch.zeros((E, K), dtype=dtype, device=dev)
+        pcx = torch.zeros((Ew, K), dtype=dtype, device=dev)
         convert = torch.zeros_like(cross_ok)
         if L:
-            pcx[ve, vj] = pcx_lane
+            pcx[vw, vj] = pcx_lane
             ci = cross_ok.nonzero(as_tuple=True)
             if ci[0].numel():
-                sub = rng.fold_in(keys[ci[0]], count_now[ci])
+                sub = rng.fold_in(keys[aw[ci[0]]], count_now[ci])
                 convert[ci] = rng.uniform(sub, dtype=dtype) < pcx[ci]
         spawn = cross_ok
         mc_mode = count_now > tcfg.mc_nodes
@@ -416,7 +457,8 @@ def forward_tree(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
         a_weight = torch.where(mc_mode, w_node, pcx * w_node)
         a_pc0 = torch.where(mc_mode, torch.where(convert, pcx, prob_conv_parent), pcx)
         n_child = torch.where(spawn, torch.where(mc_mode, 1, 2), 0).to(torch.int64)
-        base = n_alloc[:, None] + torch.cumsum(n_child, dim=1) - n_child
+        n_alloc_w = row(n_alloc)
+        base = n_alloc_w[:, None] + torch.cumsum(n_child, dim=1) - n_child
         write_a = spawn & (base < P)
         write_b = spawn & ~mc_mode & (base + 1 < P)
         g_xc = g2(pl.xc)
@@ -428,32 +470,49 @@ def forward_tree(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
                 (write_b, base + 1, is_ph, 1.0 - pcx, (1.0 - pcx) * w_node,
                  prob_conv_parent)):
             we, wj = wr.nonzero(as_tuple=True)
+            ev = aw[we]
             s = sl[we, wj]
-            pl.pos[we, s] = g_xc[we, wj]
-            pl.k[we, s] = g_kc[we, wj]
-            pl.t[we, s] = g_tc[we, wj]
-            pl.dw[we, s] = g_dw[we, wj]
-            pl.is_photon[we, s] = species[we, wj]
-            pl.prob[we, s] = prob[we, wj]
-            pl.weight[we, s] = weight[we, wj]
-            pl.parent_weight[we, s] = w_node[we, wj]
-            pl.prob_conv[we, s] = pcx[we, wj]
-            pl.prob_conv0[we, s] = pc0[we, wj]
-            pl.status[we, s] = 1
-        n_alloc = n_alloc + write_a.sum(dim=1) + write_b.sum(dim=1)
-        count = count + valid.sum(dim=1)
+            pl.pos[ev, s] = g_xc[we, wj]
+            pl.k[ev, s] = g_kc[we, wj]
+            pl.t[ev, s] = g_tc[we, wj]
+            pl.dw[ev, s] = g_dw[we, wj]
+            pl.is_photon[ev, s] = species[we, wj]
+            pl.prob[ev, s] = prob[we, wj]
+            pl.weight[ev, s] = weight[we, wj]
+            pl.parent_weight[ev, s] = w_node[we, wj]
+            pl.prob_conv[ev, s] = pcx[we, wj]
+            pl.prob_conv0[ev, s] = pc0[we, wj]
+            pl.status[ev, s] = 1
+        n_alloc = put(n_alloc, n_alloc_w + write_a.sum(dim=1) + write_b.sum(dim=1))
+        count_w = count_w + valid.sum(dim=1)
 
         # cutoffs (MainRunner.jl:324-339), checked once per iteration
-        hit2 = active & (tot_prob >= 1.0 - tcfg.prob_cutoff)
-        info = torch.where(hit2 & ~done, 2, info)
-        done = done | hit2
-        hit3 = active & (count_main >= tcfg.num_cutoff)
-        info = torch.where(hit3 & ~done, 3, info)
-        done = done | hit3
-        hit4 = active & (count > tcfg.max_nodes)
-        info = torch.where(hit4 & ~done, 4, info)
-        done = done | hit4 | ~has_pending
-        done_it = torch.where(done & (done_it == 0), it + 1, done_it)
+        info_w = row(info)
+        hit2 = active & (tot_prob_w >= 1.0 - tcfg.prob_cutoff)
+        info_w = torch.where(hit2 & ~done_w, 2, info_w)
+        done_w = done_w | hit2
+        hit3 = active & (count_main_w >= tcfg.num_cutoff)
+        info_w = torch.where(hit3 & ~done_w, 3, info_w)
+        done_w = done_w | hit3
+        hit4 = active & (count_w > tcfg.max_nodes)
+        info_w = torch.where(hit4 & ~done_w, 4, info_w)
+        done_w = done_w | hit4 | ~has_pending
+        done_it_w = row(done_it)
+        done_it_w = torch.where(done_w & (done_it_w == 0), it + 1, done_it_w)
+        tot_prob = put(tot_prob, tot_prob_w)
+        count_main = put(count_main, count_main_w)
+        count = put(count, count_w)
+        info = put(info, info_w)
+        done = put(done, done_w)
+        done_it = put(done_it, done_it_w)
+        if streaming:
+            # refill (tree.py:966-977): a finished event's lane takes the
+            # next unstarted event, whose pools row is already seeded
+            freed = done_w.to(torch.int64)
+            rank = torch.cumsum(freed, dim=0) - freed
+            navail = E - cursor
+            aw = torch.where(done_w & (rank < navail), cursor + rank, aw)
+            cursor = cursor + torch.minimum(freed.sum(), navail)
         it += 1
 
     info = torch.where(count > tcfg.mc_nodes, -torch.abs(info), info)

@@ -4,7 +4,8 @@ Builds the hand-written kernels (adiabatic_raytracer_tpu_torch/csrc/) from
 this checkout, checks each against its plain PyTorch version on the card at
 the shapes the main path gives it, then drives the port's main path through
 its CLI entry point at the production default scene, and at a boundary-layer
-and an isotropic scene, and checks the output.
+and an isotropic scene, its saveMode 3 text and tree dumps, checkpoint and
+resume, and the forward tree's streaming window, and checks the output.
 
     python3 chip_smoke.py            # needs one CUDA device
 
@@ -56,8 +57,9 @@ non-zero):
      not (so in phases 8, 12, 13e and 13f); phases 7, 8 and 12 print the
      device time and launches of mega_kernel, tree_kernel and
      tree_refill_kernel from the profiler
-  8. the queue path (--tree_engine queue), one batch of 2048, counters reset
-     just before it; K1 and K2 must have launched
+  8. the queue path (--tree_engine queue, the auto window: 128 events at one
+     lane each), one batch of 2048, counters reset just before it; K1 and K2
+     must have launched
   9. P1 vs refill_probe_plain at the probe's shapes (512 events, 128 lanes):
      ids and steps identical, the probe's own checks, every event written
      once and flushed at a refill boundary or the loop's end, and its entry
@@ -87,7 +89,22 @@ non-zero):
      (--tree_engine auto -> queue), warm under torch.profiler, counters
      reset just before it: K1 and K2 must launch, K3 not; events/s, the
      census verdict, mega_kernel's device time; (f) driver.run at the
-     isotropic scene, one batch of 2048, the same checks
+     isotropic scene with the CLI's auto window, one batch of 2048, the same
+     checks
+ 15. saveMode 3 through the CLI, one batch of 2048 (auto: the queue path
+     and the window), warm, counters reset just before it: every text file
+     parses (analysis/treeio.py), one tree_ file per event, final_ lines
+     equal to the npy rows in the columns they share, event_ lines with
+     every event and its node count, every tree's outgoing weight in (0, 1 +
+     1e-9] and >= 1 - prob_cutoff - 1e-9 where prob_cutoff stopped it; rows
+     bitwise phase 8's; K1 and K2 launched, K3 not; events/s, t_text, tree
+     iterations, K2 launches
+ 16. checkpoint/resume on the kernel path (driver.run, K3 at chunk 64): 2 x
+     1024 events uninterrupted against one batch, stopped with a checkpoint,
+     then resumed; rows bitwise, the checkpoint cleared, K1, K2 and K3
+     launched
+ 17. the window's contract: driver.run on the queue path, 2048 events,
+     tree_k 4, window 128 against 0: rows bitwise
  14. the kernels' JSON line: each kernel's launches on its path (K1's
      grid kernel, a check only, 0 on the main path; P1's through its entry
      point), and its time,
@@ -1444,9 +1461,15 @@ def phase_refill_path(device, n_events, batch):
 
 def phase_driver_iso(device, n_events, batch, phase):
     """driver.run at the production scene made isotropic (K2's isotropic
-    variant; the forward tree on the host queue, as --tree_engine auto
-    picks there): K1 and K2 must launch, K3 and K4 not."""
+    variant; the forward tree on the host queue with the CLI's auto window,
+    as --tree_engine auto picks there): K1 and K2 must launch, K3 and K4
+    not."""
+    import dataclasses
+
+    from adiabatic_raytracer_tpu_torch.cli import TREE_WINDOW
+
     sc, cfg, tcfg, _, _ = scene_setup(device, isotropic=True)
+    cfg = dataclasses.replace(cfg, tree_window=TREE_WINDOW)
     profiled_driver_run(device, sc, cfg, tcfg, n_events, batch, phase, "iso",
                         "driver.run isotropic", ("line_roots", "megakernel"),
                         ("treekernel", "treerefill", "line_scan"))
@@ -1465,6 +1488,161 @@ def phase_variants(device):
     timed("13e", phase_slice, device, 4096, 2048, "auto", "13e", cold_run=False,
           extra=["--bndry_lyr", "0.5"], uses_tree_kernel=False)
     timed("13f", phase_driver_iso, device, 2048, 2048, "13f")
+
+
+def phase_savemode3(device, n_events, batch, rows_queue):
+    """Phase 15: the CLI at --saveMode 3 (the tree dumps: auto picks the
+    queue path, with the auto window), warm, counters reset just before it.
+    Every text file parses with the port's treeio: one tree_ file per event,
+    the final_ lines equal the npy rows in the columns they share, and the
+    event_ lines carry every event and its node count; every tree's outgoing
+    weight lies in (0, 1 + 1e-9] and reaches 1 - prob_cutoff - 1e-9 on the
+    events stopped by prob_cutoff (JAX tests/test_e2e.py:76-100); the rows
+    are bitwise phase 8's (saveMode 1 on the queue path, the same window and
+    seed); K1 and K2 launched, K3 not."""
+    import shutil
+
+    import numpy as np
+
+    from adiabatic_raytracer_tpu_torch import cli
+    from adiabatic_raytracer_tpu_torch.analysis import treeio
+    from adiabatic_raytracer_tpu_torch.ops import cuda_lib
+
+    d = os.path.join(ROOT, "build", "chip_smoke_sm3")   # 2048 tree files: kept off OUT
+    shutil.rmtree(d, ignore_errors=True)
+    argv = (["--device", "cuda", "--event_batch", str(batch), "--Nts", str(n_events + 1),
+             "--saveMode", "3", "--seed", "1769", "--dir_tag", d, "--ftag", "sm3"]
+            + SCENE_ARGS)
+    cuda_lib.reset_launch_counts()
+    t0 = time.time()
+    rows, _, stats = cli.run_from_args(argv)
+    wall = time.time() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    t1 = time.time()
+    fails = []
+    if not (launches["line_roots"] and launches["megakernel"]) or launches["treekernel"] \
+            or launches["line_scan"]:
+        fails.append(f"launches {launches}: K1's fused kernel and K2 must launch, K3 and the "
+                     "grid K1 not")
+    if not np.array_equal(rows, rows_queue):
+        fails.append(f"rows {rows.shape} differ from phase 8's {rows_queue.shape}")
+    trees = sorted(os.listdir(os.path.join(d, "tree")))
+    if trees != sorted(f"tree_sm3{e}" for e in range(1, n_events + 1)):
+        fails.append(f"{len(trees)} tree files for {n_events} events")
+    num, w, species, th, ph, _, thx, phx, absx, _ = treeio.load_final_info(
+        os.path.join(d, "event", "final_sm3"))
+    shared = np.stack([num, species, th, ph, thx, phx, absx, w], axis=1)
+    if not np.array_equal(shared, rows[:, [0, 1, 2, 3, 4, 5, 6, 8]]):
+        fails.append("final_ lines differ from the npy rows")
+    ev = treeio.load_event_info(os.path.join(d, "event", "event_sm3"))
+    ev_no, nodes = ev[0].astype(int), ev[-1].astype(int)
+    first = np.searchsorted(rows[:, 0], ev_no)
+    has = first < rows.shape[0]
+    has[has] = rows[first[has], 0] == ev_no[has]
+    if not (np.array_equal(ev_no, np.arange(1, n_events + 1))
+            and np.array_equal(nodes[has], rows[first[has], 20].astype(int))):
+        fails.append("event_ lines miss events or disagree on node counts with the rows")
+    info = dict(zip(rows[:, 0].astype(int), rows[:, 21].astype(int)))
+    sums, n_full = [], 0
+    for e in range(1, n_events + 1):
+        s = treeio.tree_weight_sum(treeio.load_tree(os.path.join(d, "tree", f"tree_sm3{e}")))
+        sums.append(s)
+        if info.get(e) == 2:
+            n_full += 1
+            if s < 1.0 - 1e-10 - 1e-9:
+                fails.append(f"event {e} stopped by prob_cutoff has weight sum {s!r}")
+    if not (min(sums) > 0.0 and max(sums) <= 1.0 + 1e-9) or n_full == 0:
+        fails.append(f"weight sums in [{min(sums)!r}, {max(sums)!r}], {n_full} events with info 2")
+    log(15, f"saveMode 3 (CLI, --tree_engine auto -> queue, window auto): {stats.events} events, "
+            f"{rows.shape[0]} rows, warm run {wall:.2f} s = {stats.events / wall:.1f} events/s "
+            f"(gate check {stats.t_gate:.2f} s, sample {stats.t_sample:.2f} s, pipeline "
+            f"{stats.t_pipeline:.2f} s, rows {stats.t_rows:.2f} s, text {stats.t_text:.2f} s); "
+            f"tree iterations {stats.tree_iters}; K2 launches {launches['megakernel']}; "
+            f"{len(trees)} tree files, {n_full} events stopped by prob_cutoff, weight sums "
+            f"{min(sums):.12g} .. {max(sums):.12g}; files parsed and checked in "
+            f"{time.time() - t1:.1f} s; launches {launches}")
+    if fails:
+        raise AssertionError("phase 15: " + "; ".join(fails[:10]))
+
+
+def phase_resume(device, n_events, batch):
+    """Phase 16: checkpoint/resume on the kernel path (driver.run as the
+    CLI's kernel path runs it: K3 at chunk 64): an uninterrupted run of two
+    batches against one batch with checkpoint=True, stopped, then resumed;
+    the rows bitwise equal, the checkpoint cleared, and K1, K2 and K3
+    launched (counters reset just before the three runs)."""
+    import dataclasses
+    import glob
+    import shutil
+
+    import numpy as np
+
+    from adiabatic_raytracer_tpu_torch import driver
+    from adiabatic_raytracer_tpu_torch.ops import cuda_lib
+
+    sc, cfg, tcfg, _, _ = scene_setup(device)
+    cfg = dataclasses.replace(cfg, tree_engine="kernel", tree_kernel_chunk=64)
+    dirs = {k: os.path.join(OUT, f"resume_{k}") for k in ("full", "split")}
+    for v in dirs.values():
+        shutil.rmtree(v, ignore_errors=True)
+    kw = dict(seed=1769, save_mode=1, event_batch=batch, verbose=False, device=device,
+              file_tag="resume")
+    run = lambda k, **more: driver.run(sc, cfg, tcfg, n_events + 1, dir_tag=dirs[k], **kw,
+                                       **more)
+    cuda_lib.reset_launch_counts()
+    t0 = time.time()
+    rows_full, _, st_full = run("full")
+    t1 = time.time()
+    part = run("split", checkpoint=True, max_batches=1)
+    ck = glob.glob(os.path.join(dirs["split"], "npy", ".ckpt_*.json"))
+    t2 = time.time()
+    rows, _, st = run("split", checkpoint=True, resume=True)
+    t3 = time.time()
+    launches = dict(cuda_lib.LAUNCHES)
+    fails = []
+    if len(ck) != 1 or part[2].events != batch:
+        fails.append(f"the stopped run left {len(ck)} checkpoints after {part[2].events} events")
+    if glob.glob(os.path.join(dirs["split"], "npy", ".ckpt_*")):
+        fails.append("the checkpoint was not cleared")
+    if not np.array_equal(rows, rows_full) or st.f_inx != st_full.f_inx:
+        fails.append(f"resumed rows {rows.shape} (f_inx {st.f_inx}) differ from the "
+                     f"uninterrupted {rows_full.shape} (f_inx {st_full.f_inx})")
+    if not all(launches[n] for n in ("line_roots", "megakernel", "treekernel")) \
+            or launches["treerefill"]:
+        fails.append(f"launches {launches}: K1, K2 and K3 must launch, K4 not")
+    log(16, f"resume on the kernel path, {n_events} events in batches of {batch}: "
+            f"uninterrupted {t1 - t0:.2f} s, stopped after one batch {t2 - t1:.2f} s, resumed "
+            f"{t3 - t2:.2f} s; rows {rows.shape} bitwise {np.array_equal(rows, rows_full)}; "
+            f"launches {launches}")
+    if fails:
+        raise AssertionError("phase 16: " + "; ".join(fails))
+
+
+def phase_window(device, n_events, tree_k):
+    """Phase 17: the window's contract on the card: driver.run on the queue
+    path, one batch of n_events, at tree_window 128 against 0 at one tree_k:
+    the rows bitwise equal."""
+    import dataclasses
+
+    import numpy as np
+
+    from adiabatic_raytracer_tpu_torch import driver
+
+    sc, cfg, tcfg, _, _ = scene_setup(device)
+    out = {}
+    for w in (128, 0):
+        c = dataclasses.replace(cfg, tree_engine="queue", tree_window=w, tree_k=tree_k)
+        t0 = time.time()
+        rows, _, st = driver.run(sc, c, tcfg, n_events + 1, seed=1769, save_mode=1,
+                                 event_batch=n_events, verbose=False, device=device,
+                                 dir_tag=os.path.join(OUT, "window"), file_tag=f"w{w}")
+        out[w] = (rows, st, time.time() - t0)
+    same = np.array_equal(out[128][0], out[0][0])
+    log(17, f"queue path, {n_events} events, tree_k {tree_k}: window 128 {out[128][2]:.2f} s, "
+            f"{out[128][1].tree_iters} iterations; window 0 {out[0][2]:.2f} s, "
+            f"{out[0][1].tree_iters} iterations; rows {out[0][0].shape} bitwise {same}")
+    if not same:
+        raise AssertionError("phase 17: the windowed tree's rows differ from the unwindowed")
 
 
 def phase_slice(device, n_events, batch, tree_engine, phase, cold_run=True, extra=(),
@@ -1587,7 +1765,7 @@ def main():
     k2 = timed(5, phase_megakernel, device, 2048)
     k3 = timed(6, phase_treekernel, device, 512, 2048)
     launches, rows_kernel = timed(7, phase_slice, device, 4096, 2048, "auto", 7)
-    timed(8, phase_slice, device, 2048, 2048, "queue", 8, cold_run=False)
+    _, rows_queue = timed(8, phase_slice, device, 2048, 2048, "queue", 8, cold_run=False)
     p1_launches, p1 = timed(9, phase_refill_probe, device)
     k4 = timed(10, phase_refill_plain, device, 512, 256, 32)
     timed(11, phase_refill_vs_tree, device, 2048)
@@ -1599,6 +1777,9 @@ def main():
                 f"{float(abs(rows_refill[:, 8] / rows_kernel[:, 8] - 1).max()):.3g}"
                 if same_shape else ""))
     phase_variants(device)
+    timed(15, phase_savemode3, device, 2048, 2048, rows_queue)
+    timed(16, phase_resume, device, 2048, 1024)
+    timed(17, phase_window, device, 2048, 4)
     log(14, f"chip_smoke wall {time.time() - t_start:.1f} s")
     kernels = [
         {"name": "line_roots", "route": "cuda",

@@ -2,6 +2,7 @@
 
     python3 scripts/torch_tree_ab.py --parent DIR     # DIR: another checkout
     python3 scripts/torch_tree_ab.py --parent DIR --sampler
+    python3 scripts/torch_tree_ab.py --window
 
 Runs the kernels of the checkout at DIR ("parent") and of this one ("this")
 in separate processes, in the order parent, this, this, parent.
@@ -41,6 +42,18 @@ events, saveMode 1, seed 1769, as chip_smoke.py phase 7 runs it: one run to
 warm up, then a timed one (wall, events/s, gate check, sampling and
 pipeline times, the output rows); then the medians per side.
 
+With --window (no --parent), the forward tree's streaming window on this
+checkout's queue path (driver.run: engine mega, tree_engine queue, f32
+sampler, 2048 events in one batch, saveMode 1, seed 1769, the production
+default scene), at the default cutoffs and at the production cutoffs
+50/10/100: widths 64, 128, 256, 512 and 1024 at one lane per event (K = 1),
+2048 (the batch: K = 1, no streaming) and 0 (unwindowed, K = mc_nodes + 2).
+Three fresh processes, each one warm-up run and then every width once, in
+turns (forward, backward, forward); per width the median of the three runs
+and their spread (max - min) of events/s, the pipeline time and the tree
+iterations, and whether the rows equal those of width 128 bit for bit.
+Prints the card's name and power limit first.
+
 Writes each run's log under chiprun_out/tree_ab/ and its raw outputs under
 build/tree_ab/.  Needs one CUDA device.
 """
@@ -48,6 +61,7 @@ build/tree_ab/.  Needs one CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib.util
 import inspect
 import os
@@ -69,6 +83,19 @@ INPUTS = (("512 events, default cutoffs", 512, 13, 2027, {}),
           ("2048 events, default cutoffs", 2048, 17, 2028, {}),
           ("2048 events, production cutoffs 50/10/100", 2048, 17, 2028,
            dict(num_cutoff=50, mc_nodes=10, max_nodes=100)))
+
+WINDOWS = (64, 128, 256, 512, 1024, 2048, 0)
+WINDOW_EVENTS = 2048
+WINDOW_CUTOFFS = (("default cutoffs", {}),
+                  ("production cutoffs 50/10/100", dict(num_cutoff=50, mc_nodes=10,
+                                                        max_nodes=100)))
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location("smoke", os.path.join(HERE, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
 
 
 def k1_worker(smoke, dev, res):
@@ -126,9 +153,7 @@ def worker(root, save, n3):
     from adiabatic_raytracer_tpu_torch.utils import rng
 
     assert os.path.abspath(pkg.__file__).startswith(os.path.abspath(root) + os.sep)
-    spec = importlib.util.spec_from_file_location("smoke", os.path.join(HERE, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _smoke()
     dev = torch.device("cuda")
     cuda_lib.lib()
     summary = smoke.ptxas_summary(cuda_lib.BUILD_LOG)
@@ -176,9 +201,7 @@ def sampler_worker(root, save):
     from adiabatic_raytracer_tpu_torch.ops import sampler
     from adiabatic_raytracer_tpu_torch.utils import rng
 
-    spec = importlib.util.spec_from_file_location("smoke", os.path.join(HERE, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _smoke()
     dev = torch.device("cuda")
     sc, _, _, maxR, n_grid = smoke.scene_setup(dev)
     key = rng.PRNGKey(1769, device=dev)
@@ -211,6 +234,65 @@ def sampler_worker(root, save):
                 "events_per_s": stats.events / wall, "t_gate": stats.t_gate,
                 "t_sample": stats.t_sample, "t_pipeline": stats.t_pipeline,
                 "rows": int(rows.shape[0]), "weight_sum": float(rows[:, 8].sum())}, save)
+
+
+def window_worker(save, order):
+    """The queue path at every window width of `order`, after one warm-up run."""
+    sys.path.insert(0, HERE)
+    import torch
+
+    from adiabatic_raytracer_tpu_torch import driver
+    from adiabatic_raytracer_tpu_torch.config import TreeConfig
+
+    smoke = _smoke()
+    dev = torch.device("cuda")
+    sc, cfg, _, _, _ = smoke.scene_setup(dev)
+    cfg = dataclasses.replace(cfg, tree_engine="queue")
+    res = {}
+    for name, cut in WINDOW_CUTOFFS:
+        tcfg = TreeConfig(**cut)
+
+        def run(w, tag):
+            t0 = time.time()
+            rows, _, st = driver.run(sc, dataclasses.replace(cfg, tree_window=w), tcfg,
+                                     WINDOW_EVENTS + 1, seed=1769, save_mode=1,
+                                     event_batch=WINDOW_EVENTS, verbose=False, device=dev,
+                                     dir_tag=os.path.join(RAW, "window"), file_tag=tag)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            return {"wall": wall, "events_per_s": st.events / wall, "t_pipeline": st.t_pipeline,
+                    "t_gate": st.t_gate, "tree_iters": st.tree_iters,
+                    "rows": torch.from_numpy(rows)}
+
+        run(128, "warm_up")
+        for w in order:
+            res[(name, w)] = run(w, f"w{w}")
+    torch.save(res, save)
+
+
+def report_window(runs):
+    """Per cutoff set and width: medians and spreads over the runs, and
+    whether the rows equal width 128's bit for bit."""
+    import statistics
+
+    import torch
+
+    for name, _ in WINDOW_CUTOFFS:
+        ref = runs[0][(name, 128)]["rows"]
+        for w in WINDOWS:
+            rs = [r[(name, w)] for r in runs]
+            eps = [r["events_per_s"] for r in rs]
+            pipe = [r["t_pipeline"] for r in rs]
+            same = sum(torch.equal(r["rows"], ref) for r in rs)
+            label = {0: "0 (unwindowed, K = mc_nodes + 2)",
+                     WINDOW_EVENTS: f"{WINDOW_EVENTS} (the batch, K = 1)"}.get(w, f"{w} (K = 1)")
+            print(f"[ab] window {name}, width {label}: events/s median "
+                  f"{statistics.median(eps):.1f} spread {max(eps) - min(eps):.1f} (runs "
+                  + ", ".join(f"{x:.1f}" for x in eps) + f"); pipeline median "
+                  f"{statistics.median(pipe):.3f} s spread {max(pipe) - min(pipe):.3f}; gate "
+                  f"{statistics.median(r['t_gate'] for r in rs):.3f} s; tree iterations "
+                  f"{rs[0]['tree_iters']}; rows {tuple(ref.shape)}, bitwise width 128's in "
+                  f"{same}/{len(rs)} runs", flush=True)
 
 
 def report_sampler(runs):
@@ -256,10 +338,16 @@ def main(argv=None):
     ap.add_argument("--parent", help="another checkout of the repo")
     ap.add_argument("--sampler", action="store_true",
                     help="time sample_batch and the warm kernel path instead of the kernels")
+    ap.add_argument("--window", action="store_true",
+                    help="sweep the forward tree's streaming window on the queue path")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--save", help=argparse.SUPPRESS)
     ap.add_argument("--rays", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--order", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.window and args.worker:
+        window_worker(args.save, [int(w) for w in args.order.split(",")])
+        return 0
     if args.worker:
         if args.sampler:
             sampler_worker(args.worker, args.save)
@@ -271,6 +359,29 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("torch.cuda.is_available() is false: needs a CUDA device", file=sys.stderr)
         return 1
+    os.makedirs(RAW, exist_ok=True)
+    os.makedirs(LOGS, exist_ok=True)
+    if args.window:
+        print(f"[ab] {_smoke().smi_line()}", flush=True)
+        runs = []
+        for i, order in enumerate((WINDOWS, WINDOWS[::-1], WINDOWS)):
+            save = os.path.join(RAW, f"window{i}.pt")
+            t0 = time.time()
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--window",
+                                   "--worker", HERE, "--save", save, "--order",
+                                   ",".join(map(str, order))],
+                                  cwd=HERE, capture_output=True, text=True, timeout=1800)
+            with open(os.path.join(LOGS, f"window{i}.log"), "w") as f:
+                f.write(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                print(f"window run {i} failed:\n{proc.stderr[-3000:]}", file=sys.stderr)
+                return 1
+            runs.append(torch.load(save))
+            print(f"[ab] window run {i} {time.time() - t0:.1f} s", flush=True)
+        report_window(runs)
+        return 0
+    if not args.parent:
+        ap.error("--parent is required without --window")
     sys.path.insert(0, HERE)
     import chip_smoke
     from adiabatic_raytracer_tpu_torch.ops import cuda_lib
@@ -284,8 +395,6 @@ def main(argv=None):
           f"stores, loads) " + ", ".join(
               f"{k} {chip_smoke.ptxas_figures(summary.get(k, ''))}"
               for k in ("mega_kernel", "tree_kernel", "tree_refill_kernel")), flush=True)
-    os.makedirs(RAW, exist_ok=True)
-    os.makedirs(LOGS, exist_ok=True)
     roots = {"parent": os.path.abspath(args.parent), "this": HERE}
     runs = []
     mode = ["--sampler"] if args.sampler else []

@@ -75,19 +75,37 @@ def test_port_never_imports_jax():
 
 @pytest.mark.parametrize("kw", [
     dict(cfg=dict(engine="pool_compact")),
-    dict(cfg=dict(tree_window=128)),
     dict(cfg=dict(backtrace_chunk=64)),
     dict(cfg=dict(mc_chain=1)),
-    dict(save_mode=2),
     dict(mesh_devices=4),
     dict(pipeline_depth=2),
-    dict(checkpoint=True),
-    dict(resume=True),
 ], ids=lambda kw: str(kw))
 def test_unported_options_raise(kw):
     cfg = tcfg.NumericsConfig(**kw.pop("cfg", {}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_ported(cfg, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(cfg=dict(tree_window=128)),
+    dict(save_mode=2),
+    dict(checkpoint=True),
+    dict(resume=True),
+], ids=lambda kw: str(kw))
+def test_ported_options_pass(kw):
+    """The streaming window, saveMode 2/3 and checkpoint/resume are ported:
+    check_ported lets them pass."""
+    check_ported(tcfg.NumericsConfig(**kw.pop("cfg", {})), **kw)
+
+
+def test_scan_gate_census_defaults_to_the_card():
+    """Like every entry point of the port, the census check runs on the card
+    unless the caller asks for the CPU."""
+    import inspect
+
+    from adiabatic_raytracer_tpu_torch.driver import scan_gate_census_check
+
+    assert inspect.signature(scan_gate_census_check).parameters["device"].default == "cuda"
 
 
 def test_tree_refill_is_ported():
