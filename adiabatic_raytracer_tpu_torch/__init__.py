@@ -9,10 +9,14 @@ Same module layout as the reference, so each counterpart is found by name:
 * geometry, dispersion, conversion physics            (ops/geometry.py, ...)
 * conversion-surface sampler + K1 line-scan kernel    (ops/sampler.py, ops/line_scan.py)
 * pool DP5 integrator (CPU engine, K2's plain version) (ops/integrator.py, ops/propagate.py)
-* K2 DP5 megakernel, one CUDA thread per ray          (ops/megakernel.py, csrc/)
+* the pool in chunks with straggler compaction        (ops/streaming.py)
+* K2 DP5 megakernel, one CUDA warp per ray            (ops/megakernel.py, csrc/)
 * backtrace + host work-queue forward tree            (ops/tree.py)
 * K3/K4 in-kernel forward trees, one CUDA warp a tree (ops/treekernel.py, csrc/)
-* driver / CLI / npy output                           (driver.py, cli.py)
+* geometry diagnostics, radiative extras              (ops/geometry.py, ops/radiative.py)
+* event-axis mesh, process groups, histograms         (parallel/)
+* driver / CLI / npy and text output                  (driver.py, cli.py, utils/)
+* flux analysis, tree reader and plots                (analysis/)
 
 The package imports torch and numpy only, never jax.
 """

@@ -13,14 +13,20 @@ and the scene is one the in-kernel probability covers, else the host work
 queue (`queue`), as the JAX CLI does.  `--tree_window -1` (auto) runs the
 queue's streaming window (2048 events, TREE_WINDOW) with one lane per event
 whenever event_batch > 128, the JAX CLI's rule at the width the card ran
-fastest.  Options the port does not run
-yet raise NotImplementedError.
+fastest.  `--pipeline_depth 0` (auto) is PIPELINE_DEPTH.  `--mesh N` shards
+each batch over the first N cards (raising when there are fewer; on cpu, N
+virtual shards).  `--coordinator host:port --nprocs N --procid P` joins a
+torch.distributed group over gloo: each process runs its own shard of events
+(its own --seed and --ftag) on card P % device_count, and the processes' pulse
+profiles are summed over the group and printed.  Options the port does not
+run raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 import time
@@ -32,6 +38,18 @@ import time
 # value) at the default cutoffs, 0.672 against 1.283 s at 50/10/100
 # (scripts/torch_tree_ab.py --window, NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 TREE_WINDOW = 2048
+
+# Batches in flight under --pipeline_depth 0 (auto).  Depth 2 never beat
+# depth 1 by more than the larger spread, and in the last call it fell
+# behind by more: kernel path, 8192 events in batches of 2048, three warm
+# runs each in turns, events/s medians 3890.5 (spread 126.4) at depth 1
+# against 3867.2 (845.2) at depth 2, 4989.8 (1450.4) against 4649.4
+# (1185.2) in another call, and 6291.9 (353.8) against 5869.4 (416.6) in a
+# third, 422.5 behind (chip_smoke.py phase 18, NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md).  The pipeline's host code reads from the card ~31 times a batch
+# at either depth, so depth 2 can hide only the last read-back and the row
+# assembly.
+PIPELINE_DEPTH = 1
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -86,16 +104,31 @@ def build_parser() -> argparse.ArgumentParser:
                    help="integration-state dtype (only f64 is ported)")
     p.add_argument("--computeDtype", choices=["auto", "state", "f32"], default="auto",
                    help="sampler dtype; auto = f32 on cuda (K1), f64 on cpu")
-    p.add_argument("--engine", choices=["auto", "pool", "mega"], default="auto",
-                   help="auto = mega (K2) on cuda, pool on cpu")
-    p.add_argument("--mesh", type=int, default=0, help="device mesh (not ported)")
+    p.add_argument("--engine", choices=["auto", "pool", "pool_compact", "mega"],
+                   default="auto",
+                   help="auto = mega (K2) on cuda, pool on cpu; pool_compact = pool with "
+                        "the backtrace in chunks, compacting the rays still running")
+    p.add_argument("--mesh", type=int, default=0,
+                   help="shard each batch over an N-device mesh (0/1 = one device): the "
+                        "first N cards on cuda (fewer raises), N virtual shards on cpu")
     p.add_argument("--pipeline_depth", type=int, default=0,
-                   help="batches in flight; only 0/1 (depth 1) is ported")
+                   help="batches issued but not yet assembled; 0 = auto "
+                        "(PIPELINE_DEPTH); rows are bitwise equal across depths")
     p.add_argument("--checkpoint", action="store_true",
                    help="write a per-batch resume state (RNG key + event "
                         "counter + partial rows) next to the output npy")
     p.add_argument("--resume", action="store_true",
                    help="resume a killed run from its checkpoint")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of the run here")
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="multi-process: the group's address host:port "
+                        "(torch.distributed over gloo; the reference's SLURM "
+                        "fan-out, runner_GR_tasks.sh)")
+    p.add_argument("--nprocs", type=int, default=None,
+                   help="multi-process: total number of processes")
+    p.add_argument("--procid", type=int, default=None,
+                   help="multi-process: this process's index")
     return p
 
 
@@ -109,8 +142,12 @@ def run_from_args(argv=None):
     None when the ray tracer is not run."""
     args = build_parser().parse_args(argv)
 
+    import numpy as np
+    import torch
+
     from adiabatic_raytracer_tpu_torch.config import NumericsConfig, Scene, TreeConfig
-    from adiabatic_raytracer_tpu_torch.driver import run
+    from adiabatic_raytracer_tpu_torch.driver import check_ported, run
+    from adiabatic_raytracer_tpu_torch.parallel import mesh
     from adiabatic_raytracer_tpu_torch.utils.npyio import combine_files
 
     on_cuda = args.device == "cuda"
@@ -140,24 +177,50 @@ def run_from_args(argv=None):
         print(f"tree_engine auto -> {cfg.tree_engine}")
     tcfg = TreeConfig(prob_cutoff=args.probCutoff, num_cutoff=args.numCutoff,
                       mc_nodes=args.MCNodes, max_nodes=args.maxNodes)
+    depth = args.pipeline_depth if args.pipeline_depth > 0 else PIPELINE_DEPTH
+    check_ported(cfg, save_mode=args.saveMode, mesh_devices=args.mesh, pipeline_depth=depth,
+                 checkpoint=args.checkpoint, resume=args.resume, processes=args.nprocs or 1)
 
-    print(f"Axion parameters: {args.MassA}\n{args.Axg}")
-    t0 = time.time()
-    out = None
-    if args.run_RT == 1:
-        for sub in ("npy", "event", "tree"):
-            os.makedirs(os.path.join(args.dir_tag, sub), exist_ok=True)
-        out = run(sc, cfg, tcfg, args.Nts, seed=args.seed, save_mode=args.saveMode,
-                  file_tag=args.ftag, dir_tag=args.dir_tag, event_batch=event_batch,
-                  mesh_devices=args.mesh, checkpoint=args.checkpoint, resume=args.resume,
-                  pipeline_depth=args.pipeline_depth, device=args.device)
-    if args.run_Combine == 1:
-        combined = combine_files(args.dir_tag, args.MassA, args.Axg, args.ThetaM,
-                                 args.rotW, args.B0, args.Nts, 3, args.numCutoff,
-                                 args.MCNodes, args.maxNodes, args.ftag, args.side_runs,
-                                 renumber_events=bool(args.combine_renumber),
-                                 allow_missing=bool(args.combine_allow_missing))
-        print(f"combined -> {combined}")
+    device = args.device
+    had_group = mesh.process_group_exists()
+    grouped = mesh.init_distributed(args.coordinator, args.nprocs, args.procid)
+    try:
+        if grouped:
+            if on_cuda and torch.cuda.device_count():
+                device = f"cuda:{mesh.process_index() % torch.cuda.device_count()}"
+                torch.cuda.set_device(device)
+            print(f"distributed: process {mesh.process_index()}/{mesh.process_count()} "
+                  f"on {device}")
+        print(f"Axion parameters: {args.MassA}\n{args.Axg}")
+        t0 = time.time()
+        out = None
+        if args.run_RT == 1:
+            for sub in ("npy", "event", "tree"):
+                os.makedirs(os.path.join(args.dir_tag, sub), exist_ok=True)
+            out = run(sc, cfg, tcfg, args.Nts, seed=args.seed, save_mode=args.saveMode,
+                      file_tag=args.ftag, dir_tag=args.dir_tag, event_batch=event_batch,
+                      mesh_devices=args.mesh, checkpoint=args.checkpoint,
+                      resume=args.resume, profile_dir=args.profile_dir,
+                      pipeline_depth=depth, device=device)
+            if mesh.process_count() > 1:
+                # each process ran its own shard: sum the pulse profiles over the group
+                from adiabatic_raytracer_tpu_torch.parallel.reduce import pulse_profile_from_rows
+
+                rows = out[0] if out is not None else np.zeros((0,))
+                h_ph, h_ax = mesh.all_reduce_sum(*pulse_profile_from_rows(rows))
+                print("pulse profile summed over processes: " + json.dumps(
+                    {"processes": mesh.process_count(), "photon": h_ph.tolist(),
+                     "axion": h_ax.tolist()}))
+        if args.run_Combine == 1:
+            combined = combine_files(args.dir_tag, args.MassA, args.Axg, args.ThetaM,
+                                     args.rotW, args.B0, args.Nts, 3, args.numCutoff,
+                                     args.MCNodes, args.maxNodes, args.ftag, args.side_runs,
+                                     renumber_events=bool(args.combine_renumber),
+                                     allow_missing=bool(args.combine_allow_missing))
+            print(f"combined -> {combined}")
+    finally:
+        if grouped and not had_group:
+            mesh.leave_group()
     print(f"\ntime diff: {time.time() - t0:.1f}s")
     return out
 

@@ -1,13 +1,14 @@
 """Top-level driver: the event pipeline (MainRunner.jl:355-765).
 
-Port of adiabatic_raytracer_tpu/driver.py at pipeline depth 1.  Per batch:
-conversion-surface sampling -> launch kinematics and importance weights ->
-axion backtrace -> forward photon tree -> row assembly and npy output, and
-at saveMode 2/3 the reference's event_/final_ text and per-event tree dumps.
-Everything up to row assembly runs as torch on `device`; row assembly and
-file writing are host numpy.  checkpoint=True writes a resume state after
-every batch, in the JAX package's format, so either package resumes a run
-the other stopped.
+Port of adiabatic_raytracer_tpu/driver.py.  Per batch: conversion-surface
+sampling -> launch kinematics and importance weights -> axion backtrace ->
+forward photon tree -> row assembly and npy output, and at saveMode 2/3 the
+reference's event_/final_ text and per-event tree dumps.  Everything up to
+row assembly runs as torch on `device` (or on each card of a mesh); row
+assembly and file writing are host numpy.  The batch loop keeps
+`pipeline_depth` batches in flight between issue and assembly.
+checkpoint=True writes a resume state after every batch, in the JAX
+package's format, so either package resumes a run the other stopped.
 
 Sampling-attempt accounting reproduces the reference's f_inx bookkeeping
 (MainRunner.jl:401,469-477,711-713,749), and the random stream is the JAX
@@ -28,6 +29,7 @@ import json
 import math
 import os
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -59,25 +61,27 @@ class RunStats:
     info_hist: dict = field(default_factory=dict)
     dw_warnings: int = 0
     wall_time: float = 0.0
-    t_sample: float = 0.0     # host wall time of sampling (s)
-    t_pipeline: float = 0.0   # kinematics + backtrace + tree (s)
+    t_sample: float = 0.0     # reading the sampler's chunks back, with any top-up (s)
+    t_pipeline: float = 0.0   # kinematics + backtrace + tree to the packs on the host (s)
     t_rows: float = 0.0       # host row assembly (s)
     t_gate: float = 0.0       # per-scene scan-gate census check (s)
     t_text: float = 0.0       # saveMode >= 2 text and tree writers (s)
+    t_fetch: float = 0.0      # waiting for a batch's packs at assembly (s)
+    t_issue: float = 0.0      # issuing a batch: inputs up, the pipeline's host code (s)
+    t_sampd: float = 0.0      # issuing the next batch's primary sampler chunk (s)
     vns: tuple = (0.0, 0.0, 0.0)
     scan_gate: str = "off"    # "off" | "ok" | "widened" | "fallback_plain" | "unchecked"
 
 
 def check_ported(cfg: NumericsConfig, *, save_mode: int = 0, mesh_devices: int = 0,
                  pipeline_depth: int = 0, checkpoint: bool = False,
-                 resume: bool = False):
-    """Raise NotImplementedError on options the port does not run yet, naming
+                 resume: bool = False, processes: int = 1):
+    """Raise NotImplementedError on options the port does not run, naming
     the ROADMAP item; none of them quietly runs something else.  Every run
     option comes through here, so one that is not ported fails before
     anything runs.  A tree_engine='kernel' configuration K3 does not cover
     raises in tree.forward_tree."""
     todo = [
-        (cfg.engine == "pool_compact", "engine='pool_compact' (ROADMAP Queue 1, Streaming)"),
         (cfg.engine not in ("pool", "mega", "pool_compact"), f"engine={cfg.engine!r}"),
         (cfg.backtrace_chunk > 0, "backtrace_chunk > 0, K2's chunked relaunch, left unported on "
          "purpose (ROADMAP Queue 1, left unported on purpose)"),
@@ -86,8 +90,10 @@ def check_ported(cfg: NumericsConfig, *, save_mode: int = 0, mesh_devices: int =
         (cfg.rhs_mode != "hand" or cfg.cond_mode != "fast" or cfg.gate_trig != "precise",
          "rhs_mode='vjp' / cond_mode='canonical' / gate_trig='native', left unported on "
          "purpose (ROADMAP Queue 1, left unported on purpose)"),
-        (mesh_devices > 1, "mesh_devices > 1 (ROADMAP Queue 1, mesh / torch.distributed)"),
-        (pipeline_depth > 1, "pipeline_depth > 1 (ROADMAP Queue 1, pipeline depth 2)"),
+        (mesh_devices > 1 and processes > 1,
+         "a mesh across processes (mesh_devices > 1 with more than one process); each "
+         "process runs its own shard of events, or one process its mesh (ROADMAP Queue 1, "
+         "mesh / torch.distributed)"),
     ]
     for bad, what in todo:
         if bad:
@@ -378,13 +384,33 @@ def _write_text(ev_files: EventFiles, save_mode: int, dir_tag: str, file_tag: st
         ev_files.write_event_tail(t_event, int(ev["count"][e]))
 
 
+def _to_host(t: torch.Tensor):
+    """Start t's copy to the host: on the card into pinned memory with
+    non_blocking=True, behind an event; (host tensor, event or None)."""
+    if t.device.type != "cuda":
+        return t, None
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(t.device))
+    return h, ev
+
+
+def _from_host(handle) -> np.ndarray:
+    """The numpy array of a _to_host copy, once the copy has landed."""
+    h, ev = handle
+    if ev is not None:
+        ev.synchronize()
+    return h.numpy()
+
+
 def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
         seed: int = -1, save_mode: int = 0, file_tag: str = "",
         dir_tag: str = "results", event_batch: int = 16, fix_time: float = 0.0,
         ntimes: int = 3, verbose: bool = True, mesh_devices: int = 0,
         checkpoint: bool = False, resume: bool = False,
-        max_batches: Optional[int] = None, pipeline_depth: int = 0,
-        device="cuda") -> Optional[tuple]:
+        max_batches: Optional[int] = None, profile_dir: Optional[str] = None,
+        pipeline_depth: int = 0, device="cuda") -> Optional[tuple]:
     """Run the pipeline on `device` (the card unless the caller asks for the
     CPU); returns (rows, output path, stats), or None when the conversion
     surface lies inside the star (MainRunner.jl:389-396).  `device` is used
@@ -395,19 +421,47 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
     checkpoint=True writes the resume state next to the output file after
     every batch; resume=True continues from it with the same random stream,
     appending to the text streams.  max_batches stops early: the checkpoint
-    stays, and the npy is written only when the run completes."""
+    stays, and the npy is written only when the run completes.
+
+    pipeline_depth: batches issued but not yet assembled (0, auto, is 1).
+    At depth 2 batch i+1 is sampled and its pipeline issued before batch i's
+    packs are read back (copied to pinned memory behind an event) and its
+    rows assembled; batch i+1's primary sampler chunk is issued before batch
+    i's pipeline at every depth.  Rows, text files and checkpoints are
+    bitwise those of depth 1.
+
+    mesh_devices > 1 shards each batch over a mesh (parallel/mesh.py): on
+    cuda the first mesh_devices cards (fewer raises), on cpu virtual shards.
+    The batch is padded to a multiple of the mesh with copies of its last
+    event, keys come from global event numbers, each shard runs the pipeline
+    on its device, and the padding's rows are dropped; engine pool_compact
+    runs as pool there.  profile_dir: a torch.profiler trace of the run is
+    written there."""
+    from adiabatic_raytracer_tpu_torch.parallel.mesh import (make_mesh, process_count,
+                                                            process_index, shard_over_events)
+
     check_ported(cfg, save_mode=save_mode, mesh_devices=mesh_devices,
-                 pipeline_depth=pipeline_depth, checkpoint=checkpoint, resume=resume)
+                 pipeline_depth=pipeline_depth, checkpoint=checkpoint, resume=resume,
+                 processes=process_count())
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() "
                            "is false")
+    n_sh = int(mesh_devices) if mesh_devices and mesh_devices > 1 else 1
+    mesh = make_mesh(n_sh, device) if n_sh > 1 else [device]
+    device = mesh[0]
     if save_mode > 1 and cfg.tree_engine == "kernel":
         # the dumps need every node's records, which K3 keeps for the finals
         # only: the reference's recorded choice (driver.py:492-505 there)
         cfg = dataclasses.replace(cfg, tree_engine="queue")
         if verbose:
             print("saveMode >= 2 writes every node's records: tree_engine kernel -> queue")
+    if n_sh > 1 and cfg.engine == "pool_compact":
+        # the compacted backtrace runs on one device (driver.py:319 of the reference)
+        cfg = dataclasses.replace(cfg, engine="pool")
+        if verbose:
+            print("a mesh runs engine pool_compact as pool")
+    depth = max(int(pipeline_depth), 1)
     t_run0 = time.time()
     stats = RunStats()
     if seed < 0:
@@ -451,25 +505,42 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
     scale = sln_scale(sc, maxR, tcfg)
     ev_files = (EventFiles(dir_tag, file_tag, append=ck is not None)
                 if save_mode > 1 else None)
-    batches = 0
+    batches_done = 0
+    batches_issued = 0
+    issue_event_no = event_no
+    issue_remaining = remaining
 
-    while remaining > 0 and (max_batches is None or batches < max_batches):
-        batch = min(event_batch, remaining)
-        # --- sampling: one split of the carried key per batch ---
+    def chunk(bkey, j, sb):
+        return _to_host(packed_sample(rng.fold_in(bkey, j), sb, maxR, sc, cfg, n_grid,
+                                      tcfg.n_max_sample, tcfg.flat_sampling,
+                                      int(event_batch)))
+
+    def sample_dispatch(batch):
+        """Split the carried key for the next batch and issue its primary
+        chunk, sized for `batch` events at the current success rate."""
+        nonlocal key
         t0 = time.time()
         key, bkey = rng.split(key).unbind(0)
         sb = 1 << max(int(batch / max(succ_rate, 0.02) * 1.5) - 1, 7).bit_length()
+        pk = chunk(bkey, 0, sb)
+        stats.t_sampd += time.time() - t0
+        return {"bkey": bkey, "sb": sb, "pk": pk}
+
+    def sample_collect(s, batch):
+        """Read the primary chunk back; top up chunk by chunk on a shortfall
+        (chunk j draws from fold_in(batch_key, j))."""
+        nonlocal succ_rate
+        t0 = time.time()
         xs, kept_pos = [], []
         got, chunk_off, j = 0, 0, 0
+        pk, sb = s["pk"], s["sb"]
         while True:
-            pk = packed_sample(rng.fold_in(bkey, j), sb, maxR, sc, cfg, n_grid,
-                               tcfg.n_max_sample, tcfg.flat_sampling,
-                               int(event_batch)).cpu().numpy()
-            n_succ = int(pk[-1, 0])
+            p = _from_host(pk)
+            n_succ = int(p[-1, 0])
             succ_rate = max(0.5 * succ_rate + 0.5 * n_succ / sb, 0.02)
             take = min(n_succ, batch - got)
-            xs.append(pk[:take, 1:])
-            kept_pos.append(chunk_off + pk[:take, 0].astype(np.int64))
+            xs.append(p[:take, 1:])
+            kept_pos.append(chunk_off + p[:take, 0].astype(np.int64))
             chunk_off += sb
             got += take
             if got >= batch:
@@ -482,35 +553,85 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
             j += 1
             sb = 1 << max(int((batch - got) / max(succ_rate, 0.02) * 1.3) - 1,
                           7).bit_length()
+            pk = chunk(s["bkey"], j, sb)
         attempts = int(np.concatenate(kept_pos)[batch - 1]) + 1
         samp = np.concatenate(xs, axis=0).astype(np.float64)
-        stats.t_sample += time.time() - t0
+        return samp, attempts, time.time() - t0
 
-        # --- device pipeline ---
-        t1 = time.time()
-        xpos_np, v_ifty = samp[:, 0:3], samp[:, 7:10]
-        tens = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64,
+    def shard_pipeline(keys, xpos, v_loc, erg_inf):
+        fin_t, ev_t, bt, pl = pipeline(keys, xpos, v_loc, erg_inf, sc, cfg, tcfg, maxR, lnt_end)
+        return (fin_t, ev_t) + ((bt, pl) if save_mode > 1 else (None, None))
+
+    # one shard after another from this thread (parallel/mesh.py); a single
+    # device is a mesh of one
+    run_shards = shard_over_events(mesh, shard_pipeline)
+
+    def issue_batch(samp, batch, attempts, t_sample, rng_snap):
+        """Run one batch's pipeline over the mesh (its host code, which waits
+        on the card where it reads from it) and start its packs' copies to
+        the host."""
+        nonlocal issue_event_no, issue_remaining, batches_issued
+        t0 = time.time()
+        bp = -(-batch // n_sh) * n_sh
+        pad = (lambda a: a) if bp == batch else (
+            lambda a: np.concatenate([a] + [a[-1:]] * (bp - batch), axis=0))
+        tens = lambda a: torch.as_tensor(np.ascontiguousarray(pad(a)), dtype=torch.float64,
                                          device=device)
-        keys = rng.fold_in(base_key, torch.arange(batch, device=device) + event_no)
-        fin_t, ev_t, bt, pools = pipeline(keys, tens(samp[:, 0:3]), tens(samp[:, 3:6]),
-                                          tens(samp[:, 6]), sc, cfg, tcfg, maxR, lnt_end)
-        fp = fin_t.cpu().numpy()
-        evp = ev_t.cpu().numpy()
-        t_batch = time.time() - t1
+        keys = rng.fold_in(base_key, torch.arange(bp, device=device) + issue_event_no)
+        fin_t, ev_t, bt, pl = run_shards(keys, tens(samp[:, 0:3]), tens(samp[:, 3:6]),
+                                         tens(samp[:, 6]))
+        t_issue = time.time() - t0
+        stats.t_issue += t_issue
+        rec = {"batch": batch, "event_no": issue_event_no, "packs": (fin_t, ev_t),
+               "host": (_to_host(fin_t), _to_host(ev_t)), "bt": bt, "pools": pl,
+               "xpos": samp[:, 0:3], "v_ifty": samp[:, 7:10], "attempts": attempts,
+               "t_sample": t_sample, "t_issue": t_issue, "rng_after": rng_snap}
+        issue_event_no += batch
+        issue_remaining -= batch
+        batches_issued += 1
+        return rec
+
+    def assemble(rec):
+        """Read one batch's packs back, assemble its rows (MainRunner.jl:
+        670-729), write its text, apply its sampling accounting, checkpoint."""
+        nonlocal event_no, remaining, batches_done
+        batch = rec["batch"]
+        if rec["event_no"] != event_no:
+            raise RuntimeError(f"batch of event {rec['event_no']} assembled at {event_no}")
+        stats.sample_attempts += rec["attempts"]
+        stats.f_inx += rec["attempts"] - batch
+        stats.t_sample += rec["t_sample"]
+        t1 = time.time()
+        fp_all, evp_all = (_from_host(h) for h in rec["host"])
+        t_fetch = time.time() - t1
+        stats.t_fetch += t_fetch
+        t_batch = rec["t_issue"] + t_fetch
         stats.t_pipeline += t_batch
-        stats.tree_iters += int(evp[:, 11].max())
 
         # --- host row assembly (MainRunner.jl:670-729) ---
         t2 = time.time()
-        stats.sample_attempts += attempts
-        stats.f_inx += attempts - batch
-        cap = fp.shape[0] - 1
-        cnt = int(fp[cap, 0])
-        if cnt > cap:
-            raise RuntimeError(f"finals pack overflow: {cnt} finals exceed the "
-                               f"{cap}-row capacity — raise "
-                               "NumericsConfig.finals_cap_per_event")
-        fin = fp[:cnt]
+        # the finals pack holds one [cap+1, 14] block per shard, with the
+        # shard's local event indices and its count in the trailer row; mesh
+        # padding duplicates (event index >= batch) are dropped
+        blk = fp_all.shape[0] // n_sh
+        shard_e = evp_all.shape[0] // n_sh
+        fins = []
+        for s in range(n_sh):
+            fp = fp_all[s * blk:(s + 1) * blk]
+            cap = blk - 1
+            cnt = int(fp[cap, 0])
+            if cnt > cap:
+                raise RuntimeError(f"finals pack overflow: {cnt} finals exceed the "
+                                   f"{cap}-row capacity — raise "
+                                   "NumericsConfig.finals_cap_per_event")
+            f = np.array(fp[:cnt], np.float64)
+            f[:, 0] += s * shard_e
+            fins.append(f)
+        fin = np.concatenate(fins, axis=0)
+        fin = fin[fin[:, 0] < batch]
+        evp = evp_all[:batch]
+        stats.tree_iters += int(evp[:, 11].max())
+        xpos_np, v_ifty = rec["xpos"], rec["v_ifty"]
         sln_np = evp[:, 0] * scale
         cosw_np = evp[:, 1]
         count_np = evp[:, 2].astype(np.int64)
@@ -559,7 +680,7 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
         if save_mode > 1:
             t3 = time.time()
             _write_text(ev_files, save_mode, dir_tag, file_tag, event_no, t_batch / batch,
-                        bt, pools,
+                        rec["bt"], rec["pools"],
                         dict(v_ifty=v_ifty, sln=sln_np, xpos=xpos_np, k_init=k_init_np,
                              count=count_np),
                         dict(e_ids=e_ids, weight=weight, species=species_id.astype(np.int64),
@@ -569,16 +690,66 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
         event_no += batch
         stats.events += batch
         remaining -= batch
-        batches += 1
+        batches_done += 1
         if checkpoint:
-            _write_checkpoint(out_path, key, succ_rate, event_no, remaining, stats, rows)
+            ck_key, ck_rate = rec["rng_after"]
+            _write_checkpoint(out_path, ck_key, ck_rate, event_no, remaining, stats, rows)
+
+    prof = None
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        acts = [torch.profiler.ProfilerActivity.CPU] + (
+            [torch.profiler.ProfilerActivity.CUDA] if device.type == "cuda" else [])
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+    # The batch loop (driver.py:575-628 of the reference).  RNG: each batch
+    # takes one split of the carried key and chunk j of a batch draws from
+    # fold_in(batch_key, j), so how issues interleave changes no draw; the
+    # checkpoint after batch i stores the (key, succ_rate) of right after
+    # batch i's collect, the state batch i+1's sampling starts from.
+    inflight: deque = deque()
+    try:
+        samp_next = (sample_dispatch(min(event_batch, issue_remaining))
+                     if issue_remaining > 0 else None)
+        while issue_remaining > 0 or inflight:
+            nxt = None
+            if issue_remaining > 0 and (max_batches is None or batches_issued < max_batches):
+                try:
+                    batch = min(event_batch, issue_remaining)
+                    samp, attempts, t_sample = sample_collect(samp_next, batch)
+                    rng_snap = (key, succ_rate)
+                    # the next batch's primary chunk goes ahead of this batch's pipeline
+                    left = issue_remaining - batch
+                    if left > 0 and (max_batches is None or batches_issued + 1 < max_batches):
+                        samp_next = sample_dispatch(min(event_batch, left))
+                    nxt = issue_batch(samp, batch, attempts, t_sample, rng_snap)
+                except Exception:
+                    # a failure while sampling or issuing keeps the batches in
+                    # flight: assemble (and checkpoint) them, then raise
+                    while inflight:
+                        assemble(inflight.popleft())
+                    raise
+            if nxt is not None:
+                inflight.append(nxt)
+            while len(inflight) > depth or (nxt is None and inflight):
+                assemble(inflight.popleft())
+            if nxt is None and issue_remaining > 0:
+                break
+    finally:
+        if prof is not None:
+            prof.stop()
+            trace = os.path.join(profile_dir, f"trace_{file_tag or 'run'}_"
+                                              f"p{process_index()}.json")
+            prof.export_chrome_trace(trace)
+            if verbose:
+                print(f"profile -> {trace}")
 
     _sync(device)
     save_all = (np.concatenate(rows, axis=0).astype(np.float64) if rows
                 else np.zeros((0,)))
     if remaining > 0:
         if verbose:
-            print(f"Stopping after {batches} batches ({remaining} events remaining; "
+            print(f"Stopping after {batches_done} batches ({remaining} events remaining; "
                   f"checkpoint {'written' if checkpoint else 'NOT written'})")
         stats.wall_time = time.time() - t_run0
         return save_all, out_path, stats
@@ -591,6 +762,7 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
         print(f"events={stats.events} finals={stats.finals} f_inx={stats.f_inx} "
               f"nodes={stats.tot_nodes} info={stats.info_hist} "
               f"wall={stats.wall_time:.1f}s (gate {stats.t_gate:.1f} sample "
-              f"{stats.t_sample:.1f} pipe {stats.t_pipeline:.1f} rows {stats.t_rows:.1f} "
+              f"{stats.t_sample:.1f} pipe {stats.t_pipeline:.1f} fetch {stats.t_fetch:.1f} "
+              f"rows {stats.t_rows:.1f} issue {stats.t_issue:.1f} sampd {stats.t_sampd:.1f} "
               f"text {stats.t_text:.1f}) -> {out_path}")
     return save_all, out_path, stats

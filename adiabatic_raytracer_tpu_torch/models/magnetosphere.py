@@ -141,3 +141,10 @@ def conversion_surface_radius(mass_a, theta_m, omega_pul, b0, r_ns, t_in=0.0):
         [math.sin(theta_ev), 0.0, math.cos(theta_ev)], dtype=torch.float64)
     om_test = float(omega_p_cart(x_eval, t_in, theta_m, omega_pul, b0, r_ns))
     return r_ns * (om_test / mass_a) ** (2.0 / 3.0) * 1.01
+
+
+def cyclotron_freq_cart(x_cart, t, theta_m, omega_pul, b0, r_ns):
+    """Electron cyclotron frequency [eV] (cyclotronF_vec, RayTracer.jl:798-802)."""
+    b = b_cart(x_cart, t, theta_m, omega_pul, b0, r_ns)
+    bmag = torch.sqrt(torch.sum(b * b, dim=-1))
+    return bmag * 0.3 / 5.11e5 * (1.95e-20 * 1e18)

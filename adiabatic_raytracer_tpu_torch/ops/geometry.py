@@ -3,13 +3,16 @@
 Port of adiabatic_raytracer_tpu/ops/geometry.py (RayTracer.jl:196-216,
 404-416, 983-1008).  x_sph = [r, theta, phi]; covariant celerity
 w = (v_r / sqrt(A), v_th r, v_ph r sin(theta)) / A with A = 1 - r_s/r.
-The reference's conversion-surface-angle diagnostics (surf_norm and
-friends) are dead in its production path and are not ported.
+The reference's conversion-surface-angle diagnostics (surf_norm and friends,
+RayTracer.jl:895-1063) are dead in its production path; they are here for
+analysis, single-point functions whose derivatives come from torch.func
+(vmap them over a batch).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.func import grad
 
 from adiabatic_raytracer_tpu_torch.models.metric import lapse_A, metric_inverse
 
@@ -83,3 +86,80 @@ def spatial_dot(x_sph, a, b, mass_ns):
 
 def spatial_norm(x_sph, a, mass_ns):
     return torch.sqrt(spatial_dot(x_sph, a, a, mass_ns))
+
+
+# ---------------------------------------------------------------------------
+# Conversion-surface-angle diagnostics (JAX ops/geometry.py:108-187).  Single
+# points x_cart, k_cart of shape [3]; torch.func.vmap for batches.
+# ---------------------------------------------------------------------------
+
+
+def _surface_normal_sph(x_sph, t, sc, mass_ns):
+    """Covariant, metric-normalized gradient of omega_p: the conversion-surface
+    normal (surfNorm inner block, RayTracer.jl:914-916)."""
+    from adiabatic_raytracer_tpu_torch.models.magnetosphere import omega_p_sph
+
+    grd = grad(lambda xp: omega_p_sph(xp, t, sc.theta_m, sc.omega_pul, sc.b0, sc.r_ns,
+                                      mass_a=sc.mass_a, bndry_lyr=sc.bndry_lyr))(x_sph)
+    return grd / spatial_norm(x_sph, grd, mass_ns)
+
+
+def surf_norm(x_cart, k_cart, t, sc, mass_ns, *, return_vec=False):
+    """cos(angle) between the ray momentum and the conversion-surface normal
+    grad(omega_p), in the covariant 3-metric (surfNorm, RayTracer.jl:895-933)."""
+    x_sph = cart_to_sph(x_cart)
+    w = celerity_from_cart(x_cart, k_cart, mass_ns)
+    snorm = _surface_normal_sph(x_sph, t, sc, mass_ns)
+    ctheta = spatial_dot(x_sph, w, snorm, mass_ns) / spatial_norm(x_sph, w, mass_ns)
+    if return_vec:
+        return ctheta, snorm
+    return ctheta
+
+
+def angle_vg_snorm(x_cart, vg_cart, t, sc, mass_ns, *, return_vec=False):
+    """cos(angle) between the group velocity and the conversion-surface normal
+    (angle_vg_sNorm, RayTracer.jl:1011-1042): the same covariant projection
+    as surf_norm."""
+    return surf_norm(x_cart, vg_cart, t, sc, mass_ns, return_vec=return_vec)
+
+
+def theta_b_cart(x_cart, k_cart, t, sc):
+    """Angle between k and B in flat Cartesian components (theta_B,
+    RayTracer.jl:951-955)."""
+    from adiabatic_raytracer_tpu_torch.models.magnetosphere import b_cart
+
+    b = b_cart(x_cart, t, sc.theta_m, sc.omega_pul, sc.b0, sc.r_ns)
+    cos_t = torch.sum(k_cart * b, dim=-1) / torch.sqrt(
+        torch.sum(k_cart * k_cart, dim=-1) * torch.sum(b * b, dim=-1))
+    return torch.arccos(cos_t)
+
+
+def _proj(k_cart, grd):
+    return torch.abs(torch.sum(k_cart * grd)) / torch.sqrt(torch.sum(k_cart * k_cart))
+
+
+def dtheta_dr_proj(x_cart, k_cart, t, sc):
+    """|k_hat . grad(theta_B)| (dθdr_proj, RayTracer.jl:1060-1063)."""
+    return _proj(k_cart, grad(lambda x: theta_b_cart(x, k_cart, t, sc))(x_cart))
+
+
+def dwdr_abs_proj(x_cart, k_cart, t, sc):
+    """|k_hat . grad(omega_p)| in Cartesian coordinates: the projection that
+    the reference's d2wdr2_abs_vec calls as `dwdr_abs_vec`, which the
+    reference never defines (RayTracer.jl:939-942)."""
+    from adiabatic_raytracer_tpu_torch.models.magnetosphere import omega_p_cart
+
+    return _proj(k_cart, grad(
+        lambda x: omega_p_cart(x, t, sc.theta_m, sc.omega_pul, sc.b0, sc.r_ns,
+                               mass_a=sc.mass_a, bndry_lyr=sc.bndry_lyr))(x_cart))
+
+
+def d2wdr2_abs_vec(x_cart, k_cart, t, sc):
+    """(2/tan(theta_B) * dθdr_proj * dwdr - d2wdr2_proj) / sin(theta_B)^2
+    (d2wdr2_abs_vec, RayTracer.jl:936-949), with dwdr_abs_proj in the role
+    of the reference's undefined inner function."""
+    d2_proj = _proj(k_cart, grad(lambda x: dwdr_abs_proj(x, k_cart, t, sc))(x_cart))
+    dwdr = dwdr_abs_proj(x_cart, k_cart, t, sc)
+    theta = theta_b_cart(x_cart, k_cart, t, sc)
+    d0dr = dtheta_dr_proj(x_cart, k_cart, t, sc)
+    return (2.0 / torch.tan(theta) * d0dr * dwdr - d2_proj) / torch.sin(theta) ** 2

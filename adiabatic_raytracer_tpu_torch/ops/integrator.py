@@ -10,7 +10,8 @@ version the K2 megakernel is held against (ops/megakernel.py).
 Eager torch pays per operation, so the scan runs as one [B, K] chain of
 tensor ops and the bisection as one [B] chain, never a Python loop over
 samples or rays.  The Python `while` over steps syncs with the device once
-per step.
+per step.  `init_state` / `iter_budget` / `return_state` run the loop in
+chunks from a carried PoolState (ops/streaming.py compacts between chunks).
 """
 
 from __future__ import annotations
@@ -44,6 +45,29 @@ def hermite(u0, u1, f0, f1, h, tau):
     t3 = t2 * tau
     return ((2 * t3 - 3 * t2 + 1) * u0 + (t3 - 2 * t2 + tau) * h * f0
             + (-2 * t3 + 3 * t2) * u1 + (t3 - t2) * h * f1)
+
+
+class PoolState(NamedTuple):
+    """The loop's carried state, per ray (JAX integrator.PoolState, plus the
+    port's n_bisect)."""
+    u: Any
+    lnt: Any
+    dt: Any
+    f0: Any          # FSAL derivative at (lnt, u)
+    g0: Any          # event condition at (lnt, u)
+    done: Any
+    ns_hit: Any
+    cut_short: Any
+    maxed: Any
+    stalled: Any
+    n_cross: Any
+    n_bisect: Any
+    cross_u: Any
+    cross_lnt: Any
+    save_u: Any      # [B, NS, 7] before the past-the-end fill
+    steps: Any
+    lnt_ck: Any      # log-time at the last stall check
+    errold: Any      # PI controller memory
 
 
 class PoolResult(NamedTuple):
@@ -86,46 +110,59 @@ def _initial_dt(u0, f0, span, rtol, atol):
 
 def integrate_pool(rhs: Callable, cond_fn: Callable, u0, lnt0, lnt1, ray_args,
                    cfg: NumericsConfig, *, save_lnt, kill_at_surface, r_ns,
-                   x0_cart, max_crossings, detect_events: bool = True) -> PoolResult:
+                   x0_cart, max_crossings, detect_events: bool = True,
+                   init_state: PoolState = None, iter_budget: int = None,
+                   return_state: bool = False):
     """Advance rays from lnt0 to lnt1 with per-ray adaptive steps.
 
     rhs(u [B,7], lnt [B], ray_args) -> [B,7]; cond_fn(u [...,7], lnt [...])
     -> [...].  Crossings below 1.01 r_NS, and a first crossing that has not
     moved from the start point (factor 1.0001 per |component|,
-    RayTracer.jl:303-322), are rejected without recording."""
-    B = u0.shape[0]
-    dev, dtype = u0.device, u0.dtype
+    RayTracer.jl:303-322), are rejected without recording.
+
+    init_state resumes from a carried state (u0 and lnt0 are then unused),
+    iter_budget stops after that many loop iterations (0 builds the initial
+    state), return_state returns (PoolResult, PoolState)."""
+    ref = u0 if init_state is None else init_state.u
+    B = ref.shape[0]
+    dev, dtype = ref.device, ref.dtype
     MAXC = cfg.max_crossings
     NS = save_lnt.shape[1]
     K = cfg.interp_points
     rtol, atol = float(cfg.rtol), float(cfg.atol)
     beta = float(cfg.pi_beta)
 
-    u = u0.clone()
-    lnt = lnt0.clone()
-    f0 = rhs(u, lnt, ray_args)
-    g0 = cond_fn(u, lnt)
-    span = lnt1 - lnt0
-    dt = _initial_dt(u, f0, span, rtol, atol)
-    done = span <= 0
-    ns_hit = torch.zeros(B, dtype=torch.bool, device=dev)
-    cut_short = torch.zeros_like(ns_hit)
-    maxed = torch.zeros_like(ns_hit)
-    stalled = torch.zeros_like(ns_hit)
-    n_cross = torch.zeros(B, dtype=torch.int64, device=dev)
-    n_bisect = torch.zeros(B, dtype=torch.int64, device=dev)
-    cross_u = torch.zeros((B, MAXC, u0.shape[1]), dtype=dtype, device=dev)
-    cross_lnt = torch.zeros((B, MAXC), dtype=dtype, device=dev)
-    save_u = torch.zeros((B, NS, u0.shape[1]), dtype=dtype, device=dev)
-    save_u[:, 0] = u0
-    steps = torch.zeros(B, dtype=torch.int64, device=dev)
-    lnt_ck = lnt0.clone()
-    errold = torch.full((B,), 1e-4, dtype=dtype, device=dev)
+    if init_state is None:
+        u = u0.clone()
+        lnt = lnt0.clone()
+        f0 = rhs(u, lnt, ray_args)
+        g0 = cond_fn(u, lnt)
+        span = lnt1 - lnt0
+        dt = _initial_dt(u, f0, span, rtol, atol)
+        done = span <= 0
+        ns_hit = torch.zeros(B, dtype=torch.bool, device=dev)
+        cut_short = torch.zeros_like(ns_hit)
+        maxed = torch.zeros_like(ns_hit)
+        stalled = torch.zeros_like(ns_hit)
+        n_cross = torch.zeros(B, dtype=torch.int64, device=dev)
+        n_bisect = torch.zeros(B, dtype=torch.int64, device=dev)
+        cross_u = torch.zeros((B, MAXC, u0.shape[1]), dtype=dtype, device=dev)
+        cross_lnt = torch.zeros((B, MAXC), dtype=dtype, device=dev)
+        save_u = torch.zeros((B, NS, u0.shape[1]), dtype=dtype, device=dev)
+        save_u[:, 0] = u0
+        steps = torch.zeros(B, dtype=torch.int64, device=dev)
+        lnt_ck = lnt0.clone()
+        errold = torch.full((B,), 1e-4, dtype=dtype, device=dev)
+    else:
+        (u, lnt, dt, f0, g0, done, ns_hit, cut_short, maxed, stalled, n_cross, n_bisect,
+         cross_u, cross_lnt, save_u, steps, lnt_ck, errold) = init_state
     rows = torch.arange(B, device=dev)
     taus = torch.linspace(0.0, 1.0, K + 1, dtype=torch.float64, device=dev)[1:-1].to(dtype)
     kidx = torch.arange(K, device=dev)[None, :]
 
-    while bool((~done).any()):
+    it = 0
+    while bool((~done).any()) and (iter_budget is None or it < iter_budget):
+        it += 1
         active = ~done
         h = torch.clamp(torch.minimum(dt, lnt1 - lnt), min=0.0)
         hc = h[:, None]
@@ -236,8 +273,15 @@ def integrate_pool(rhs: Callable, cond_fn: Callable, u0, lnt0, lnt1, ray_args,
         done = done | ns_now | reached | maxed_now
 
     past_end = save_lnt > lnt[:, None]
-    save_u = torch.where(past_end[:, :, None], u[:, None, :], save_u)
-    return PoolResult(u=u, lnt=lnt, save_u=save_u, cross_u=cross_u,
-                      cross_lnt=cross_lnt, n_cross=n_cross, cut_short=cut_short,
-                      ns_hit=ns_hit, maxed=maxed, steps=steps, stalled=stalled,
-                      n_bisect=n_bisect)
+    res = PoolResult(u=u, lnt=lnt,
+                     save_u=torch.where(past_end[:, :, None], u[:, None, :], save_u),
+                     cross_u=cross_u, cross_lnt=cross_lnt, n_cross=n_cross,
+                     cut_short=cut_short, ns_hit=ns_hit, maxed=maxed, steps=steps,
+                     stalled=stalled, n_bisect=n_bisect)
+    if not return_state:
+        return res
+    return res, PoolState(u=u, lnt=lnt, dt=dt, f0=f0, g0=g0, done=done, ns_hit=ns_hit,
+                          cut_short=cut_short, maxed=maxed, stalled=stalled,
+                          n_cross=n_cross, n_bisect=n_bisect, cross_u=cross_u,
+                          cross_lnt=cross_lnt, save_u=save_u, steps=steps, lnt_ck=lnt_ck,
+                          errold=errold)

@@ -72,7 +72,8 @@ class BacktraceResult(NamedTuple):
 def backtrace(xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
               tcfg: TreeConfig, *, lnt_end) -> BacktraceResult:
     """Backtrace the sampled axion to every level crossing it met
-    (get_tree with -B0, -k, MainRunner.jl:581-589)."""
+    (get_tree with -B0, -k, MainRunner.jl:581-589): through K2 at engine
+    mega, the pool otherwise, in compacted chunks at pool_compact."""
     E = xpos.shape[0]
     dev, dt = xpos.device, xpos.dtype
     sc_b = _negate_b(sc)
@@ -86,6 +87,15 @@ def backtrace(xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
 
         res = propagate_mega(xpos, k_back, sc_b, cfg, max_crossings=cfg.max_crossings,
                              with_prob=bool(cfg.in_kernel_prob), **kw)
+    elif cfg.engine == "pool_compact":
+        # the pool in chunks, compacting the rays still running between them
+        # (driver.py:315-393 of the reference); the tree runs the pool
+        from adiabatic_raytracer_tpu_torch.ops.streaming import CompactedPropagator
+
+        kw.pop("species")
+        res = CompactedPropagator(sc_b, cfg, species="axion").run(
+            xpos, k_back, kw["erg"], kw["delta_w"], kw["lnt0"], kw["lnt1"], kw["is_photon"],
+            torch.full((E,), cfg.max_crossings, dtype=torch.int64, device=dev))
     else:
         res = propagate(xpos, k_back, sc_b, cfg,
                         max_crossings=torch.full((E,), cfg.max_crossings,

@@ -5,7 +5,9 @@ this checkout, checks each against its plain PyTorch version on the card at
 the shapes the main path gives it, then drives the port's main path through
 its CLI entry point at the production default scene, and at a boundary-layer
 and an isotropic scene, its saveMode 3 text and tree dumps, checkpoint and
-resume, and the forward tree's streaming window, and checks the output.
+resume, the forward tree's streaming window, pipeline depth 2, two processes
+in one group, the mesh, engine pool_compact, and the diagnostics and
+analysis, and checks the output.
 
     python3 chip_smoke.py            # needs one CUDA device
 
@@ -105,6 +107,30 @@ non-zero):
      launched
  17. the window's contract: driver.run on the queue path, 2048 events,
      tree_k 4, window 128 against 0: rows bitwise
+ 18. pipeline depth 2: driver.run on the kernel path, 8192 events in
+     batches of 2048, warm, depth 1 and 2 in turns (three runs each): rows
+     bitwise across all six, medians and spreads of events/s and the stage
+     times, the host reads per batch at each depth
+     (torch.cuda.set_sync_debug_mode), a depth-2 run stopped after two
+     batches and resumed bitwise
+ 19. two fresh CLI processes in one gloo group on the one card
+     (--coordinator, 1024 events each, seeds 1769 + p): each shard bitwise
+     the one-process shard, the --run_Combine outputs byte-identical, the
+     pulse profile summed over the group equal to the one-process sum;
+     each process's wall and stage times (a cold start)
+ 20. the mesh: --mesh 2 against --mesh 1 where two cards exist; on one
+     card --mesh 2 must raise naming cuda:1 and --mesh 1 give phase 7's
+     rows bitwise; --profile_dir on a 256-event run, its trace holding
+     kernels
+ 21. engine pool_compact: CompactedPropagator against propagate on 8
+     photons of JAX's streaming-test input, compacting 8 -> 4 -> 2 (counts
+     exact, traj and xc within 1e-12); then driver.run with engine pool and
+     pool_compact (eager torch on the card: 2 events, a one-node tree):
+     species and stop codes exact, the rest within rtol 1e-3
+ 22. the geometry diagnostics and tau_cyc / dwdt_vec on 4096 f64 states on
+     the card against the CPU (1e-12 of each one's largest value), and
+     flux.analyze on phase 7's rows (histogram totals = sum of weight *
+     sln_prob per species)
  14. the kernels' JSON line: each kernel's launches on its path (K1's
      grid kernel, a check only, 0 on the main path; P1's through its entry
      point), and its time,
@@ -1645,6 +1671,489 @@ def phase_window(device, n_events, tree_k):
         raise AssertionError("phase 17: the windowed tree's rows differ from the unwindowed")
 
 
+def spread(xs):
+    """(median, max - min) of a list of numbers."""
+    import numpy as np
+
+    return float(np.median(xs)), float(max(xs) - min(xs))
+
+
+def count_host_reads(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("warn"): (its result, the
+    number of synchronizing CUDA operations it ran, the top sites by
+    count as "file:line n")."""
+    import collections
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchronizing" in str(w.message)]
+    sites = collections.Counter(f"{os.path.basename(w.filename)}:{w.lineno}" for w in syncs)
+    return out, len(syncs), ", ".join(f"{k} {n}" for k, n in sites.most_common(8))
+
+
+def phase_depth(device, n_events, batch):
+    """Phase 18: pipeline depth 2 on the card.  driver.run on the kernel
+    path (K3 at chunk 64, as the CLI runs it), warm, depth 1 and depth 2 in
+    turns (1, 2, 2, 1, 1, 2): rows bitwise equal across all the runs;
+    medians and spreads of events/s and t_pipeline; the host reads per
+    batch (synchronizing CUDA operations, set_sync_debug_mode) at each
+    depth; a depth-2 run stopped after two batches and resumed writes the
+    uninterrupted rows bit for bit."""
+    import dataclasses
+    import glob
+    import shutil
+
+    import numpy as np
+
+    from adiabatic_raytracer_tpu_torch import driver
+    from adiabatic_raytracer_tpu_torch.ops import cuda_lib
+
+    sc, cfg, tcfg, _, _ = scene_setup(device)
+    cfg = dataclasses.replace(cfg, tree_engine="kernel", tree_kernel_chunk=64)
+    d = os.path.join(OUT, "depth")
+    shutil.rmtree(d, ignore_errors=True)
+    kw = dict(seed=1769, save_mode=1, event_batch=batch, verbose=False, device=device)
+    run = lambda tag, n=n_events, **more: driver.run(sc, cfg, tcfg, n + 1, dir_tag=d,
+                                                     file_tag=tag, **kw, **more)
+    run("warm", n=batch)
+    stats, rows = {1: [], 2: []}, None
+    fails = []
+    cuda_lib.reset_launch_counts()
+    for i, depth in enumerate((1, 2, 2, 1, 1, 2)):
+        t0 = time.time()
+        r, _, st = run(f"d{depth}_{i}", pipeline_depth=depth)
+        stats[depth].append((n_events / (time.time() - t0), st))
+        if rows is None:
+            rows = r
+        elif not np.array_equal(r, rows):
+            fails.append(f"run {i} at depth {depth}: rows differ from the first run's")
+    same = not fails
+    launches = dict(cuda_lib.LAUNCHES)
+    if not all(launches[n] for n in ("line_roots", "megakernel", "treekernel")):
+        fails.append(f"launches {launches}: K1, K2 and K3 must launch")
+    log(18, f"launches over the six runs: {launches}")
+    summary = {}
+    for depth in (1, 2):
+        ev = spread([e for e, _ in stats[depth]])
+        pipe = spread([st.t_pipeline for _, st in stats[depth]])
+        fetch = spread([st.t_fetch for _, st in stats[depth]])
+        issue = spread([st.t_issue for _, st in stats[depth]])
+        summary[depth] = ev
+        log(18, f"depth {depth}, {n_events} events in batches of {batch}, 3 warm runs: "
+                f"events/s median {ev[0]:.1f} (spread {ev[1]:.1f}), t_pipeline {pipe[0]:.3f} s "
+                f"({pipe[1]:.3f}), t_fetch {fetch[0]:.4f} s ({fetch[1]:.4f}), t_issue "
+                f"{issue[0]:.3f} s ({issue[1]:.3f}); runs "
+                + ", ".join(f"{e:.1f}" for e, _ in stats[depth]))
+    gain = summary[2][0] - summary[1][0]
+    log(18, f"depth 2 - depth 1 median events/s {gain:.1f} against the larger spread "
+            f"{max(summary[1][1], summary[2][1]):.1f}: depth 2 "
+            f"{'ahead' if gain > max(summary[1][1], summary[2][1]) else 'not ahead'}")
+    no_gate = dataclasses.replace(cfg, scan_gate_check=0)
+    for depth in (1, 2):
+        _, n_sync, sites = count_host_reads(
+            lambda: driver.run(sc, no_gate, tcfg, n_events + 1, dir_tag=d,
+                               file_tag=f"sync{depth}", pipeline_depth=depth, **kw))
+        log(18, f"depth {depth}: {n_sync} synchronizing CUDA operations in "
+                f"{n_events // batch} batches = {n_sync / (n_events // batch):.1f} per batch "
+                f"(no census); top sites: {sites}")
+    part = run("resume", pipeline_depth=2, checkpoint=True, max_batches=2)
+    ck = glob.glob(os.path.join(d, "npy", ".ckpt_*resume*.json"))
+    r, _, st = run("resume", pipeline_depth=2, checkpoint=True, resume=True)
+    if len(ck) != 1 or part[2].events != 2 * batch:
+        fails.append(f"the stopped run left {len(ck)} checkpoints after {part[2].events} events")
+    if not np.array_equal(r, rows):
+        fails.append("the resumed depth-2 rows differ from the uninterrupted run's")
+    log(18, f"depth 2 stopped after 2 batches and resumed: rows {r.shape} bitwise "
+            f"{np.array_equal(r, rows)}; all six runs' rows bitwise {same}")
+    if fails:
+        raise AssertionError("phase 18: " + "; ".join(fails))
+
+
+def phase_processes(device, n_events):
+    """Phase 19: two processes on the one card.  Two fresh processes run the
+    CLI in one gloo group (--coordinator 127.0.0.1:<free port> --nprocs 2
+    --procid p), n_events each on the kernel path, seeds 1769 + p, --ftag
+    mh_p; the same flags without --coordinator in this process.  Each
+    shard bitwise the one-process shard; the two --run_Combine outputs
+    byte-identical; the pulse profile both processes print (all_reduce over
+    the group) equal to the sum of the one-process shards'.  Logs each
+    process's wall and its run's stage times (a cold start)."""
+    import shutil
+    import socket
+
+    import numpy as np
+
+    from adiabatic_raytracer_tpu_torch import cli
+    from adiabatic_raytracer_tpu_torch.ops import cuda_lib
+    from adiabatic_raytracer_tpu_torch.parallel.reduce import pulse_profile_from_rows
+
+    dirs = {k: os.path.join(OUT, f"mh_{k}") for k in ("group", "one")}
+    for v in dirs.values():
+        shutil.rmtree(v, ignore_errors=True)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    shard = ["--device", "cuda", "--Nts", str(n_events + 1), "--saveMode", "1"] + SCENE_ARGS
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + os.environ.get("PYTHONPATH", "").split(os.pathsep)))
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "adiabatic_raytracer_tpu_torch", *shard, "--seed",
+         str(1769 + p), "--dir_tag", dirs["group"], "--ftag", f"mh_{p}", "--coordinator",
+         f"127.0.0.1:{port}", "--nprocs", "2", "--procid", str(p)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for p in range(2)]
+    logs, walls = [], []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=600)
+            walls.append(time.time() - t0)
+            logs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 19: a group process failed:\n{out[-3000:]}")
+    cuda_lib.reset_launch_counts()
+    for p in range(2):
+        cli.run_from_args(shard + ["--seed", str(1769 + p), "--dir_tag", dirs["one"],
+                                   "--ftag", f"mh_{p}"])
+    launches = dict(cuda_lib.LAUNCHES)
+    fails, shards = [], []
+    if not all(launches[n] for n in ("line_roots", "megakernel", "treekernel")):
+        fails.append(f"launches {launches}: K1, K2 and K3 must launch")
+    for p in range(2):
+        (name,) = [f for f in os.listdir(os.path.join(dirs["one"], "npy"))
+                   if f.endswith(f"_mh_{p}.npy")]
+        a = np.load(os.path.join(dirs["group"], "npy", name))
+        b = np.load(os.path.join(dirs["one"], "npy", name))
+        shards.append(b)
+        if not np.array_equal(a, b):
+            fails.append(f"process {p}'s shard {a.shape} differs from the one-process {b.shape}")
+    hists = [pulse_profile_from_rows(shards[0])[i] + pulse_profile_from_rows(shards[1])[i]
+             for i in range(2)]
+    for p, out in enumerate(logs):
+        (line,) = re.findall(r"pulse profile summed over processes: (\{.*\})", out)
+        got = json.loads(line)
+        if not (np.array_equal(got["photon"], hists[0].numpy())
+                and np.array_equal(got["axion"], hists[1].numpy())):
+            fails.append(f"process {p}'s summed pulse profile differs from the one-process sum")
+        summary = next(ln for ln in out.splitlines() if ln.startswith("events="))
+        log(19, f"process {p}: wall {walls[p]:.2f} s from both starts; "
+                f"{summary.split(' -> ')[0]}")
+    merged = []
+    for d in dirs.values():
+        cli.run_from_args(["--run_RT", "0", "--run_Combine", "1", "--side_runs", "2", "--Nts",
+                           str(n_events + 1), "--saveMode", "1", "--device", "cuda",
+                           "--ftag", "mh_", "--dir_tag", d] + SCENE_ARGS)
+        (name,) = [f for f in os.listdir(d) if f.endswith(".npy")]
+        with open(os.path.join(d, name), "rb") as f:
+            merged.append(f.read())
+    if merged[0] != merged[1]:
+        fails.append("the combined npy differs")
+    log(19, f"the one-process shards here launched {launches}")
+    log(19, f"two processes, {n_events} events each: shards bitwise {not fails}; photon "
+            f"and axion pulse profiles summed over the group {float(hists[0].sum()):.6g}, "
+            f"{float(hists[1].sum()):.6g}; combined npy {len(merged[0])} bytes, identical "
+            f"{merged[0] == merged[1]}")
+    if fails:
+        raise AssertionError("phase 19: " + "; ".join(fails))
+
+
+def phase_mesh(device, n_events, batch, rows_kernel):
+    """Phase 20: the mesh.  With two cards, --mesh 2 against --mesh 1 on the
+    kernel path: event, species, node count, stop code and c_bck bitwise,
+    the rest within 1e-9 relative.  With one card, --mesh 2 must raise
+    naming the missing card, and --mesh 1 gives phase 7's rows bitwise.
+    Then --profile_dir on a 256-event run: its trace (under build/) must
+    hold kernels."""
+    import numpy as np
+    import torch
+
+    from adiabatic_raytracer_tpu_torch import cli
+    from adiabatic_raytracer_tpu_torch.ops import cuda_lib
+
+    def argv(tag, mesh):
+        return (["--device", "cuda", "--event_batch", str(batch), "--Nts", str(n_events + 1),
+                 "--saveMode", "1", "--seed", "1769", "--dir_tag", os.path.join(OUT, "mesh"),
+                 "--ftag", tag, "--mesh", str(mesh)] + SCENE_ARGS)
+
+    cuda_lib.reset_launch_counts()
+    t0 = time.time()
+    rows1 = cli.run_from_args(argv("mesh1", 1))[0]
+    t1 = time.time()
+    launches = dict(cuda_lib.LAUNCHES)
+    if not all(launches[n] for n in ("line_roots", "megakernel", "treekernel")):
+        raise AssertionError(f"phase 20: --mesh 1 launches {launches}: K1, K2 and K3 must")
+    if torch.cuda.device_count() >= 2:
+        rows2 = cli.run_from_args(argv("mesh2", 2))[0]
+        ok = (rows2.shape == rows1.shape
+              and all(np.array_equal(rows2[:, c], rows1[:, c]) for c in (0, 1, 20, 21, 27))
+              and np.allclose(rows2, rows1, rtol=1e-9, atol=1e-300))
+        log(20, f"--mesh 2 on {torch.cuda.device_count()} cards vs --mesh 1: rows {rows2.shape} "
+                f"within the mesh bar {ok}, bitwise {np.array_equal(rows2, rows1)}")
+        if not ok:
+            raise AssertionError("phase 20: --mesh 2 rows differ from --mesh 1's")
+    else:
+        try:
+            cli.run_from_args(argv("mesh2", 2))
+        except RuntimeError as e:
+            if "cuda:1 is missing" not in str(e):
+                raise
+            log(20, f"--mesh 2 on one card raised: {e}")
+        else:
+            raise AssertionError("phase 20: --mesh 2 on one card did not raise")
+    same = np.array_equal(rows1, rows_kernel)
+    log(20, f"--mesh 1, {n_events} events: {t1 - t0:.2f} s, rows {rows1.shape} bitwise "
+            f"phase 7's {same}; launches {launches}; multi-card meshes are not verified on a "
+            f"one-card machine")
+    if not same:
+        raise AssertionError("phase 20: --mesh 1 rows differ from phase 7's")
+    prof_dir = os.path.join(ROOT, "build", "chip_smoke_profile")
+    t0 = time.time()
+    cli.run_from_args(["--device", "cuda", "--Nts", "257", "--event_batch", "256", "--seed",
+                       "1769", "--dir_tag", os.path.join(OUT, "mesh"), "--ftag", "prof",
+                       "--profile_dir", prof_dir] + SCENE_ARGS)
+    t1 = time.time()
+    path = os.path.join(prof_dir, "trace_prof_p0.json")
+    with open(path) as f:
+        trace = json.load(f)["traceEvents"]
+    n_kernels = sum(1 for e in trace if e.get("cat") == "kernel")
+    log(20, f"--profile_dir, 256 events: {t1 - t0:.2f} s; trace {os.path.getsize(path) / 1e6:.1f} "
+            f"MB, {len(trace)} events, {n_kernels} kernels")
+    if not n_kernels:
+        raise AssertionError("phase 20: the --profile_dir trace holds no kernel")
+
+
+def phase_pool_compact(device, n_events, batch, n_rays):
+    """Phase 21: engine pool_compact on the card, where the pool engine is
+    eager torch at ~0.1 s a DP5 step.  (a) CompactedPropagator against the
+    monolithic propagate on the first n_rays photons of JAX's
+    tests/test_streaming.py input (chunk_iters 16, min_pool 2, so the pool
+    compacts): n_cross and steps exact, traj and xc within 1e-12.  (b)
+    driver.run with engine pool and pool_compact, the production scene at
+    that test's numerics (interp_points 8, max_crossings 8) and a one-node
+    tree (the tree runs the pool in both engines): species and stop codes
+    exact, the rest within rtol 1e-3 (the worst difference logged); both
+    walls; K1 launches, K2-K4 not.  At the driver's defaults (chunk_iters
+    256, min_pool 128, as in JAX) a production backtrace ends within its
+    first chunk and never compacts (256 events did so in an earlier run),
+    so in (b) the backtrace's CompactedPropagator runs at chunk_iters 16 and
+    min_pool 1, and its pool sizes must shrink."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from adiabatic_raytracer_tpu_torch import driver
+    from adiabatic_raytracer_tpu_torch.config import NumericsConfig, Scene, TreeConfig
+    from adiabatic_raytracer_tpu_torch.ops import cuda_lib, streaming
+    from adiabatic_raytracer_tpu_torch.ops.propagate import propagate
+    from adiabatic_raytracer_tpu_torch.ops.streaming import CompactedPropagator
+
+    fails = []
+    # (a) the propagator alone, JAX's 64-ray input (its first n_rays rays)
+    rng = np.random.default_rng(3)
+    r = rng.uniform(14.0, 24.0, 64)
+    th = np.arccos(rng.uniform(-0.9, 0.9, 64))
+    ph = rng.uniform(-np.pi, np.pi, 64)
+    x = np.stack([r * np.sin(th) * np.cos(ph), r * np.sin(th) * np.sin(ph),
+                  r * np.cos(th)], axis=1)[:n_rays]
+    v = rng.normal(size=(64, 3))[:n_rays]
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    f64 = torch.float64
+    t = lambda a: torch.as_tensor(a, dtype=f64, device=device)
+    sc_p = Scene(mass_a=1e-5, ax_g=1e-12, theta_m=0.2, omega_pul=1.0, b0=1e14, r_ns=10.0,
+                 mass_ns=1.0)
+    cfg_p = NumericsConfig(interp_points=8)
+    kw = dict(erg=t(np.full(n_rays, 1.0000005e-5)), delta_w=t(-np.ones(n_rays)),
+              lnt0=t(np.full(n_rays, cfg_p.ln_t_start)),
+              lnt1=t(np.full(n_rays, np.log(3e-3))),
+              is_photon=torch.ones(n_rays, dtype=torch.bool, device=device),
+              max_crossings=torch.ones(n_rays, dtype=torch.int64, device=device))
+    t0 = time.time()
+    ref = propagate(t(x), t(v), sc_p, cfg_p, species="photon", **kw)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    cp = CompactedPropagator(sc_p, cfg_p, species="photon", chunk_iters=16, min_pool=2)
+    got = cp.run(t(x), t(v), kw["erg"], kw["delta_w"], kw["lnt0"], kw["lnt1"],
+                 kw["is_photon"], kw["max_crossings"])
+    torch.cuda.synchronize()
+    t2 = time.time()
+    g = {k: getattr(got, k).cpu().numpy() for k in ("n_cross", "steps", "traj", "xc")}
+    e = {k: getattr(ref, k).cpu().numpy() for k in ("n_cross", "steps", "traj", "xc")}
+    exact = all(np.array_equal(g[k], e[k]) for k in ("n_cross", "steps"))
+    close = all(np.allclose(g[k], e[k], rtol=1e-12, atol=1e-12) for k in ("traj", "xc"))
+    bitwise = all(np.array_equal(g[k], e[k]) for k in ("traj", "xc"))
+    if not (exact and close) or min(cp.pool_sizes) >= n_rays:
+        fails.append(f"CompactedPropagator vs propagate: counts exact {exact}, traj/xc within "
+                     f"1e-12 {close}, pool sizes {cp.pool_sizes}")
+    log(21, f"CompactedPropagator on {n_rays} photons (chunk 16, min pool 2): propagate "
+            f"{t1 - t0:.2f} s, {int(e['steps'].max())} steps of the slowest; compacted "
+            f"{t2 - t1:.2f} s in {cp.chunks} chunks at pool sizes {sorted(set(cp.pool_sizes))}; "
+            f"n_cross and steps exact {exact}, traj and xc bitwise {bitwise}")
+    # (b) the driver, engine pool against pool_compact, the backtrace's
+    # propagator at small chunks so that it compacts
+    class SmallChunks(CompactedPropagator):
+        sizes = []
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **{**kw, "chunk_iters": 16, "min_pool": 1})
+
+        def run(self, *a, **kw):
+            res = super().run(*a, **kw)
+            SmallChunks.sizes.append(list(self.pool_sizes))
+            return res
+
+    sc, _, _, _, _ = scene_setup(device)
+    tcfg = TreeConfig(num_cutoff=1, mc_nodes=1, max_nodes=1)
+    d = os.path.join(OUT, "pool_compact")
+    shutil.rmtree(d, ignore_errors=True)
+    out = {}
+    for eng in ("pool", "pool_compact"):
+        cfg = NumericsConfig(atol=1e-6, rtol=1e-7, compute_dtype="f32", interp_points=8,
+                             max_crossings=8, engine=eng)
+        cuda_lib.reset_launch_counts()
+        t0 = time.time()
+        streaming.CompactedPropagator = SmallChunks
+        try:
+            rows, _, st = driver.run(sc, cfg, tcfg, n_events + 1, seed=1769, save_mode=1,
+                                     event_batch=batch, verbose=False, device=device,
+                                     dir_tag=d, file_tag=eng)
+        finally:
+            streaming.CompactedPropagator = CompactedPropagator
+        out[eng] = (rows, st, time.time() - t0, dict(cuda_lib.LAUNCHES))
+    sizes = SmallChunks.sizes
+    if len(sizes) != 1 or sizes[0][-1] >= sizes[0][0]:
+        fails.append(f"the driver's backtrace did not compact: pool sizes {sizes}")
+    (a, sa, wa, la), (b, _, wb, lb) = out["pool"], out["pool_compact"]
+    if a.shape != b.shape or a.shape[0] == 0:
+        fails.append(f"row shapes {a.shape} vs {b.shape}")
+    else:
+        if not (np.array_equal(a[:, 1], b[:, 1]) and np.array_equal(a[:, 21], b[:, 21])):
+            fails.append("species or stop codes differ")
+        if not np.allclose(a, b, rtol=1e-3, atol=1e-12):
+            fails.append("rows differ beyond rtol 1e-3")
+    for la_ in (la, lb):
+        if not la_["line_roots"] or any(la_[k] for k in ("megakernel", "treekernel",
+                                                          "treerefill")):
+            fails.append(f"launches {la_}: K1 only")
+    worst = (float(np.max(np.abs(a - b) / np.maximum(np.abs(a), 1e-300)))
+             if a.shape == b.shape and a.size else float("nan"))
+    log(21, f"driver.run, {n_events} events, batch {batch}: pool {wa:.2f} s ({sa.tree_iters} "
+            f"tree iterations), pool_compact {wb:.2f} s, its backtrace in "
+            f"{len(sizes[0]) if sizes else 0} chunks of 16 at pool sizes "
+            f"{sorted(set(sizes[0])) if sizes else []}; rows {a.shape}, bitwise "
+            f"{a.shape == b.shape and np.array_equal(a, b)}, worst relative difference "
+            f"{worst:.3g} (bar 1e-3); launches {lb}")
+    if fails:
+        raise AssertionError("phase 21: " + "; ".join(fails))
+
+
+def phase_diagnostics(device, n_states, rows_kernel):
+    """Phase 22: the geometry diagnostics (surf_norm and its normal,
+    angle_vg_snorm, theta_b_cart, dtheta_dr_proj, dwdr_abs_proj,
+    d2wdr2_abs_vec; torch.func.vmap over n_states f64 states) and tau_cyc /
+    dwdt_vec (n_states radial trajectories) on the card against the same
+    calls on the CPU: the worst difference relative to each diagnostic's
+    largest value, bar 1e-12 (the element-wise worst logged).  Then
+    analysis.flux.analyze on phase 7's rows: each species' histogram total
+    equals its sum of weight * sln_prob (relative 1e-12)."""
+    import numpy as np
+    import torch
+    from torch.func import vmap
+
+    from adiabatic_raytracer_tpu_torch.analysis import flux
+    from adiabatic_raytracer_tpu_torch.ops import geometry as g
+    from adiabatic_raytracer_tpu_torch.ops import radiative as rad
+    from adiabatic_raytracer_tpu_torch.ops.dispersion import omega_function
+
+    sc, _, _, _, _ = scene_setup(device)
+    rng = np.random.default_rng(22)
+    x = rng.normal(size=(n_states, 3))
+    x *= rng.uniform(12.0, 60.0, (n_states, 1)) / np.linalg.norm(x, axis=1, keepdims=True)
+    k = rng.normal(size=(n_states, 3))
+    ns = 16
+    u = rng.normal(size=(n_states, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    xt = np.linspace(11.0, 2e5, ns)[None, :, None] * u[:, None, :]
+    kt = np.broadcast_to(u[:, None, :] * 1e-5, xt.shape).copy()
+    tarr, t0 = np.linspace(0.0, 1e-2, ns), rng.uniform(0.0, 1.0, n_states)
+    # dwdt_vec's frequency: the photon's (omega_function); omega_p alone has a
+    # sqrt(|B_z|) cusp on the null surface, where one ulp of position moves
+    # its time derivative by ~3e-12 of the largest value on one CPU alone
+    om = lambda xx, kk, t, s: omega_function(g.cart_to_sph(xx),
+                                             g.celerity_from_cart(xx, kk, s.mass_ns), t, s,
+                                             s.mass_ns)
+    calls = {
+        "surf_norm": lambda X, K: vmap(lambda a, b: g.surf_norm(a, b, 0.25, sc,
+                                                                sc.mass_ns))(X, K),
+        "surf_norm normal": lambda X, K: vmap(lambda a, b: g.surf_norm(
+            a, b, 0.25, sc, sc.mass_ns, return_vec=True)[1])(X, K),
+        "angle_vg_snorm": lambda X, K: vmap(lambda a, b: g.angle_vg_snorm(
+            a, b, 0.25, sc, sc.mass_ns))(X, K),
+        "theta_b_cart": lambda X, K: vmap(lambda a, b: g.theta_b_cart(a, b, 0.25, sc))(X, K),
+        "dtheta_dr_proj": lambda X, K: vmap(lambda a, b: g.dtheta_dr_proj(a, b, 0.25,
+                                                                          sc))(X, K),
+        "dwdr_abs_proj": lambda X, K: vmap(lambda a, b: g.dwdr_abs_proj(a, b, 0.25,
+                                                                        sc))(X, K),
+        "d2wdr2_abs_vec": lambda X, K: vmap(lambda a, b: g.d2wdr2_abs_vec(a, b, 0.25,
+                                                                          sc))(X, K),
+    }
+    traj_calls = {
+        "tau_cyc": lambda X, K, T, T0: rad.tau_cyc(X, K, T, T0, sc),
+        "dwdt_vec": lambda X, K, T, T0: rad.dwdt_vec(X, K, T, T0, sc, om),
+    }
+    # the bar is on the difference relative to the diagnostic's largest
+    # value over the states: near a zero of a cosine, or where d2wdr2's two
+    # terms cancel, one ulp of input moves a value by up to 2e-11 of itself
+    # on one CPU alone, so element-wise ratios are logged, not barred
+    worst = {}
+    for dev_args, calls_ in (((x, k), calls), ((xt, kt, tarr, t0), traj_calls)):
+        for name, fn in calls_.items():
+            t1 = time.time()
+            got = fn(*(torch.as_tensor(a, device=device) for a in dev_args)).cpu().numpy()
+            t_dev = time.time() - t1
+            want = fn(*(torch.as_tensor(a) for a in dev_args)).numpy()
+            diff = np.abs(got - want)
+            den = np.maximum(np.abs(got), np.abs(want))
+            elem = float(np.max(np.where(den > 0, diff / np.where(den > 0, den, 1.0), 0.0)))
+            scale = float(np.max(np.abs(want)))
+            worst[name] = (float(diff.max()) / scale if scale > 0 else float("inf"), elem,
+                           t_dev, int(np.count_nonzero(want)))
+    log(22, f"{n_states} f64 states on the card vs the CPU: worst difference relative to "
+            f"the largest value (bar 1e-12), worst element-wise ratio, card s, nonzero "
+            f"values: " + "; ".join(f"{n} {w:.3g}, {e:.3g}, {t:.2f} s, {nz}"
+                                    for n, (w, e, t, nz) in worst.items()))
+    bad = [n for n, (w, _, _, nz) in worst.items() if not w <= 1e-12 or nz == 0]
+    path = os.path.join(OUT, "phase22_rows.npy")
+    np.save(path, rows_kernel)
+    r = flux.analyze(path)
+    pid = rows_kernel[:, 1].astype(int)
+    pps = rows_kernel[:, 8] * rows_kernel[:, 7]
+    tot = {"photon": (float(r.photon_hist.sum()), float(np.sum(pps[pid == 1]))),
+           "axion": (float(r.axion_hist.sum()), float(np.sum(pps[pid == 0])))}
+    log(22, f"flux.analyze on phase 7's rows ({rows_kernel.shape[0]}): histogram totals vs "
+            "sum of weight * sln_prob: " + ", ".join(
+                f"{k} {h:.12g} vs {s:.12g}" for k, (h, s) in tot.items())
+        + f"; {r.n_events} events, stop reasons {r.stop_reasons}")
+    bad += [k for k, (h, s) in tot.items() if not abs(h - s) <= 1e-12 * abs(s)]
+    if bad:
+        raise AssertionError(f"phase 22: {bad} beyond the bar")
+
+
 def phase_slice(device, n_events, batch, tree_engine, phase, cold_run=True, extra=(),
                 uses_tree_kernel=None):
     """The main path through the CLI: a cold run when asked (one CLI
@@ -1780,6 +2289,11 @@ def main():
     timed(15, phase_savemode3, device, 2048, 2048, rows_queue)
     timed(16, phase_resume, device, 2048, 1024)
     timed(17, phase_window, device, 2048, 4)
+    timed(18, phase_depth, device, 8192, 2048)
+    timed(19, phase_processes, device, 1024)
+    timed(20, phase_mesh, device, 4096, 2048, rows_kernel)
+    timed(21, phase_pool_compact, device, 2, 2, 8)
+    timed(22, phase_diagnostics, device, 4096, rows_kernel)
     log(14, f"chip_smoke wall {time.time() - t_start:.1f} s")
     kernels = [
         {"name": "line_roots", "route": "cuda",

@@ -84,7 +84,8 @@ COUNTERS = ("seed", "events", "finals", "sample_attempts", "f_inx", "tot_nodes",
 def test_checkpoint_moves_between_packages(tmp_path):
     """The JSON state and the partial rows are the JAX package's format: a
     state from JAX's _write_checkpoint resumes through the port's loader
-    (the reference's other timers ignored), and the port's through JAX's."""
+    (the reference's timers the port has set too, none other), and the
+    port's through JAX's."""
     out = str(tmp_path / "npy" / "tree_x.npy")
     key = np.array([123456789, 4000000000], np.uint32)
     rows = [np.random.default_rng(3).standard_normal((4, 29))]
@@ -97,7 +98,7 @@ def test_checkpoint_moves_between_packages(tmp_path):
     assert (succ, ev_no, rem) == (0.3125, 6, 4)
     ref = _stats(tdrv.RunStats)
     assert [getattr(st, n) for n in COUNTERS] == [getattr(ref, n) for n in COUNTERS]
-    assert not hasattr(st, "t_fetch")
+    assert st.t_fetch == 0.5 and st.t_issue == 0.1
     np.testing.assert_array_equal(np.concatenate(rows_t), rows[0])
     tdrv._clear_checkpoint(out)
     assert not os.listdir(tmp_path / "npy")

@@ -74,11 +74,9 @@ def test_port_never_imports_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(cfg=dict(engine="pool_compact")),
     dict(cfg=dict(backtrace_chunk=64)),
     dict(cfg=dict(mc_chain=1)),
-    dict(mesh_devices=4),
-    dict(pipeline_depth=2),
+    dict(mesh_devices=2, processes=2),
 ], ids=lambda kw: str(kw))
 def test_unported_options_raise(kw):
     cfg = tcfg.NumericsConfig(**kw.pop("cfg", {}))
@@ -91,11 +89,52 @@ def test_unported_options_raise(kw):
     dict(save_mode=2),
     dict(checkpoint=True),
     dict(resume=True),
+    dict(cfg=dict(engine="pool_compact")),
+    dict(mesh_devices=4),
+    dict(pipeline_depth=2),
+    dict(mesh_devices=2, processes=1),
+    dict(mesh_devices=1, processes=2),
 ], ids=lambda kw: str(kw))
 def test_ported_options_pass(kw):
-    """The streaming window, saveMode 2/3 and checkpoint/resume are ported:
-    check_ported lets them pass."""
+    """The streaming window, saveMode 2/3, checkpoint/resume, pool_compact,
+    a mesh, pipeline depth 2 and processes each running their own shard are
+    ported: check_ported lets them pass."""
     check_ported(tcfg.NumericsConfig(**kw.pop("cfg", {})), **kw)
+
+
+def test_cli_takes_every_jax_run_flag():
+    """The port's CLI accepts every flag of the JAX CLI but --platform (the
+    port's --device takes its place); --precision takes f64 only."""
+    from adiabatic_raytracer_tpu.cli import build_parser as jax_parser
+    from adiabatic_raytracer_tpu_torch.cli import build_parser
+
+    flags = lambda p: {s for a in p._actions for s in a.option_strings}
+    assert flags(jax_parser()) - {"--platform"} <= flags(build_parser())
+    args = build_parser().parse_args(
+        ["--engine", "pool_compact", "--mesh", "2", "--pipeline_depth", "2", "--profile_dir",
+         "prof", "--coordinator", "127.0.0.1:29500", "--nprocs", "2", "--procid", "1"])
+    assert (args.engine, args.mesh, args.pipeline_depth, args.profile_dir, args.coordinator,
+            args.nprocs, args.procid) == ("pool_compact", 2, 2, "prof", "127.0.0.1:29500",
+                                          2, 1)
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(["--precision", "f32"])
+
+
+def test_mesh_without_its_cards_raises(tmp_path):
+    """--mesh 2 --device cuda on a machine with fewer than two cards raises
+    naming the missing card, and runs nothing on the CPU."""
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("two CUDA devices are present")
+    from adiabatic_raytracer_tpu_torch.cli import run_from_args
+    from adiabatic_raytracer_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(RuntimeError, match=f"cuda:{torch.cuda.device_count()} is missing"):
+        make_mesh(2, "cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_from_args(["--Nts", "4", "--seed", "1", "--ThetaM", "0.2", "--mesh", "2",
+                       "--device", "cuda", "--dir_tag", str(tmp_path)])
+    assert not list((tmp_path / "npy").glob("*.npy"))
+    assert len(make_mesh(2, "cpu")) == 2
 
 
 def test_scan_gate_census_defaults_to_the_card():

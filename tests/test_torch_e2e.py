@@ -124,7 +124,7 @@ def test_refill_engine_through_driver_matches_kernel(tmp_path):
 
 def test_unported_cli_options_raise(tmp_path):
     for extra in (["--tree_engine", "kernel", "--bndry_lyr", "1.0"],
-                  ["--pipeline_depth", "2"], ["--mesh", "4"]):
+                  ["--mesh", "2", "--nprocs", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run_from_args(GOLDEN_ARGS + ["--dir_tag", str(tmp_path)] + extra)
     assert not glob.glob(str(tmp_path / "npy" / "*.npy"))
