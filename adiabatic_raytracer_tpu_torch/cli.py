@@ -5,9 +5,12 @@ Usage:  python -m adiabatic_raytracer_tpu_torch --device cuda --MassA 1e-5 ...
 
 The run goes to the card (`--device cuda`, the default) unless `--device
 cpu` asks for the CPU; without a card the default raises.  Defaults by
-device: on cuda engine=mega (the K2 kernel), event_batch=2048, sampler
-compute dtype f32 (the K1 kernel); on cpu those of the JAX package's CPU
-path (pool engine, event_batch=16, f64).  `--tree_engine auto` picks the
+device: on cuda engine=mega (the K2 kernel), event_batch=2048, compute
+dtype f32 (the JAX CLI's accelerator default); on cpu those of the JAX
+package's CPU path (pool engine, event_batch=16, compute dtype "state").
+`--precision f32` runs every tensor of the pipeline in f32, as the JAX CLI
+does with x64 off; `--computeDtype f32` evaluates the physics in f32 under
+an f64 state.  Rows are f64 either way.  `--tree_engine auto` picks the
 in-kernel tree engine K3 (`kernel`) when the engine is mega, saveMode <= 1
 and the scene is one the in-kernel probability covers, else the host work
 queue (`queue`), as the JAX CLI does.  `--tree_window -1` (auto) runs the
@@ -100,10 +103,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scan_gate_check", type=int, default=-1,
                    help="events for the per-scene gated-scan census check; "
                         "-1 = config default (256), 0 disables")
-    p.add_argument("--precision", choices=["f64"], default="f64",
-                   help="integration-state dtype (only f64 is ported)")
+    p.add_argument("--precision", choices=["f32", "f64"], default="f64",
+                   help="integration-state dtype of every tensor (the JAX CLI's x64 "
+                        "off / on); K2-K4 compute in f64 inside at either")
     p.add_argument("--computeDtype", choices=["auto", "state", "f32"], default="auto",
-                   help="sampler dtype; auto = f32 on cuda (K1), f64 on cpu")
+                   help="physics-evaluation dtype; auto = f32 on cuda, the state's on cpu")
     p.add_argument("--engine", choices=["auto", "pool", "pool_compact", "mega"],
                    default="auto",
                    help="auto = mega (K2) on cuda, pool on cpu; pool_compact = pool with "
@@ -201,7 +205,7 @@ def run_from_args(argv=None):
                       file_tag=args.ftag, dir_tag=args.dir_tag, event_batch=event_batch,
                       mesh_devices=args.mesh, checkpoint=args.checkpoint,
                       resume=args.resume, profile_dir=args.profile_dir,
-                      pipeline_depth=depth, device=device)
+                      pipeline_depth=depth, device=device, precision=args.precision)
             if mesh.process_count() > 1:
                 # each process ran its own shard: sum the pulse profiles over the group
                 from adiabatic_raytracer_tpu_torch.parallel.reduce import pulse_profile_from_rows

@@ -88,9 +88,11 @@ class NumericsConfig:
     # multiple of this many iterations (results do not depend on it).
     tree_refill: int = 0
     tree_refill_k: int = 8
-    # "state" or "f32".  In the port it selects the sampler's dtype only (K1
-    # is an f32 kernel like the TPU one); integration, kinematics and the
-    # megakernel run in f64, which the card has in hardware.
+    # "state" or "f32": the physics-evaluation dtype, as in the reference.
+    # "f32" evaluates the sampler, the event kinematics, the conversion
+    # probabilities and the pool's RHS (forward-mode derivatives) and
+    # crossing condition in f32, the state staying in its dtype, and ships
+    # the pipeline's packs in f32.  K2-K4 compute in f64 inside either way.
     compute_dtype: str = "state"
 
 

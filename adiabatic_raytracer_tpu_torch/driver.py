@@ -15,11 +15,15 @@ Sampling-attempt accounting reproduces the reference's f_inx bookkeeping
 driver's: one split of the carried key per batch, chunk j of a batch drawn
 from fold_in(batch_key, j), per-event tree keys fold_in(base_key, event_no).
 
-Decision (recorded in README and PERF.md): the reference forced the event
-weight's ~1e36-1e42 scalar factor onto the host because the TPU had no f64
-range (driver.py:77-90 there).  The card has f64, so the port evaluates the
-kinematics in f64 on the device; the scalar factor is still one host float
-applied at row assembly, so the column semantics are unchanged.
+Precision, as in the JAX package: `precision` ("f64" or "f32", the CLI's
+--precision) is the state dtype every tensor of the pipeline carries, the
+JAX run with x64 on or off; cfg.compute_dtype "f32" evaluates the physics
+(sampler, kinematics, probabilities, the pool's RHS and condition) in f32
+under that state, and ships the packs in f32 (driver.py:94-137, 345 of the
+reference).  The kernels K2-K4 compute in f64 inside at either state
+dtype.  The event weight's ~1e36-1e42 scalar factor (sln_scale) stays one
+host f64 float applied at row assembly, beyond any f32 value on the
+device; the rows are f64 numpy at either precision.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from adiabatic_raytracer_tpu_torch.ops import sampler, tree
 from adiabatic_raytracer_tpu_torch.ops.conversion import dwp_ds, g_det, jacobian_fv
 from adiabatic_raytracer_tpu_torch.ops.dispersion import k_norm_cart, k_sphere
 from adiabatic_raytracer_tpu_torch.ops.geometry import cart_to_sph
+from adiabatic_raytracer_tpu_torch.ops.propagate import physics_dtype, to_physics
 from adiabatic_raytracer_tpu_torch.utils import rng
 from adiabatic_raytracer_tpu_torch.utils.npyio import save_npy, tree_filename
 from adiabatic_raytracer_tpu_torch.utils.textio import EventFiles, TreeFile
@@ -107,10 +112,22 @@ def sln_scale(sc: Scene, maxR, tcfg: TreeConfig) -> float:
             * (1e5 ** 2) * C_KM * 1e5 * float(tcfg.n_max_sample))
 
 
-def _event_kinematics(xpos, v_loc, erg_inf, sc: Scene):
+def state_dtype(precision: str):
+    """The state dtype of --precision: "f64" the JAX run with x64 on, "f32"
+    with it off."""
+    if precision not in ("f32", "f64"):
+        raise ValueError(f"precision must be 'f32' or 'f64', got {precision!r}")
+    return torch.float32 if precision == "f32" else torch.float64
+
+
+def _event_kinematics(xpos, v_loc, erg_inf, sc: Scene, compute_dtype: str = "state"):
     """Launch momentum and per-event weight factor (MainRunner.jl:498-558).
-    Returns (k_init, sln_base, cos_w, jac_v); the full weight is
-    sln_base * sln_scale(...).  f64 on every device."""
+    Returns (k_init, sln_base, cos_w, jac_v) in xpos's dtype; the full
+    weight is sln_base * sln_scale(...), applied on the host.
+    compute_dtype="f32": evaluated in f32 on the f32 scene (driver.py:104-110
+    of the reference)."""
+    out_dtype = xpos.dtype
+    sc, xpos, v_loc, erg_inf = to_physics(compute_dtype, sc, xpos, v_loc, erg_inf)
     rmag = torch.linalg.norm(xpos, dim=1)
     k_init = k_norm_cart(xpos, v_loc, 0.0, erg_inf, sc, sc.mass_ns,
                          is_photon=True, ax_fix=True, flat=sc.flat)
@@ -126,7 +143,7 @@ def _event_kinematics(xpos, v_loc, erg_inf, sc: Scene):
         2.0 * sc.mass_ns * G_NEW / C_KM**2 / rmag)
     redshift = torch.sqrt(1.0 - 2.0 * G_NEW * sc.mass_ns / rmag / C_KM**2)
     sln_base = torch.abs(cos_w) * redshift * dense_extra * jac_gr
-    return k_init, sln_base, cos_w, jac_v
+    return tuple(a.to(out_dtype) for a in (k_init, sln_base, cos_w, jac_v))
 
 
 def line_engine_for(device) -> str:
@@ -136,16 +153,17 @@ def line_engine_for(device) -> str:
 
 
 def packed_sample(key, b, maxR, sc: Scene, cfg: NumericsConfig, n_grid, n_max,
-                  flat_sampling: bool, cap: int):
+                  flat_sampling: bool, cap: int, dtype=torch.float64):
     """The first min(cap, b) successes of a b-draw chunk, in draw order, as
     [min(cap,b)+1, 11] rows (pos_in_chunk, xpos, v_loc, erg_inf, v_ifty) with
     the chunk's success count in the trailer row (the reference's
-    _build_sampler pack)."""
+    _build_sampler pack), in the sampler's dtype: f32 at compute_dtype f32,
+    else the state dtype `dtype`."""
     res = sampler.sample_batch(key, b, maxR, sc, sc.mass_ns, n_grid=n_grid,
                                n_max=n_max, flat_sampling=flat_sampling,
                                compute_dtype=cfg.compute_dtype,
-                               line_engine=line_engine_for(key.device))
-    d = torch.float64
+                               line_engine=line_engine_for(key.device), state_dtype=dtype)
+    d = res.xpos.dtype
     rows = torch.cat([torch.arange(b, dtype=d, device=key.device)[:, None],
                       res.xpos.to(d), res.v_loc.to(d), res.erg_inf.to(d)[:, None],
                       res.v_ifty.to(d)], dim=1)
@@ -159,11 +177,12 @@ def packed_sample(key, b, maxR, sc: Scene, cfg: NumericsConfig, n_grid, n_max,
 
 def scan_gate_census_check(sc: Scene, cfg: NumericsConfig, maxR, lnt_end, *,
                            n_events: int = 256, seed: int = 0x5CA9,
-                           rel_tol: float = 1e-2, device="cuda"):
+                           rel_tol: float = 1e-2, device="cuda", dtype=torch.float64):
     """Per-scene validation of the gated event scan (driver.py:181 of the
     reference): backtrace an n_events conversion-surface ensemble with the
     gate and with the plain dense scan (interp_coarse=0), compare per-event
-    crossing counts and times.  Returns (ok, n_mismatch, n_checked)."""
+    crossing counts and times; the ensemble in the state dtype `dtype`.
+    Returns (ok, n_mismatch, n_checked)."""
     key = rng.fold_in(rng.PRNGKey(seed, device=device), 1)
     n_grid = sampler.default_n_grid(maxR)
     xs, vs, es = [], [], []
@@ -173,7 +192,7 @@ def scan_gate_census_check(sc: Scene, cfg: NumericsConfig, maxR, lnt_end, *,
         key, sub = rng.split(key).unbind(0)
         res = sampler.sample_batch(sub, chunk, maxR, sc, sc.mass_ns, n_grid=n_grid,
                                    compute_dtype=cfg.compute_dtype,
-                                   line_engine=line_engine_for(device))
+                                   line_engine=line_engine_for(device), state_dtype=dtype)
         ok_i = res.success.nonzero().squeeze(1)
         xs.append(res.xpos[ok_i])
         vs.append(res.v_loc[ok_i])
@@ -184,10 +203,9 @@ def scan_gate_census_check(sc: Scene, cfg: NumericsConfig, maxR, lnt_end, *,
     if got == 0:
         return True, 0, 0
     n_events = min(n_events, got)
-    f64 = torch.float64
-    x = torch.cat(xs)[:n_events].to(f64)
-    v = torch.cat(vs)[:n_events].to(f64)
-    e = torch.cat(es)[:n_events].to(f64)
+    x = torch.cat(xs)[:n_events].to(dtype)
+    v = torch.cat(vs)[:n_events].to(dtype)
+    e = torch.cat(es)[:n_events].to(dtype)
     k_init = k_norm_cart(x, v, 0.0, e, sc, sc.mass_ns, is_photon=True, ax_fix=True,
                          flat=sc.flat)
     plain = dataclasses.replace(cfg, interp_coarse=0)
@@ -210,7 +228,8 @@ def scan_gate_census_check(sc: Scene, cfg: NumericsConfig, maxR, lnt_end, *,
 
 
 def _apply_scan_gate_guard(sc: Scene, cfg: NumericsConfig, maxR, lnt_end,
-                           stats: RunStats, device) -> NumericsConfig:
+                           stats: RunStats, device,
+                           dtype=torch.float64) -> NumericsConfig:
     """Validate the gate on this scene; widen it one notch (coarse x2,
     theta x2) or fall back to the plain 50-point scan on a census mismatch
     (driver.py:257 of the reference)."""
@@ -219,7 +238,7 @@ def _apply_scan_gate_guard(sc: Scene, cfg: NumericsConfig, maxR, lnt_end,
         return cfg
     n = int(cfg.scan_gate_check)
     ok, n_bad, n_chk = scan_gate_census_check(sc, cfg, maxR, lnt_end, n_events=n,
-                                              device=device)
+                                              device=device, dtype=dtype)
     if n_chk == 0:
         stats.scan_gate = "unchecked"
         return cfg
@@ -230,7 +249,7 @@ def _apply_scan_gate_guard(sc: Scene, cfg: NumericsConfig, maxR, lnt_end,
         cfg, interp_coarse=min(2 * cfg.interp_coarse, cfg.interp_points - 1),
         scan_gate_theta=2.0 * float(cfg.scan_gate_theta))
     ok_w, n_bad_w, n_chk_w = scan_gate_census_check(sc, wide, maxR, lnt_end,
-                                                    n_events=n, device=device)
+                                                    n_events=n, device=device, dtype=dtype)
     if ok_w and n_chk_w > 0:
         stats.scan_gate = "widened"
         print(f"NOTE: gated event scan missed crossings on this scene "
@@ -249,14 +268,16 @@ def pipeline(keys, xpos, v_loc, erg_inf, sc: Scene, cfg: NumericsConfig,
     """Kinematics -> backtrace -> forward tree for one batch.  Returns the
     finals pack [cap+1, 14], the per-event pack [E, 12] (the reference's
     combined pack without its padding), the backtrace result and the tree's
-    pools (the last two for the saveMode >= 2 writers)."""
+    pools (the last two for the saveMode >= 2 writers).  The packs are f32
+    at compute_dtype f32, else in the state dtype (driver.py:345 of the
+    reference)."""
     E = xpos.shape[0]
-    k_init, sln_base, cos_w, _ = _event_kinematics(xpos, v_loc, erg_inf, sc)
+    k_init, sln_base, cos_w, _ = _event_kinematics(xpos, v_loc, erg_inf, sc, cfg.compute_dtype)
     bt = tree.backtrace(xpos, k_init, erg_inf, sc, cfg, tcfg, lnt_end=lnt_end)
     tr = tree.forward_tree(keys, xpos, k_init, erg_inf, sc, cfg, tcfg, lnt_end=lnt_end)
-    fin = tree.compact_finals_global(tr.pools, cfg.finals_cap_per_event * E,
+    d = physics_dtype(cfg.compute_dtype, xpos.dtype)
+    fin = tree.compact_finals_global(tr.pools, cfg.finals_cap_per_event * E, out_dtype=d,
                                      order_stride=2 * tcfg.max_nodes + 4)
-    d = xpos.dtype
     one = lambda a: a.to(d)[:, None]
     ev = torch.cat([one(sln_base), one(cos_w), one(tr.count), one(tr.info),
                     one(tr.dw_anomalies), one(bt.samp_back_weight), one(bt.prob0),
@@ -410,7 +431,7 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
         ntimes: int = 3, verbose: bool = True, mesh_devices: int = 0,
         checkpoint: bool = False, resume: bool = False,
         max_batches: Optional[int] = None, profile_dir: Optional[str] = None,
-        pipeline_depth: int = 0, device="cuda") -> Optional[tuple]:
+        pipeline_depth: int = 0, device="cuda", precision: str = "f64") -> Optional[tuple]:
     """Run the pipeline on `device` (the card unless the caller asks for the
     CPU); returns (rows, output path, stats), or None when the conversion
     surface lies inside the star (MainRunner.jl:389-396).  `device` is used
@@ -436,13 +457,18 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
     event, keys come from global event numbers, each shard runs the pipeline
     on its device, and the padding's rows are dropped; engine pool_compact
     runs as pool there.  profile_dir: a torch.profiler trace of the run is
-    written there."""
+    written there.
+
+    precision: the state dtype of every tensor of the pipeline, "f64" or
+    "f32" (the JAX CLI's --precision: x64 on or off).  Rows are f64 numpy
+    either way."""
     from adiabatic_raytracer_tpu_torch.parallel.mesh import (make_mesh, process_count,
                                                             process_index, shard_over_events)
 
     check_ported(cfg, save_mode=save_mode, mesh_devices=mesh_devices,
                  pipeline_depth=pipeline_depth, checkpoint=checkpoint, resume=resume,
                  processes=process_count())
+    dtype = state_dtype(precision)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() "
@@ -496,7 +522,7 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
     if verbose:
         print(f"Using seed {stats.seed}")
     t_g0 = time.time()
-    cfg = _apply_scan_gate_guard(sc, cfg, maxR, lnt_end, stats, device)
+    cfg = _apply_scan_gate_guard(sc, cfg, maxR, lnt_end, stats, device, dtype)
     _sync(device)
     stats.t_gate += time.time() - t_g0
 
@@ -513,7 +539,7 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
     def chunk(bkey, j, sb):
         return _to_host(packed_sample(rng.fold_in(bkey, j), sb, maxR, sc, cfg, n_grid,
                                       tcfg.n_max_sample, tcfg.flat_sampling,
-                                      int(event_batch)))
+                                      int(event_batch), dtype))
 
     def sample_dispatch(batch):
         """Split the carried key for the next batch and issue its primary
@@ -575,7 +601,7 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
         bp = -(-batch // n_sh) * n_sh
         pad = (lambda a: a) if bp == batch else (
             lambda a: np.concatenate([a] + [a[-1:]] * (bp - batch), axis=0))
-        tens = lambda a: torch.as_tensor(np.ascontiguousarray(pad(a)), dtype=torch.float64,
+        tens = lambda a: torch.as_tensor(np.ascontiguousarray(pad(a)), dtype=dtype,
                                          device=device)
         keys = rng.fold_in(base_key, torch.arange(bp, device=device) + issue_event_no)
         fin_t, ev_t, bt, pl = run_shards(keys, tens(samp[:, 0:3]), tens(samp[:, 3:6]),
@@ -608,7 +634,8 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
         t_batch = rec["t_issue"] + t_fetch
         stats.t_pipeline += t_batch
 
-        # --- host row assembly (MainRunner.jl:670-729) ---
+        # --- host row assembly (MainRunner.jl:670-729), in f64 whatever the
+        # packs' dtype: f32 * sln_scale would overflow to inf ---
         t2 = time.time()
         # the finals pack holds one [cap+1, 14] block per shard, with the
         # shard's local event indices and its count in the trailer row; mesh
@@ -629,7 +656,7 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
             fins.append(f)
         fin = np.concatenate(fins, axis=0)
         fin = fin[fin[:, 0] < batch]
-        evp = evp_all[:batch]
+        evp = evp_all[:batch].astype(np.float64)
         stats.tree_iters += int(evp[:, 11].max())
         xpos_np, v_ifty = rec["xpos"], rec["v_ifty"]
         sln_np = evp[:, 0] * scale

@@ -17,6 +17,9 @@ instantiation from MegaParams (art::disp_of).
 Precision: f64 state and physics.  The TPU kernel's float-float state,
 Cody-Waite sin/cos/exp and f32 bisection cap were workarounds for a chip
 without f64; Hopper has it in hardware, so none of them is carried over.
+The boundary follows the caller's state dtype, as the TPU kernel's does
+(megakernel.py:1591-1604 and :1527 there): an f32 state (--precision f32)
+goes up to f64 at the launch and the outputs come back in f32.
 
 Event semantics follow the pool engine (ops/integrator.py), which is this
 kernel's plain version: each accepted step scans the Hermite interpolant at
@@ -640,35 +643,46 @@ def pool_run(u0, lnt0, lnt1, erg, x0_cart, sc: Scene, cfg: NumericsConfig, *,
         max_crossings=torch.full((B,), max_crossings, dtype=torch.int64, device=u0.device))
 
 
+def _in_dtype(out, dtype):
+    """integrate_mega's output tuple in the caller's dtype."""
+    return tuple(None if t is None else t.to(dtype) for t in out)
+
+
 def integrate_mega_plain(u0, lnt0, lnt1, erg, x0_cart, sc: Scene, cfg: NumericsConfig,
                          *, max_crossings: int = 1, is_photon=None,
                          species: str = "photon", with_prob: bool = False):
     """K2's plain version: the pool engine (same DP5 tableau, controller and
     event semantics; dense scan on every step) followed by the torch twin of
     _prob_nd at the recorded crossings.  Same output tuple as
-    integrate_mega; n_fine counts every step, since the pool always scans
-    densely."""
+    integrate_mega, at the same boundary: f64 inside, whatever the caller's
+    dtype (compute_dtype does not apply: the kernel has one precision), the
+    outputs in u0's dtype.  n_fine counts every step, since the pool always
+    scans densely."""
     B = u0.shape[0]
     S = int(max_crossings)
     if is_photon is None:
         is_photon = torch.ones(B, dtype=torch.bool, device=u0.device)
+    f64 = torch.float64
+    u0_, lnt0, lnt1, erg, x0_cart = (a.to(f64) for a in (u0, lnt0, lnt1, erg, x0_cart))
     P = mega_params(sc, cfg, max_crossings=S, species=species, with_prob=with_prob)
-    res = pool_run(u0, lnt0, lnt1, erg, x0_cart, sc, cfg, max_crossings=S,
+    res = pool_run(u0_, lnt0, lnt1, erg, x0_cart, sc, cfg, max_crossings=S,
                    is_photon=is_photon, species=species)
     out = _outputs_from_pool(res, lnt0, lnt1, erg, P, S, bool(P.with_prob))
-    return out[:10] + (is_photon.to(torch.float64),) + out[11:]
+    return _in_dtype(out[:10] + (is_photon.to(f64),) + out[11:], u0.dtype)
 
 
 def integrate_mega(u0, lnt0, lnt1, erg, x0_cart, sc: Scene, cfg: NumericsConfig, *,
                    max_crossings: int = 1, is_photon=None, species: str = "photon",
                    with_prob: bool = False):
-    """Run K2 over a [B, 7] f64 state batch, min(B, resident warps) warps
+    """Run K2 over a [B, 7] state batch, min(B, resident warps) warps
     pulling rays from a queue.  Returns (u_final [B,7],
     lnt_final [B], steps [B], code [B] (1 end, 2 NS, 3 crossing cap,
     4 step cap, 5 stalled), n_cross [B], cross_u [B,S,7], cross_lnt [B,S],
     save_mid [B,7] (0 where the midpoint was never spanned), pcx [B,S],
-    chain_nodes [B] (always 0), is_ph [B], n_fine [B]), all f64.
-    CPU tensors run integrate_mega_plain."""
+    chain_nodes [B] (always 0), is_ph [B], n_fine [B]), in u0's dtype: the
+    inputs go up to f64 and the kernel runs in f64 whatever the caller's
+    dtype (--precision f32 gives f32 in and out).  CPU tensors run
+    integrate_mega_plain."""
     if u0.device.type == "cpu":
         return integrate_mega_plain(u0, lnt0, lnt1, erg, x0_cart, sc, cfg,
                                     max_crossings=max_crossings, is_photon=is_photon,
@@ -681,8 +695,9 @@ def integrate_mega(u0, lnt0, lnt1, erg, x0_cart, sc: Scene, cfg: NumericsConfig,
     f64 = torch.float64
     if is_photon is None:
         is_photon = torch.ones(B, dtype=torch.bool, device=dev)
-    aux = torch.stack([lnt0, lnt1, erg, x0_cart[:, 0], x0_cart[:, 1], x0_cart[:, 2],
-                       is_photon.to(f64), torch.zeros_like(erg)], dim=1).to(f64).contiguous()
+    aux = torch.stack([a.to(f64) for a in (lnt0, lnt1, erg, x0_cart[:, 0], x0_cart[:, 1],
+                                           x0_cart[:, 2], is_photon, torch.zeros_like(erg))],
+                      dim=1).contiguous()
     u_in = u0.to(f64).contiguous()
     cuda_lib.require(u_in, "u0", f64, (B, 7))
     cuda_lib.require(aux, "aux", f64, (B, 8))
@@ -701,8 +716,8 @@ def integrate_mega(u0, lnt0, lnt1, erg, x0_cart, sc: Scene, cfg: NumericsConfig,
         pcx.data_ptr(), head.data_ptr(), cuda_lib.stream_ptr(u_in))
     cuda_lib.check(code, "megakernel launch")
     cuda_lib.LAUNCHES["megakernel"] += 1
-    return (uf, lntf, diag[:, 0], diag[:, 1], diag[:, 2], cru, crlnt, save_mid, pcx,
-            torch.zeros_like(lntf), is_photon.to(f64), diag[:, 3])
+    return _in_dtype((uf, lntf, diag[:, 0], diag[:, 1], diag[:, 2], cru, crlnt, save_mid, pcx,
+                      torch.zeros_like(lntf), is_photon.to(f64), diag[:, 3]), u0.dtype)
 
 
 def propagate_mega(x0_cart, k0_cart, sc: Scene, cfg: NumericsConfig, *, erg, delta_w,

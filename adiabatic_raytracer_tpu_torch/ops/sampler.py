@@ -28,6 +28,7 @@ from adiabatic_raytracer_tpu_torch.constants import C_KM, G_NEW
 from adiabatic_raytracer_tpu_torch.models.magnetosphere import omega_p_cart
 from adiabatic_raytracer_tpu_torch.models.metric import metric_inverse, schwarzschild_radius
 from adiabatic_raytracer_tpu_torch.ops.dispersion import k_par
+from adiabatic_raytracer_tpu_torch.ops.propagate import physics_dtype
 from adiabatic_raytracer_tpu_torch.utils import rng
 
 MAX_LINE_CROSSINGS = 16
@@ -205,11 +206,13 @@ def _roots(x0, vvec, vloc, erg, g, s_grid, sc: Scene, mass_ns, *, thick: bool = 
     return s_star, ok, n_flips
 
 
-def _pick(geo: _Geometry, s_star, ok, sc: Scene, mass_ns, n_max: int) -> SampleResult:
-    """Draw one of each line's accepted crossings (RayTracer.jl:1615-1647)."""
+def _pick(geo: _Geometry, s_star, ok, sc: Scene, mass_ns, n_max: int,
+          int_dtype=torch.int64) -> SampleResult:
+    """Draw one of each line's accepted crossings (RayTracer.jl:1615-1647);
+    the index draw is jax.random.randint's at int_dtype."""
     B = ok.shape[0]
     n_accepted = ok.sum(dim=1)
-    rand_inx = rng.randint(geo.key_pick, (), 1, n_max + 1)
+    rand_inx = rng.randint(geo.key_pick, (), 1, n_max + 1, dtype=int_dtype)
     success = n_accepted >= rand_inx
     acc_order = torch.cumsum(ok.to(torch.int64), dim=1)
     pick = torch.argmax(((acc_order == rand_inx[:, None]) & ok).to(torch.int8), dim=1)
@@ -227,12 +230,16 @@ def _pick(geo: _Geometry, s_star, ok, sc: Scene, mass_ns, n_max: int) -> SampleR
 
 def sample_batch(key, batch: int, maxR, sc: Scene, mass_ns, *, n_grid: int,
                  n_max: int = 6, thick: bool = True, flat_sampling: bool = True,
-                 compute_dtype: str = "state", line_engine: str = "plain"):
+                 compute_dtype: str = "state", line_engine: str = "plain",
+                 state_dtype=torch.float64):
     """`batch` conversion-surface samples from one key (the reference's
     sample_batch: per-event keys from split(key, batch)).  The device is the
     key's.  flat_sampling=False selects the legacy 1/r disk measure of
-    find_samples (RayTracer.jl:1656-1799)."""
-    dtype = torch.float32 if compute_dtype == "f32" else torch.float64
+    find_samples (RayTracer.jl:1656-1799).  The draws and the physics run
+    in the compute dtype: f32, or at "state" the run's state dtype
+    (sampler.py:96-100 of the reference).  state_dtype f32 is the JAX run
+    with x64 off, whose crossing-index draw is an int32 randint."""
+    dtype = physics_dtype(compute_dtype, state_dtype)
     keys = rng.split(key, batch)
     geo = _draw(keys, maxR, sc, 220.0, flat_sampling, dtype)
     s_grid = torch.linspace(0.0, 2.2 * maxR, n_grid, dtype=torch.float64,
@@ -250,7 +257,8 @@ def sample_batch(key, batch: int, maxR, sc: Scene, mass_ns, *, n_grid: int,
                                mass_ns, thick=thick)
     else:
         raise ValueError(f"line_engine must be 'plain' or 'kernel', got {line_engine!r}")
-    return _pick(geo, s_star, ok, sc, mass_ns, n_max)
+    int_dtype = torch.int32 if state_dtype == torch.float32 else torch.int64
+    return _pick(geo, s_star, ok, sc, mass_ns, n_max, int_dtype)
 
 
 def default_n_grid(maxR: float, march_dt: float = 0.5, scan_per_step: int = 20) -> int:

@@ -22,7 +22,7 @@ from adiabatic_raytracer_tpu_torch.config import NumericsConfig, Scene
 from adiabatic_raytracer_tpu_torch.ops.integrator import PoolResult, PoolState, integrate_pool
 from adiabatic_raytracer_tpu_torch.ops.propagate import (
     PropagateResult,
-    crossing_condition,
+    condition_fn,
     finalize_propagate,
     launch_state,
     make_rhs,
@@ -49,18 +49,20 @@ class CompactedPropagator:
         self.chunk_iters = chunk_iters
         self.min_pool = min_pool
         self.mass_eff = sc.mass_ns_eff
-        self.rhs = make_rhs(sc, self.mass_eff, time0, species)
+        # compute_dtype "f32": the physics in f32, the state in its dtype
+        # (streaming.py:57-58 of the reference)
+        self.rhs = make_rhs(sc, self.mass_eff, time0, species, cfg.compute_dtype)
+        self.cond = condition_fn(sc, self.mass_eff, cfg.compute_dtype)
         self.chunks = 0          # chunks run by the last call of run()
         self.pool_sizes = []     # pool size of each of those chunks
 
     def _pool(self, state: PoolState, aux: dict, budget: int):
         return integrate_pool(
-            self.rhs, lambda u, lnt: crossing_condition(u, lnt, self.sc, self.mass_eff),
-            None, None, aux["lnt1"], {"erg": aux["erg"], "is_photon": aux["is_photon"]},
-            self.cfg, save_lnt=aux["save_lnt"], kill_at_surface=aux["is_photon"],
-            r_ns=self.sc.r_ns, x0_cart=aux["x0"], max_crossings=aux["maxc"],
-            detect_events=self.detect_events, init_state=state, iter_budget=budget,
-            return_state=True)[1]
+            self.rhs, self.cond, None, None, aux["lnt1"],
+            {"erg": aux["erg"], "is_photon": aux["is_photon"]}, self.cfg,
+            save_lnt=aux["save_lnt"], kill_at_surface=aux["is_photon"], r_ns=self.sc.r_ns,
+            x0_cart=aux["x0"], max_crossings=aux["maxc"], detect_events=self.detect_events,
+            init_state=state, iter_budget=budget, return_state=True)[1]
 
     def run(self, x0, k0, erg, delta_w, lnt0, lnt1, is_photon, max_crossings,
             max_chunks: int = 10_000) -> PropagateResult:
@@ -74,11 +76,10 @@ class CompactedPropagator:
                "x0": x0, "maxc": max_crossings}
         # iter_budget 0: the initial state, no step taken
         _, state = integrate_pool(
-            self.rhs, lambda u, lnt: crossing_condition(u, lnt, self.sc, self.mass_eff),
-            u0, lnt0, lnt1, {"erg": erg, "is_photon": is_photon}, self.cfg,
-            save_lnt=save_lnt, kill_at_surface=is_photon, r_ns=self.sc.r_ns, x0_cart=x0,
-            max_crossings=max_crossings, detect_events=self.detect_events, iter_budget=0,
-            return_state=True)
+            self.rhs, self.cond, u0, lnt0, lnt1, {"erg": erg, "is_photon": is_photon},
+            self.cfg, save_lnt=save_lnt, kill_at_surface=is_photon, r_ns=self.sc.r_ns,
+            x0_cart=x0, max_crossings=max_crossings, detect_events=self.detect_events,
+            iter_budget=0, return_state=True)
         final = PoolState(*(t.clone() for t in state))   # in the original ray order
         orig_idx = torch.arange(B, device=dev)
         valid = torch.ones(B, dtype=torch.bool, device=dev)   # False: padding duplicates

@@ -29,7 +29,7 @@ from torch.func import vmap
 
 from adiabatic_raytracer_tpu_torch.config import NumericsConfig, Scene, TreeConfig
 from adiabatic_raytracer_tpu_torch.ops.conversion import get_prob_nonad
-from adiabatic_raytracer_tpu_torch.ops.propagate import propagate
+from adiabatic_raytracer_tpu_torch.ops.propagate import physics_dtype, propagate, to_physics
 from adiabatic_raytracer_tpu_torch.utils import rng
 
 
@@ -38,13 +38,18 @@ def _negate_b(sc: Scene) -> Scene:
     return dataclasses.replace(sc, b0=-sc.b0)
 
 
-def _prob_batch(pos, k, erg_eff, sc: Scene):
+def _prob_batch(pos, k, erg_eff, sc: Scene, compute_dtype: str = "state"):
     """P = 1 - exp(-P_nonAD) at a batch of points (MainRunner.jl:134-137),
-    clamped to [0, 1]; returns (P, P_nonAD)."""
+    clamped to [0, 1]; returns (P, P_nonAD) in pos's dtype.
+    compute_dtype="f32": P_nonAD evaluated in f32 on the f32 scene
+    (tree.py:40-55 of the reference)."""
     if pos.shape[0] == 0:
         z = pos.new_zeros(0)
         return z, z
+    out_dtype = pos.dtype
+    sc, pos, k, erg_eff = to_physics(compute_dtype, sc, pos, k, erg_eff)
     p_nonad = vmap(lambda x, kk, e: get_prob_nonad(x, kk, e, sc))(pos, k, erg_eff)
+    p_nonad = p_nonad.to(out_dtype)
     return torch.clamp(1.0 - torch.exp(-p_nonad), 0.0, 1.0), p_nonad
 
 
@@ -110,7 +115,7 @@ def backtrace_from_result(xpos, k_back, erg_inf, res, sc: Scene,
     E = xpos.shape[0]
     dev = xpos.device
     sc_b = _negate_b(sc)
-    prob0, p_nonad0 = _prob_batch(xpos, k_back, erg_inf, sc_b)
+    prob0, p_nonad0 = _prob_batch(xpos, k_back, erg_inf, sc_b, cfg.compute_dtype)
     MAXC = cfg.max_crossings
     ar = torch.arange(MAXC, device=dev)[None, :]
     in_count = ar < res.n_cross[:, None]
@@ -128,7 +133,8 @@ def backtrace_from_result(xpos, k_back, erg_inf, res, sc: Scene,
         if bool(valid.any()):
             ei, si = valid.nonzero(as_tuple=True)
             pc[ei, si] = _prob_batch(res.xc[ei, si], res.kc[ei, si],
-                                     erg_inf[ei] * torch.abs(res.dwc[ei, si]), sc_b)[0]
+                                     erg_inf[ei] * torch.abs(res.dwc[ei, si]), sc_b,
+                                     cfg.compute_dtype)[0]
     weight = torch.prod(torch.where(valid, 1.0 - pc, torch.ones_like(pc)), dim=1)
 
     # fallback when no crossing was found: the MC point itself is the first
@@ -296,10 +302,10 @@ def forward_tree(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
 
         mega_prob = bool(cfg.in_kernel_prob) and can_prob(sc)
     keys = _event_keys(key, E, dev)
-    skey = torch.float32 if cfg.compute_dtype == "f32" else dtype
+    skey = physics_dtype(cfg.compute_dtype, dtype)
 
     pl = _alloc_pools(E, P, NS, dtype, dev)
-    prob0, _ = _prob_batch(xpos, k_init, erg_inf, sc)
+    prob0, _ = _prob_batch(xpos, k_init, erg_inf, sc, cfg.compute_dtype)
     pl.pos[:, 0] = xpos
     pl.k[:, 0] = k_init
     pl.dw[:, 0] = -1.0
@@ -416,7 +422,8 @@ def forward_tree(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
             elif bool(ok_l.any()):
                 oi = ok_l.nonzero().squeeze(1)
                 pcx_lane[oi] = _prob_batch(res.xc[oi, 0], kc0[oi],
-                                           erg_l[oi] * torch.abs(res.dwc[oi, 0]), sc)[0]
+                                           erg_l[oi] * torch.abs(res.dwc[oi, 0]), sc,
+                                           cfg.compute_dtype)[0]
             # record propagation results on the processed nodes
             pl.status[ve, slot] = 2
             pl.fpos[ve, slot] = res.traj[:, -1]

@@ -19,7 +19,8 @@ ends.  Per event it writes what K3 writes, into the same rows.
 Where the TPU kernels and the host engine differ, the port follows the host
 engine and K2 (ROADMAP Queue 3): every sign change of a step is scanned (up
 to max_roots_per_step), not only the first; "reached" is lnt >= lnt1 - 1e-14;
-the MC uniforms are f64; the prob cutoff is tot_prob >= 1 - prob_cutoff.
+the MC uniforms are the host engine's (the state dtype's draws, held in
+f64); the prob cutoff is tot_prob >= 1 - prob_cutoff.
 The child birth state is renormalized onto the axion shell in place, as the
 TPU kernel does (the host engine's Cartesian round trip differs by rounding).
 
@@ -888,17 +889,21 @@ def tree_inputs(keys, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
                 tcfg: TreeConfig, *, lnt_end):
     """K3's input blocks (uin, aux, uni, qin) for the roots of E events: the
     root state as the host engine launches it, popped at launch (count 1),
-    and the pre-drawn uniforms fold_in(event_key, n), n = 1..UU."""
+    and the pre-drawn uniforms fold_in(event_key, n), n = 1..UU.  The root
+    state, its probability (at cfg.compute_dtype, treekernel.py:1114 of the
+    reference) and the uniforms are computed in the state dtype, xpos's, as
+    the host engine computes them; the blocks hold them in f64, the
+    kernels' dtype."""
     from adiabatic_raytracer_tpu_torch.ops.tree import _prob_batch
 
     E = xpos.shape[0]
-    dev, f64 = xpos.device, torch.float64
+    dev, dt, f64 = xpos.device, xpos.dtype, torch.float64
     QD = int(tcfg.mc_nodes + 2)
     UU = _ceil_to(int(tcfg.max_nodes) + 1, 8)
-    u0 = launch_state(xpos, k_init, sc, erg_inf, -torch.ones(E, dtype=f64, device=dev))
-    prob0, _ = _prob_batch(xpos, k_init, erg_inf, sc)
+    u0 = launch_state(xpos, k_init, sc, erg_inf, -torch.ones(E, dtype=dt, device=dev))
+    prob0, _ = _prob_batch(xpos, k_init, erg_inf, sc, cfg.compute_dtype)
     ln_floor = math.exp(float(cfg.ln_t_start))
-    lnt0 = torch.log(torch.clamp(torch.zeros(E, dtype=f64, device=dev), min=ln_floor))
+    lnt0 = torch.log(torch.clamp(torch.zeros(E, dtype=dt, device=dev), min=ln_floor))
     uin = torch.zeros((E, U_ROWS), dtype=f64, device=dev)
     uin[:, 0:7] = u0
     aux = torch.zeros((E, AUX_ROWS), dtype=f64, device=dev)
@@ -909,7 +914,7 @@ def tree_inputs(keys, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
         aux[:, r] = v
     aux[:, A_X0X:A_X0Z + 1] = xpos
     node_ix = torch.arange(1, UU + 1, device=dev)
-    uni = rng.uniform(rng.fold_in(keys[:, None, :], node_ix), dtype=f64)
+    uni = rng.uniform(rng.fold_in(keys[:, None, :], node_ix), dtype=dt).to(f64)
     qin = torch.zeros((E, QD * ROWS), dtype=f64, device=dev)
     return uin, aux, uni.contiguous(), qin
 

@@ -107,22 +107,34 @@ def uniform(key: torch.Tensor, shape=(), dtype=torch.float64) -> torch.Tensor:
     raise TypeError(f"uniform: unsupported dtype {dtype}")
 
 
-def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
-    """jax.random.randint(key, shape, minval, maxval) with the int64 dtype of
-    an x64 JAX run: two 64-bit draws folded modulo the span."""
+def randint(key: torch.Tensor, shape, minval: int, maxval: int,
+            dtype=torch.int64) -> torch.Tensor:
+    """jax.random.randint(key, shape, minval, maxval, dtype): int64, the
+    dtype of an x64 JAX run, folds two 64-bit draws modulo the span; int32,
+    that of a run with x64 off (the JAX CLI's --precision f32), two 32-bit
+    draws."""
     span = int(maxval) - int(minval)
     if span <= 0:
         return torch.full(key.shape[:-1] + tuple(shape), int(minval),
-                          dtype=torch.int64, device=key.device)
+                          dtype=dtype, device=key.device)
     if span >= 1 << 31:
         raise NotImplementedError("randint spans beyond 2**31")
+    if dtype not in (torch.int64, torch.int32):
+        raise TypeError(f"randint: unsupported dtype {dtype}")
     ka, kb = split(key, 2).unbind(-2)
-    p32 = (1 << 32) % span
-    mult = ((1 << 32) % span) ** 2 % span   # 2**32 % span, squared, mod span
+    if dtype == torch.int32:
+        mult = ((1 << 16) % span) ** 2 % span   # 2**16 % span, squared, mod span
 
-    def mod_span(k):
-        hi, lo = _bits_pair(k, shape)       # value = hi * 2**32 + lo
-        return ((hi % span) * p32 + lo % span) % span
+        def mod_span(k):
+            b1, b2 = _bits_pair(k, shape)   # the 32-bit draw xors the two words
+            return (b1 ^ b2) % span
+    else:
+        p32 = (1 << 32) % span
+        mult = ((1 << 32) % span) ** 2 % span   # 2**32 % span, squared, mod span
+
+        def mod_span(k):
+            hi, lo = _bits_pair(k, shape)       # value = hi * 2**32 + lo
+            return ((hi % span) * p32 + lo % span) % span
 
     off = (mod_span(ka) * mult + mod_span(kb)) % span
-    return off + int(minval)
+    return (off + int(minval)).to(dtype)

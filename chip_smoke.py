@@ -6,8 +6,8 @@ the shapes the main path gives it, then drives the port's main path through
 its CLI entry point at the production default scene, and at a boundary-layer
 and an isotropic scene, its saveMode 3 text and tree dumps, checkpoint and
 resume, the forward tree's streaming window, pipeline depth 2, two processes
-in one group, the mesh, engine pool_compact, and the diagnostics and
-analysis, and checks the output.
+in one group, the mesh, engine pool_compact, the diagnostics and
+analysis, and --precision f32 / --computeDtype, and checks the output.
 
     python3 chip_smoke.py            # needs one CUDA device
 
@@ -66,10 +66,11 @@ non-zero):
      ids and steps identical, the probe's own checks, every event written
      once and flushed at a refill boundary or the loop's end, and its entry
      point (refill_probe.main) with the counters reset just before it
- 10. K4 vs tree_refill_launch_plain at the refill path's partitions: 256
-     production events in two partitions of 128, each served by 16 warps
-     (eight events a warp; the plain version: 128 lockstep lanes): phase
-     6's bars, and some events must start after another ended
+ 10. K4 at the refill path's partitions against the plain output of phase
+     6 on its 512 events (K4's plain version gives K3's plain version's
+     output bit for bit, tests/test_torch_treekernel.py), in two partitions
+     of 256, each served by 32 warps (eight events a warp): phase 6's bars,
+     and some events must start after another ended
  11. K4 against K3 (one launch) on 2048 events at tree_refill 128 and 1,
      at the default cutoffs and at the reference's production cutoffs
      (num_cutoff 50, mc_nodes 10, max_nodes 100): phase 6's bars, whether
@@ -131,11 +132,31 @@ non-zero):
      the card against the CPU (1e-12 of each one's largest value), and
      flux.analyze on phase 7's rows (histogram totals = sum of weight *
      sln_prob per species)
+ 23. the precision path on the kernel path (driver.run, 2048 events, warm,
+     twice each in turns): (a) the CLI's card defaults (compute f32, f64
+     state), (b) compute_dtype "state", (c) precision "f32": events/s, the
+     K1-K3 launches, K1's <float> instantiation under (a) and (c) (<double>
+     under (b)); the same 2048 f32-sampled events through driver.pipeline,
+     (a) and (c) against (b) per event, at tests/test_precision.py's bars:
+     counters (the tree's count and info, the backtrace's crossings)
+     identical on >= 99% of events and the final weights' relative error
+     median < 5e-5; species and order exact where the counters match, for
+     (c) on the events that drew no MC uniform (an f32 state draws f32
+     uniforms, other bits than the f64 state's); max < 1e-3 on the events
+     well-conditioned at f32 precision (PROBES = 8 f64 probes on inputs
+     perturbed by 2^-23 move no counter, species or weight by more than
+     ILL_REL = 1e-4); the ill-conditioned share at most ILL_SHARE = 0.2, and
+     each ill-conditioned event (for (c): that drew no MC uniform) with the
+     topology of (b) or of a probe and its weights within ILL_K = 10 times
+     its probe spread of the nearest such f64 run; the worst events logged;
+     (c) stopped after one batch of 1024 and resumed, rows bitwise
  14. the kernels' JSON line: each kernel's launches on its path (K1's
      grid kernel, a check only, 0 on the main path; P1's through its entry
      point), and its time,
      plain time, error and bound from its comparison with its plain version
-     (phases 3, 5, 6, 9 and 10, each on one input); the nvidia-smi line, the
+     (phases 3, 5, 6, 9 and 10, each on one input; K4's plain time is phase
+     6's plain run, whose output K4 is held against, and its row says so in
+     "plain_of"); the nvidia-smi line, the
      result line.  Every phase logs its wall time.
 
 Bounds: the least time the card could take for a kernel's work, the larger
@@ -1114,7 +1135,7 @@ def phase_treekernel(device, n_plain, n_tree):
     # --- kernel vs plain on the same blocks, one launch ---
     x, k, e = sample_events(n_plain, device, sc, cfg, maxR, n_grid, seed=13)
     keys = rng.fold_in(rng.PRNGKey(2027, device=device), torch.arange(n_plain, device=device))
-    blocks = tk.tree_inputs(keys, x, k, e, sc, cfg, tcfg, lnt_end=lnt_end)
+    blocks = blocks_plain = tk.tree_inputs(keys, x, k, e, sc, cfg, tcfg, lnt_end=lnt_end)
     launch = lambda: tk.tree_kernel_launch(*blocks, sc, cfg, tcfg, nf=nf, qd=qd, it_cap=it_full)
     _, a_k, _, f_k = launch()
     torch.cuda.synchronize()
@@ -1186,8 +1207,9 @@ def phase_treekernel(device, n_plain, n_tree):
            f"launch: {rc['text']}")
     if not rc["ok"]:
         raise AssertionError("K3's relaunch disagrees with one launch")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None}
+    k3 = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+          "bound_by": b_by, "library_ms": None}
+    return k3, {"blocks": blocks_plain, "aux": a_p, "fin": f_p, "plain_ms": plain_ms}
 
 
 def tree_bound(a, uu, nf, qd, cfg):
@@ -1300,54 +1322,51 @@ def phase_refill_probe(device):
                       "bound_by": b_by, "library_ms": None}
 
 
-def phase_refill_plain(device, n_events, epart, warps):
-    """K4 against its plain version on the same blocks at the refill path's
-    partitions: n_events production events in partitions of `epart`, each
-    served by `warps` warps (the plain version: 128 lockstep lanes).
-    Returns the kernels' JSON row numbers: kernel and plain times, bound and
-    max abs error, all of this one input."""
+def phase_refill_plain(device, plain, epart, warps):
+    """K4 at the refill path's partitions against the plain output of phase
+    6: phase 6's blocks (its n_plain production events) in partitions of
+    `epart`, each served by `warps` warps.  K4's plain version gives K3's
+    plain version's blocks on the same inputs bit for bit, with lanes
+    serving several events in turn (tests/test_torch_treekernel.py::
+    test_refill_plain_equals_tree_kernel_plain_per_event), so phase 6's
+    tree_kernel_launch_plain output is K4's plain output and its time the
+    plain time of K4's row.  Returns the kernels' JSON row numbers."""
     import dataclasses
 
     import torch
 
     from adiabatic_raytracer_tpu_torch.ops import treekernel as tk
-    from adiabatic_raytracer_tpu_torch.utils import rng
 
-    sc, cfg, tcfg, maxR, n_grid = scene_setup(device)
+    sc, cfg, tcfg, _, _ = scene_setup(device)
     cfg = dataclasses.replace(cfg, tree_engine="kernel")
     nf = int(min(cfg.tree_kernel_finals, tcfg.num_cutoff))
     qd = tcfg.mc_nodes + 2
     it_full = (tcfg.max_nodes + 2) * (cfg.max_steps + 2)
-    x, k, e = sample_events(n_events, device, sc, cfg, maxR, n_grid, seed=19)
-    keys = rng.fold_in(rng.PRNGKey(2029, device=device), torch.arange(n_events, device=device))
-    blocks = tk.tree_inputs(keys, x, k, e, sc, cfg, tcfg, lnt_end=0.0)
+    blocks, a_p, f_p = plain["blocks"], plain["aux"], plain["fin"]
+    n_events = blocks[0].shape[0]
     kw = dict(nf=nf, qd=qd, epart=epart, refill_k=int(cfg.tree_refill_k),
               it_cap=min(it_full * epart, 2**31 - 2))
     launch = lambda: tk.tree_refill_launch(*blocks, sc, cfg, tcfg, warps=warps, **kw)
     _, a_k, _, f_k = launch()
     torch.cuda.synchronize()
-    t0 = time.time()
-    _, a_p, _, f_p = tk.tree_refill_launch_plain(*blocks, sc, cfg, tcfg, **kw)
-    torch.cuda.synchronize()
-    plain_ms = (time.time() - t0) * 1e3   # host clock around one synced run
     ms = cuda_ms(launch, 3)
     b_ms, b_by = tree_bound(a_k, blocks[2].shape[1], nf, qd, cfg)
     r = tree_agreement(a_k, f_k, a_p, f_p, nf, "K4 vs plain", 10)
     served = a_k[:, tk.A_ITERS] - a_k[:, tk.A_STEPTOT]   # > 0: started after another event
     later = int((served > 0).sum())
     parts = -(-n_events // epart)
-    log(10, f"K4 vs plain on {n_events} events, {parts} partitions of {epart}, {warps} warps "
-            f"each (plain: 128 lockstep lanes; default cutoffs, refill_k "
+    log(10, f"K4 vs the plain output of phase 6 on its {n_events} events, {parts} partitions "
+            f"of {epart}, {warps} warps each (default cutoffs, refill_k "
             f"{cfg.tree_refill_k}): {r['text']}; events started after another ended {later}, "
-            f"warp iterations max {int(a_k[:, tk.A_ITERS].max().item())} (plain lanes "
-            f"{int(a_p[:, tk.A_ITERS].max().item())}); kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by})")
+            f"warp iterations max {int(a_k[:, tk.A_ITERS].max().item())}; kernel {ms:.3f} ms, "
+            f"plain {plain['plain_ms']:.1f} ms (phase 6's run), bound {b_ms:.4f} ms ({b_by})")
     if not (r["ok"] and bool((a_k[:, tk.A_DONE] == 1).all())):
         raise AssertionError("K4 disagrees with its plain version")
     if later == 0:
         raise AssertionError("K4's queue handed no warp a second event")
-    return {"max_abs_err": r["max_abs"], "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None}
+    return {"max_abs_err": r["max_abs"], "ms": ms, "plain_ms": plain["plain_ms"],
+            "plain_of": "tree_kernel_launch_plain, phase 6 (equal to K4's plain version per "
+                        "event)", "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 PRODUCTION_CUTOFFS = dict(num_cutoff=50, mc_nodes=10, max_nodes=100)   # bench_pipeline.py:84-86
@@ -2154,6 +2173,330 @@ def phase_diagnostics(device, n_states, rows_kernel):
         raise AssertionError(f"phase 22: {bad} beyond the bar")
 
 
+def precision_events(device, n, sc, maxR, n_grid, seed):
+    """n conversion-surface events (xpos, v_loc, erg_inf) drawn by the f32
+    sampler (K1's <float> route, the card's default): f32 values, so every
+    state dtype takes the same events."""
+    import torch
+
+    from adiabatic_raytracer_tpu_torch.ops import sampler
+    from adiabatic_raytracer_tpu_torch.utils import rng
+
+    key = rng.PRNGKey(seed, device=device)
+    xs, vs, es, got = [], [], [], 0
+    while got < n:
+        key, sub = rng.split(key).unbind(0)
+        r = sampler.sample_batch(sub, 4096, maxR, sc, sc.mass_ns, n_grid=n_grid,
+                                 compute_dtype="f32", line_engine="kernel")
+        ok = r.success.nonzero().squeeze(1)
+        xs.append(r.xpos[ok]), vs.append(r.v_loc[ok]), es.append(r.erg_inf[ok])
+        got += int(ok.shape[0])
+    return tuple(torch.cat(a)[:n] for a in (xs, vs, es))
+
+
+def per_event_finals(fin, ev, bt):
+    """driver.pipeline's packs and backtrace as f64 numpy, per event:
+    {"count", "info", "nbt" (the backtrace's crossings), "drew" (the tree
+    entered MC mode, count > mc_nodes: info < 0), "ev"
+    (the per-event pack), "fin" (each event's final rows, in processing
+    order), "w" (each final's weight: its tree weight times the event's
+    backtrace weight, the row's column 8 before the optical-depth factor,
+    1 here)}."""
+    import numpy as np
+
+    fin = fin.double().cpu().numpy()
+    ev = ev.double().cpu().numpy()
+    f = fin[:int(fin[-1, 0])]
+    e = f[:, 0].astype(np.int64)
+    w = f[:, 3] * ev[e, 5]
+    lo = np.searchsorted(e, np.arange(ev.shape[0]))
+    hi = np.searchsorted(e, np.arange(ev.shape[0]), side="right")
+    info = ev[:, 3].astype(np.int64)
+    return {"count": ev[:, 2].astype(np.int64), "info": info,
+            "nbt": bt.n_cross.cpu().numpy().astype(np.int64), "drew": info < 0, "ev": ev,
+            "fin": [f[a:b] for a, b in zip(lo, hi)], "w": [w[a:b] for a, b in zip(lo, hi)]}
+
+
+def compare_precision(a, b, tag, events, worst=True):
+    """Per event, a run's packs (per_event_finals) against the reference's
+    on the events selected by the bool mask `events`: the share with
+    identical counters (the tree's count and info, the backtrace's
+    crossings), whether the finals' species and order
+    agree on all of those, and the relative error of their final weights
+    (median, p99, max).  Logs the three worst events: counters, each
+    final's species, tree weight, prob and prob_conv in both runs, and the
+    backtrace's samp_back_weight and prob0.  Returns a dict with "ok"
+    (counters >= 0.99, species and order exact, median < 5e-5, max < 1e-3:
+    tests/test_precision.py's bars) and "text"."""
+    import numpy as np
+
+    same = (a["count"] == b["count"]) & (a["info"] == b["info"]) & (a["nbt"] == b["nbt"])
+    sel = np.nonzero(events)[0]
+    order_ok, rels, per_ev = True, [], []
+    for i in sel[same[sel]]:
+        fa, fb = a["fin"][i], b["fin"][i]
+        if fa.shape != fb.shape or not np.array_equal(fa[:, 1], fb[:, 1]):
+            order_ok = False
+            log(23, f"  {tag}: event {i} species differ: {fa[:, 1].tolist()} vs "
+                    f"{fb[:, 1].tolist()} (count {a['count'][i]}, info {a['info'][i]})")
+            continue
+        if fa.shape[0]:
+            r = np.abs(a["w"][i] - b["w"][i]) / np.maximum(np.abs(b["w"][i]), 1e-300)
+            rels.append(r)
+            per_ev.append((float(r.max()), int(i)))
+    rel = np.concatenate(rels) if rels else np.zeros(1)
+    frac = float(same[sel].mean()) if sel.size else 1.0
+    for r_max, i in sorted(per_ev, reverse=True)[:3 if worst else 0]:
+        fa, fb, ea, eb = a["fin"][i], b["fin"][i], a["ev"][i], b["ev"][i]
+        log(23, f"  {tag}: event {i} worst final rel {r_max:.3g}; count {a['count'][i]} info "
+                f"{a['info'][i]}; species {fa[:, 1].astype(int).tolist()}; tree weight "
+                f"{fa[:, 3].tolist()} vs {fb[:, 3].tolist()}; prob {fa[:, 4].tolist()} vs "
+                f"{fb[:, 4].tolist()}; prob_conv {fa[:, 5].tolist()} vs {fb[:, 5].tolist()}; "
+                f"samp_back_weight {ea[5]:.9g} vs {eb[5]:.9g}; prob0 {ea[6]:.9g} vs "
+                f"{eb[6]:.9g}")
+    out = {"median": float(np.median(rel)), "p99": float(np.quantile(rel, 0.99)),
+           "max": float(rel.max()), "over": int((rel > 1e-3).sum()), "finals": int(rel.size),
+           "worst": max(per_ev)[1] if per_ev else -1}
+    out["ok"] = {"counters": frac >= 0.99, "order": order_ok, "median": out["median"] < 5e-5,
+                 "max": out["max"] < 1e-3}
+    out["text"] = (f"{tag}: {sel.size} events, identical counters {frac:.4f} (bar 0.99), "
+                   f"species and order {'exact' if order_ok else 'DIFFER'} on those, "
+                   f"{out['finals']} finals' weights rel err median {out['median']:.3g} (bar "
+                   f"5e-5) p99 {out['p99']:.3g} max {out['max']:.3g} (bar 1e-3; {out['over']} "
+                   f"finals above), worst event {out['worst']}")
+    return out
+
+
+# Phase 23's conditioning probes, fixed before any run: (b) on its inputs
+# perturbed by 2^-23 relative (one f32 ulp), a random sign per component.
+# An event is ill-conditioned when a probe changes its counters or species or
+# moves a final weight by more than ILL_REL (a tenth of the max bar): no f32
+# evaluation can be held to the bar there.  At most ILL_SHARE of the events
+# may be so, and each of them is held to ILL_K times its own probe spread.
+# ILL_K allows for an f32 path rounding at many places where a probe perturbs
+# once (sqrt(100) independent roundings of the probe's size).
+PROBES = 8
+ILL_REL = 1e-4
+ILL_SHARE = 0.2
+ILL_K = 10.0
+
+
+def topology(p, i):
+    """Event i's counters and final species in per_event_finals p."""
+    return (int(p["count"][i]), int(p["info"][i]), int(p["nbt"][i]),
+            tuple(p["fin"][i][:, 1].astype(int).tolist()))
+
+
+def max_rel(wa, wb):
+    import numpy as np
+
+    return float((np.abs(wa - wb) / np.maximum(np.abs(wb), 1e-300)).max()) if wb.size else 0.0
+
+
+def probe_spread(probes, ref):
+    """Per event, from the f64 probes and `ref` (per_event_finals of the
+    unperturbed f64 run): "spread", the largest relative weight move
+    between two of these f64 runs of one topology (0 where no two share
+    one), and "ill" (a probe changed the topology, or the spread is above
+    ILL_REL)."""
+    import numpy as np
+
+    runs = [ref] + probes
+    n = ref["count"].shape[0]
+    spread, flip = np.zeros(n), np.zeros(n, dtype=bool)
+    for i in range(n):
+        topo = [topology(r, i) for r in runs]
+        flip[i] = len(set(topo)) > 1
+        for j, rj in enumerate(runs):
+            for k in range(j):
+                if topo[j] == topo[k]:
+                    spread[i] = max(spread[i], max_rel(rj["w"][i], runs[k]["w"][i]))
+    return {"spread": spread, "ill": flip | (spread > ILL_REL)}
+
+
+def ill_agreement(x, ref, probes, sp, events, tag):
+    """The ill-conditioned events among `events`: each must take the
+    topology of ref or of a probe, and its weights must lie within ILL_K x
+    max(its spread, ILL_REL) relative of the nearest f64 run of that
+    topology.  Returns (ok, text); the three worst events are logged."""
+    import numpy as np
+
+    sel = np.nonzero(events & sp["ill"])[0]
+    bad, worst = [], []
+    for i in sel:
+        t = topology(x, i)
+        cands = [r for r in [ref] + probes if topology(r, i) == t]
+        lim = ILL_K * max(sp["spread"][i], ILL_REL)
+        if not cands:
+            bad.append(f"event {i} topology {t} is no f64 run's")
+            continue
+        err = min(max_rel(x["w"][i], r["w"][i]) for r in cands)
+        worst.append((err / lim, int(i), err, lim, len(cands)))
+        if err > lim:
+            bad.append(f"event {i} weights {err:.3g} off, limit {lim:.3g}")
+    for q, i, err, lim, nc in sorted(worst, reverse=True)[:3]:
+        log(23, f"  {tag}: event {i} rel {err:.3g} of limit {lim:.3g} (spread "
+                f"{sp['spread'][i]:.3g}; {nc} f64 runs of its topology)")
+    q = max(worst)[0] if worst else 0.0
+    text = (f"{tag}: {sel.size} ill-conditioned events, each within {ILL_K:g} x its probe "
+            f"spread of an f64 run of its topology: {sel.size - len(bad)} (largest share of "
+            f"the limit {q:.3g})" + (f"; {'; '.join(bad[:5])}" if bad else ""))
+    return not bad, text
+
+
+def phase_precision(device, n_events, batch):
+    """Phase 23: the precision path on the kernel path.  Three
+    configurations of driver.run: (a) the CLI's card defaults (compute f32,
+    f64 state), (b) compute_dtype "state" (f64 physics), (c) precision
+    "f32" (every tensor f32), each warm, twice in turns (a b c a b c) on
+    n_events events: events/s and the K1-K3 launches of each, K1's
+    instantiation from the sampler's launches (c: <float>).  Then the same
+    n_events f32-sampled events through driver.pipeline under (a), (b) and
+    (c), and (b) on inputs perturbed by 2^-23 PROBES times (probe_spread);
+    (a) and (c) against (b) per event (compare_precision, ill_agreement),
+    each bar on the events it applies to (the module docstring, 23); and a
+    resume of (c):
+    stopped after one batch of batch / 2 and resumed, rows bitwise the
+    uninterrupted (c)'s."""
+    import dataclasses
+    import glob
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from adiabatic_raytracer_tpu_torch import driver
+    from adiabatic_raytracer_tpu_torch.ops import cuda_lib, line_scan
+    from adiabatic_raytracer_tpu_torch.utils import rng
+
+    sc, cfg, tcfg, maxR, n_grid = scene_setup(device)
+    cfg = dataclasses.replace(cfg, tree_engine="kernel", tree_kernel_chunk=64)
+    confs = {"a": (dataclasses.replace(cfg, compute_dtype="f32"), "f64"),
+             "b": (dataclasses.replace(cfg, compute_dtype="state"), "f64"),
+             "c": (dataclasses.replace(cfg, compute_dtype="f32"), "f32")}
+    d = os.path.join(OUT, "precision")
+    shutil.rmtree(d, ignore_errors=True)
+    kw = dict(seed=1769, save_mode=1, verbose=False, device=device)
+    fails = []
+    # K1's instantiation: the dtype of the lines each fused launch took
+    k1_dtypes, real_launch = [], line_scan._launch_roots
+
+    def launch_roots(x0, *a, **k):
+        k1_dtypes.append(x0.dtype)
+        return real_launch(x0, *a, **k)
+
+    line_scan._launch_roots = launch_roots
+    try:
+        for tag, (c, prec) in confs.items():    # warm
+            driver.run(sc, c, tcfg, batch + 1, dir_tag=d, file_tag=f"warm_{tag}",
+                       event_batch=batch, precision=prec, **kw)
+        res = {t: [] for t in confs}
+        for i, tag in enumerate("abcabc"):
+            c, prec = confs[tag]
+            cuda_lib.reset_launch_counts()
+            k1_dtypes.clear()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            rows, _, st = driver.run(sc, c, tcfg, n_events + 1, dir_tag=d,
+                                     file_tag=f"{tag}{i}", event_batch=batch, precision=prec,
+                                     **kw)
+            wall = time.time() - t0
+            res[tag].append((n_events / wall, dict(cuda_lib.LAUNCHES), set(k1_dtypes), rows,
+                             st))
+    finally:
+        line_scan._launch_roots = real_launch
+    for tag, runs in res.items():
+        evs = [r[0] for r in runs]
+        launches, dts, rows, st = runs[0][1], runs[0][2], runs[0][3], runs[0][4]
+        want_k1 = {torch.float32} if confs[tag][0].compute_dtype == "f32" else {torch.float64}
+        if not all(launches[n] for n in ("line_roots", "megakernel", "treekernel")) \
+                or launches["line_scan"] or launches["treerefill"]:
+            fails.append(f"({tag}) launches {launches}: K1 fused, K2 and K3 must launch")
+        if dts != want_k1:
+            fails.append(f"({tag}) K1 ran at {dts}, not {want_k1}")
+        if not (rows.dtype == np.float64 and rows.ndim == 2 and rows.shape[1] == 29
+                and np.all(np.isfinite(rows)) and np.all(rows[:, 8] > 0)):
+            fails.append(f"({tag}) rows {rows.shape} {rows.dtype} not finite f64 with "
+                         "positive weights")
+        if not all(np.array_equal(r[3], rows) for r in runs[1:]):
+            fails.append(f"({tag}) the two runs' rows differ")
+        log(23, f"({tag}) compute {confs[tag][0].compute_dtype}, precision {confs[tag][1]}: "
+                f"{n_events} events, {rows.shape[0]} rows; events/s "
+                + " / ".join(f"{e:.1f}" for e in evs) + f" (two warm runs); launches "
+                f"{launches}; K1 lines {sorted(str(t) for t in dts)}; info {st.info_hist}")
+    # per event: the same f32-sampled events through driver.pipeline
+    x, v, e = precision_events(device, n_events, sc, maxR, n_grid, seed=23)
+    keys = rng.fold_in(rng.PRNGKey(1769, device=device),
+                       torch.arange(n_events, device=device) + 1)
+    packs = {}
+    for tag, (c, prec) in confs.items():
+        dt = driver.state_dtype(prec)
+        fin, ev, bt, _ = driver.pipeline(keys, x.to(dt), v.to(dt), e.to(dt), sc, c, tcfg,
+                                         maxR, 0.0)
+        want = torch.float32 if c.compute_dtype == "f32" else dt
+        if fin.dtype != want or ev.dtype != want:
+            fails.append(f"({tag}) packs {fin.dtype} / {ev.dtype}, not {want}")
+        packs[tag] = per_event_finals(fin, ev, bt)
+    # the conditioning probes (PROBES, ILL_REL): (b) on the events perturbed
+    # by 2^-23 relative, a random sign per component
+    every = np.ones(n_events, dtype=bool)
+    probes = []
+    for seed in range(2311, 2311 + PROBES):
+        g = torch.Generator().manual_seed(seed)
+        pert = lambda a: (a.double() * (1.0 + 2.0**-23 * (2 * torch.randint(
+            0, 2, a.shape, generator=g) - 1).to(a.device)))
+        fin, ev, bt, _ = driver.pipeline(keys, pert(x), pert(v), pert(e), sc, confs["b"][0],
+                                         tcfg, maxR, 0.0)
+        probes.append(per_event_finals(fin, ev, bt))
+        r = compare_precision(probes[-1], packs["b"], f"(b) on inputs perturbed by 2^-23 "
+                              f"(seed {seed}) vs (b)", every, worst=seed == 2311)
+        log(23, r["text"])
+    sp = probe_spread(probes, packs["b"])
+    well, ill_share = ~sp["ill"], float(sp["ill"].mean())
+    # the MC draws of an f32 state are f32 uniforms, other bits than the f64
+    # state's (jax.random.uniform at either dtype): (c)'s trees match (b)'s
+    # species where neither entered MC mode
+    drew = packs["b"]["drew"] | packs["c"]["drew"]
+    log(23, f"{int(well.sum())} of {n_events} events well-conditioned at f32 precision "
+            f"({PROBES} probes, ILL_REL {ILL_REL:g}): ill share {ill_share:.4f} (bar "
+            f"{ILL_SHARE:g}); {int(drew.sum())} entered MC mode in (b) or (c)")
+    if ill_share > ILL_SHARE:
+        fails.append(f"ill-conditioned share {ill_share:.4f} above {ILL_SHARE:g}")
+    for tag, events, what, gates in (
+            ("a", every, "every event", ("counters", "order", "median")),
+            ("a", well, "well-conditioned events", ("max",)),
+            ("c", every, "every event", ("counters", "median")),
+            ("c", ~drew, "events with no MC draw", ("order",)),
+            ("c", ~drew & well, "well-conditioned events with no MC draw", ("max",))):
+        r = compare_precision(packs[tag], packs["b"], f"({tag}) vs (b), {what}", events)
+        log(23, r["text"] + f"; gates: {', '.join(gates)}")
+        if not all(r["ok"][k] for k in gates):
+            fails.append(r["text"])
+    for tag, events in (("a", every), ("c", ~drew)):
+        ok, text = ill_agreement(packs[tag], packs["b"], probes, sp, events, f"({tag}) vs (b)")
+        log(23, text)
+        if not ok:
+            fails.append(text)
+    # a resume of (c), bitwise the uninterrupted (c)
+    c, prec = confs["c"]
+    rkw = dict(kw, event_batch=batch // 2, precision=prec, file_tag="resume_c")
+    full, _, _ = driver.run(sc, c, tcfg, batch + 1, dir_tag=os.path.join(d, "full"), **rkw)
+    part = driver.run(sc, c, tcfg, batch + 1, dir_tag=os.path.join(d, "split"),
+                      checkpoint=True, max_batches=1, **rkw)
+    ck = glob.glob(os.path.join(d, "split", "npy", ".ckpt_*.json"))
+    resumed, _, _ = driver.run(sc, c, tcfg, batch + 1, dir_tag=os.path.join(d, "split"),
+                               checkpoint=True, resume=True, **rkw)
+    if len(ck) != 1 or part[2].events != batch // 2:
+        fails.append(f"(c) the stopped run left {len(ck)} checkpoints after "
+                     f"{part[2].events} events")
+    if not np.array_equal(resumed, full):
+        fails.append("(c) the resumed rows differ from the uninterrupted run's")
+    log(23, f"(c) {batch} events in batches of {batch // 2}, stopped after one batch and "
+            f"resumed: rows {resumed.shape} bitwise {np.array_equal(resumed, full)}")
+    if fails:
+        raise AssertionError("phase 23: " + "; ".join(fails))
+
+
 def phase_slice(device, n_events, batch, tree_engine, phase, cold_run=True, extra=(),
                 uses_tree_kernel=None):
     """The main path through the CLI: a cold run when asked (one CLI
@@ -2272,11 +2615,11 @@ def main():
     timed(3, sample_route_costs, device, 16384)
     timed(4, phase_probe, device)
     k2 = timed(5, phase_megakernel, device, 2048)
-    k3 = timed(6, phase_treekernel, device, 512, 2048)
+    k3, k3_plain = timed(6, phase_treekernel, device, 512, 2048)
     launches, rows_kernel = timed(7, phase_slice, device, 4096, 2048, "auto", 7)
     _, rows_queue = timed(8, phase_slice, device, 2048, 2048, "queue", 8, cold_run=False)
     p1_launches, p1 = timed(9, phase_refill_probe, device)
-    k4 = timed(10, phase_refill_plain, device, 512, 256, 32)
+    k4 = timed(10, phase_refill_plain, device, k3_plain, 256, 32)
     timed(11, phase_refill_vs_tree, device, 2048)
     refill_launches, rows_refill = timed(12, phase_refill_path, device, 4096, 2048)
     same_shape = rows_refill.shape == rows_kernel.shape
@@ -2294,6 +2637,7 @@ def main():
     timed(20, phase_mesh, device, 4096, 2048, rows_kernel)
     timed(21, phase_pool_compact, device, 2, 2, 8)
     timed(22, phase_diagnostics, device, 4096, rows_kernel)
+    timed(23, phase_precision, device, 2048, 2048)
     log(14, f"chip_smoke wall {time.time() - t_start:.1f} s")
     kernels = [
         {"name": "line_roots", "route": "cuda",

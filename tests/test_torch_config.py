@@ -104,7 +104,8 @@ def test_ported_options_pass(kw):
 
 def test_cli_takes_every_jax_run_flag():
     """The port's CLI accepts every flag of the JAX CLI but --platform (the
-    port's --device takes its place); --precision takes f64 only."""
+    port's --device takes its place); --precision takes f32 and f64, which
+    driver.state_dtype resolves to the state dtype."""
     from adiabatic_raytracer_tpu.cli import build_parser as jax_parser
     from adiabatic_raytracer_tpu_torch.cli import build_parser
 
@@ -116,8 +117,13 @@ def test_cli_takes_every_jax_run_flag():
     assert (args.engine, args.mesh, args.pipeline_depth, args.profile_dir, args.coordinator,
             args.nprocs, args.procid) == ("pool_compact", 2, 2, "prof", "127.0.0.1:29500",
                                           2, 1)
+    from adiabatic_raytracer_tpu_torch.driver import state_dtype
+
+    for prec, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        assert state_dtype(build_parser().parse_args(["--precision", prec]).precision) == dtype
+    assert build_parser().parse_args([]).precision == "f64"
     with pytest.raises(SystemExit):
-        build_parser().parse_args(["--precision", "f32"])
+        build_parser().parse_args(["--precision", "f16"])
 
 
 def test_mesh_without_its_cards_raises(tmp_path):

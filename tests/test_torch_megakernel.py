@@ -218,11 +218,11 @@ def test_bndry_pool_backtrace_matches_jax_pool():
     kw = dict(interp_points=8, max_steps=3000, max_crossings=8)
     lnt1 = float(np.log(1e-2))
     jcf = jcfg.NumericsConfig(**kw)
-    ref = jprop.propagate(jnp.asarray(x), jnp.asarray(v), jcfg.Scene(**mk_sc, bndry_lyr=0.5),
-                          jcf, erg=jnp.asarray(erg), delta_w=-jnp.ones(B),
-                          lnt0=jnp.full(B, jcf.ln_t_start), lnt1=jnp.full(B, lnt1),
-                          is_photon=jnp.zeros(B, bool), species="axion",
-                          max_crossings=jnp.full(B, 8, jnp.int32))
+    ref = jax.jit(lambda x, v, erg: jprop.propagate(
+        x, v, jcfg.Scene(**mk_sc, bndry_lyr=0.5), jcf, erg=erg, delta_w=-jnp.ones(B),
+        lnt0=jnp.full(B, jcf.ln_t_start), lnt1=jnp.full(B, lnt1), is_photon=jnp.zeros(B, bool),
+        species="axion", max_crossings=jnp.full(B, 8, jnp.int32)))(
+        jnp.asarray(x), jnp.asarray(v), jnp.asarray(erg))
     T = lambda a: torch.as_tensor(a, dtype=F64)
     tcf = tcfg.NumericsConfig(**kw)
     args = dict(erg=T(erg), delta_w=-torch.ones(B, dtype=F64),
@@ -260,11 +260,11 @@ def test_pool_propagate_matches_jax_pool():
     erg = np.full(B, 1e-5 * (1 + 0.5 * (220 / 2.99792e5) ** 2))
     lnt1 = float(np.log(1e-3))
     kw = dict(interp_points=8, max_steps=500)
-    ref = jprop.propagate(jnp.asarray(x), jnp.asarray(v), jcfg.Scene(**KW),
-                          jcfg.NumericsConfig(**kw), erg=jnp.asarray(erg),
-                          delta_w=-jnp.ones(B), lnt0=jnp.full(B, -30.0),
-                          lnt1=jnp.full(B, lnt1), is_photon=jnp.ones(B, bool),
-                          max_crossings=jnp.ones(B, jnp.int32), species="photon")
+    ref = jax.jit(lambda x, v, erg: jprop.propagate(
+        x, v, jcfg.Scene(**KW), jcfg.NumericsConfig(**kw), erg=erg, delta_w=-jnp.ones(B),
+        lnt0=jnp.full(B, -30.0), lnt1=jnp.full(B, lnt1), is_photon=jnp.ones(B, bool),
+        max_crossings=jnp.ones(B, jnp.int32), species="photon"))(
+        jnp.asarray(x), jnp.asarray(v), jnp.asarray(erg))
     T = lambda a: torch.as_tensor(a, dtype=F64)
     got = propagate(T(x), T(v), tcfg.Scene(**KW), tcfg.NumericsConfig(**kw), erg=T(erg),
                     delta_w=-torch.ones(B, dtype=F64), lnt0=torch.full((B,), -30.0, dtype=F64),

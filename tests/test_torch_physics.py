@@ -142,7 +142,7 @@ def test_dispersion(mode):
 
 
 def _batched(jfn, tfn, *arrays):
-    want = jax.vmap(jfn)(*[J(a) for a in arrays])
+    want = jax.jit(jax.vmap(jfn))(*[J(a) for a in arrays])
     got = torch.func.vmap(tfn)(*[T(a) for a in arrays])
     close(got, want)
 

@@ -72,8 +72,9 @@ def jax_host(events):
     """The JAX host engine at tree_k=1, pool engine, f64 (no Pallas)."""
     x, k, e = (jax.numpy.asarray(a) for a in events)
     cfg = jcfg.NumericsConfig(engine="pool", **NUM)
-    return jtree.forward_tree(jax.random.PRNGKey(SEED), x, k, e, jcfg.Scene(**KW), cfg,
-                              jcfg.TreeConfig(**TREE), lnt_end=0.0)
+    return jax.jit(lambda x, k, e: jtree.forward_tree(
+        jax.random.PRNGKey(SEED), x, k, e, jcfg.Scene(**KW), cfg, jcfg.TreeConfig(**TREE),
+        lnt_end=0.0))(x, k, e)
 
 
 @pytest.fixture(scope="module")
@@ -166,7 +167,41 @@ def test_tree_kernel_chunked_matches_single(events, port_kernel):
     assert int(np.max(np.asarray(chunked.n_iters))) > 1   # it did relaunch
 
 
-def test_tree_kernel_launch_plain_resumes(events, port_kernel):
+@pytest.fixture(scope="module")
+def k3_plain_blocks(events):
+    """Input blocks of 6 events, the 3 events under SEED's keys and again
+    under SEED + 1's (other tree draws), and K3's plain version's outputs on
+    them, one uncut launch.  Rows 0-2 are the 3 events' own blocks."""
+    x, k, e = (torch.as_tensor(a).repeat(2, *([1] * (a.ndim - 1))) for a in events)
+    keys = torch.cat([tree._event_keys(rng.PRNGKey(s), 3, x.device) for s in (SEED, SEED + 1)])
+    blocks = tk.tree_inputs(keys, x, k, e, SC, CFG, TC, lnt_end=0.0)
+    out = tk.tree_kernel_launch_plain(*blocks, SC, CFG, TC, it_cap=10**6, nf=TC.num_cutoff,
+                                      qd=TC.mc_nodes + 2)
+    return blocks, out
+
+
+def test_refill_plain_equals_tree_kernel_plain_per_event(k3_plain_blocks):
+    """K4's plain version on K3's input blocks, 6 events in 2 partitions of
+    3, each served by 2 lanes at the config's refill_k (as K4's warps serve
+    several events each on the card): every event's output row but the
+    serving lane's iteration count, and its finals block, are K3's plain
+    version's bit for bit.  So chip_smoke.py holds K4 against K3's plain
+    output (phase 10 against phase 6's)."""
+    blocks, (_, a3, _, f3) = k3_plain_blocks
+    _, a4, _, f4 = tk.tree_refill_launch_plain(*blocks, SC, CFG, TC, nf=TC.num_cutoff,
+                                               qd=TC.mc_nodes + 2, epart=3,
+                                               refill_k=CFG.tree_refill_k, it_cap=10**6,
+                                               lanes=2)
+    keep = [r for r in range(tk.AUX_ROWS) if r != tk.A_ITERS]
+    assert torch.equal(a4[:, keep], a3[:, keep])
+    assert torch.equal(f4, f3)
+    # in each partition the third event started after another ended: its
+    # lane's count is beyond its own steps
+    later = (a4[:, tk.A_ITERS] > a4[:, tk.A_STEPTOT]).reshape(2, 3)
+    assert bool(later.any(dim=1).all())
+
+
+def test_tree_kernel_launch_plain_resumes(events, port_kernel, k3_plain_blocks):
     """(d) The block contract: one launch cut short at it_cap leaves every
     event live with its steps counted; a second launch resumes it and ends
     where the single uncut launch of forward_tree_kernel ended (counters
@@ -200,8 +235,7 @@ def test_tree_kernel_launch_plain_resumes(events, port_kernel):
                       (tk.F_TB, pl.t), (tk.F_U0 + 6, pl.ferg)):
         torch.testing.assert_close(fin[..., row][ok], want[ok], rtol=1e-10, atol=0)
     # work counters: the two launches add up to one uncut launch
-    _, a_one, _, _ = tk.tree_kernel_launch_plain(uin, aux, uni, qin, SC, CFG, TC, it_cap=10**6,
-                                                 **kw)
+    a_one = k3_plain_blocks[1][1][:3]
     work = [tk.A_STEPTOT, tk.A_STEPS_PH, tk.A_NACC, tk.A_NFINE, tk.A_NBISECT, tk.A_NCROSS]
     torch.testing.assert_close(a2[:, work], a_one[:, work], rtol=0, atol=0)
     ph, acc = a_one[:, tk.A_STEPS_PH], a_one[:, tk.A_NACC]
