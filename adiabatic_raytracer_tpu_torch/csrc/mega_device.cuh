@@ -54,41 +54,45 @@ static __device__ void dmetric_dr(double r, double sin_th, double rs0, double rn
   d[3] = -2.0 / (r * r * r * sin_th * sin_th);
 }
 
-// Hand adjoint of the nondimensionalized Hamiltonians: dH~/dx (3), dH~/dk~ (3),
-// dH~/dt.  Photon branch: the variant's dispersion (Melrose or isotropic) on
-// the exterior metric; axion branch: metric only.  With the boundary layer
-// only the photon's time derivative gains its term, its spatial gradients
-// do not (the reference's quirk, RayTracer.jl:84-88).
-template <int V = kMelrose>
-static __device__ void grad_h_hand(const MegaParams& P, double x1, double x2, double x3, double kt1,
-                            double kt2, double kt3, double time, double ergt_ph,
-                            double ergt_ax, bool photon, double s_th, double c_th,
-                            double gx[3], double gk[3], double* gt) {
-  if (P.species == 1 || (P.species == 2 && !photon)) {
-    const Metric<double> g = metric<double>(x1, s_th, P.rs0, P.r_metric);
-    double d[4];
-    dmetric_dr(x1, s_th, P.rs0, P.r_metric, d);
-    gk[0] = g.rr * kt1;
-    gk[1] = g.thth * kt2;
-    gk[2] = g.pp * kt3;
-    gx[0] = 0.5 * (d[0] * ergt_ax * ergt_ax + d[1] * kt1 * kt1 + d[2] * kt2 * kt2 +
-                   d[3] * kt3 * kt3);
-    gx[1] = -g.pp * (c_th / s_th) * kt3 * kt3;
-    gx[2] = 0.0;
-    *gt = 0.0;
-    return;
-  }
-  double s_ph, c_ph, swt, cwt;
-  sincos(x3, &s_ph, &c_ph);
-  sincos(P.omega * time, &swt, &cwt);
-  const double r = x1 > P.r_ns ? x1 : P.r_ns;
+// The photon branch of grad_h_hand at the clamped radius r = max(x1, r_ns):
+// on the exterior metric (kIn false: g^rr = A = 1 - rs0/r = -1/g^tt), or on
+// the interior branch below r_metric (kIn true: g^rr, dg^rr/dr and dg^tt/dr
+// from metric and dmetric_dr), which r reaches when r_ns < r_metric.  The
+// derivation is in the torch twin's docstring (ops/megakernel.py
+// _grad_h_hand).  One instantiation per branch, so the exterior one is the
+// arithmetic the kernels ran before the interior existed.
+template <int V, bool kIn>
+__device__ __forceinline__ void grad_h_photon(const MegaParams& P, double x1, double r,
+                                              double kt1, double kt2, double kt3,
+                                              double ergt_ph, double s_th, double c_th,
+                                              double s_ph, double c_ph, double swt, double cwt,
+                                              double gx[3], double gk[3], double* gt) {
   const double inv_r = 1.0 / r;
-  const double A = 1.0 - P.rs0 * inv_r;
-  const double inv_A = 1.0 / A;
   const double inv_s = 1.0 / s_th;
   const double inv_r2 = inv_r * inv_r;
   const double g_pp = inv_r2 * inv_s * inv_s;
-  const double dA_dr = P.rs0 * inv_r2;
+  // g^rr, dg^rr/dr and d(ksqr)/dr.  The exterior's d(ksqr)/dr stays the one
+  // expression it was before the interior branch existed: split into two
+  // statements, its product and difference rounded differently on the card
+  // (K2's photon rays and K3's events were no longer bitwise the old ones).
+  double G, dG, dksqr_r;
+  if constexpr (kIn) {
+    const Metric<double> g = metric<double>(r, s_th, P.rs0, P.r_metric);
+    double d[4];
+    dmetric_dr(r, s_th, P.rs0, P.r_metric, d);
+    G = g.rr;
+    dG = d[1];
+    dksqr_r = ergt_ph * ergt_ph * d[0] + kt1 * kt1 * d[1] -
+              2.0 * inv_r2 * inv_r * (kt2 * kt2 + inv_s * inv_s * kt3 * kt3);
+  } else {
+    const double A = 1.0 - P.rs0 * inv_r;
+    const double inv_A = 1.0 / A;
+    const double dA_dr = P.rs0 * inv_r2;
+    G = A;
+    dG = dA_dr;
+    dksqr_r = (ergt_ph * ergt_ph * inv_A * inv_A + kt1 * kt1) * dA_dr -
+              2.0 * inv_r2 * inv_r * (kt2 * kt2 + inv_s * inv_s * kt3 * kt3);
+  }
   const double E = 1.0 / (ergt_ph * ergt_ph);
 
   const double cp = c_ph * cwt + s_ph * swt;
@@ -105,8 +109,6 @@ static __device__ void grad_h_hand(const MegaParams& P, double x1, double x2, do
   const double sgn = bz > 0.0 ? 1.0 : (bz < 0.0 ? -1.0 : 0.0);
   const double w_fac = P.wp2_scale * sgn;
 
-  const double dksqr_r = (ergt_ph * ergt_ph * inv_A * inv_A + kt1 * kt1) * dA_dr -
-                         2.0 * inv_r2 * inv_r * (kt2 * kt2 + inv_s * inv_s * kt3 * kt3);
   const double dinv_s = -inv_s * inv_s * c_th;
   const double dksqr_th = 2.0 * inv_r2 * inv_s * dinv_s * kt3 * kt3;
 
@@ -120,7 +122,7 @@ static __device__ void grad_h_hand(const MegaParams& P, double x1, double x2, do
     ph_r = 0.5 * (dksqr_r + w_fac * dbz_r);
     gx[1] = 0.5 * (dksqr_th + w_fac * dbz_th);
     gx[2] = 0.5 * w_fac * dbz_ph;
-    gk[0] = A * kt1;
+    gk[0] = G * kt1;
     gk[1] = inv_r2 * kt2;
     gk[2] = g_pp * kt3;
     *gt = 0.5 * w_fac * dbz_t;
@@ -131,24 +133,24 @@ static __device__ void grad_h_hand(const MegaParams& P, double x1, double x2, do
       *gt += 0.5 * (bt / wpt) * w_fac * dbz_t;
     }
   } else {
-    const double sqA = sqrt(A);
-    const double q1 = sqA * kt1, q2 = inv_r * kt2, q3 = inv_r * inv_s * kt3;
+    const double sqG = sqrt(G);
+    const double q1 = sqG * kt1, q2 = inv_r * kt2, q3 = inv_r * inv_s * kt3;
     const double n = q1 * br + q2 * bth + q3 * bph;
     const double bm2 = br * br + bth * bth + bph * bph;
     const double inv_bm2 = 1.0 / bm2;
     const double kp2 = n * n * inv_bm2;
-    const double F = 1.0 - kp2 * A * E;
-    const double lam = wp2 * A * E * n * inv_bm2;
-    gk[0] = A * kt1 - lam * sqA * br;
+    const double F = 1.0 - kp2 * G * E;
+    const double lam = wp2 * G * E * n * inv_bm2;
+    gk[0] = G * kt1 - lam * sqG * br;
     gk[1] = inv_r2 * kt2 - lam * inv_r * bth;
     gk[2] = g_pp * kt3 - lam * inv_r * inv_s * bph;
-    const double aE = A * E;
+    const double aE = G * E;
 
-    const double dn_r = (0.5 * dA_dr / sqA) * kt1 * br - 3.0 * inv_r * n -
+    const double dn_r = (0.5 * dG / sqG) * kt1 * br - 3.0 * inv_r * n -
                         inv_r * (q2 * bth + q3 * bph);
     const double dkp2_r = inv_bm2 * 2.0 * n * dn_r + 6.0 * kp2 * inv_r;
     const double dwp2_r = -3.0 * wp2 * inv_r;
-    const double dF_r = -E * (dkp2_r * A + kp2 * dA_dr);
+    const double dF_r = -E * (dkp2_r * G + kp2 * dG);
     ph_r = 0.5 * (dksqr_r + dwp2_r * F + wp2 * dF_r);
 
     const double dbr_th = -2.0 * bth, dbth_th = 0.5 * br;
@@ -189,6 +191,42 @@ static __device__ void grad_h_hand(const MegaParams& P, double x1, double x2, do
   gx[0] = x1 > P.r_ns ? ph_r : 0.0;
 }
 
+// Hand adjoint of the nondimensionalized Hamiltonians: dH~/dx (3), dH~/dk~ (3),
+// dH~/dt.  Photon branch: the variant's dispersion (Melrose or isotropic),
+// grad_h_photon; axion branch: metric only.  With the boundary layer
+// only the photon's time derivative gains its term, its spatial gradients
+// do not (the reference's quirk, RayTracer.jl:84-88).
+template <int V = kMelrose>
+static __device__ void grad_h_hand(const MegaParams& P, double x1, double x2, double x3, double kt1,
+                            double kt2, double kt3, double time, double ergt_ph,
+                            double ergt_ax, bool photon, double s_th, double c_th,
+                            double gx[3], double gk[3], double* gt) {
+  if (P.species == 1 || (P.species == 2 && !photon)) {
+    const Metric<double> g = metric<double>(x1, s_th, P.rs0, P.r_metric);
+    double d[4];
+    dmetric_dr(x1, s_th, P.rs0, P.r_metric, d);
+    gk[0] = g.rr * kt1;
+    gk[1] = g.thth * kt2;
+    gk[2] = g.pp * kt3;
+    gx[0] = 0.5 * (d[0] * ergt_ax * ergt_ax + d[1] * kt1 * kt1 + d[2] * kt2 * kt2 +
+                   d[3] * kt3 * kt3);
+    gx[1] = -g.pp * (c_th / s_th) * kt3 * kt3;
+    gx[2] = 0.0;
+    *gt = 0.0;
+    return;
+  }
+  double s_ph, c_ph, swt, cwt;
+  sincos(x3, &s_ph, &c_ph);
+  sincos(P.omega * time, &swt, &cwt);
+  const double r = x1 > P.r_ns ? x1 : P.r_ns;
+  if (r < P.r_metric)
+    grad_h_photon<V, true>(P, x1, r, kt1, kt2, kt3, ergt_ph, s_th, c_th, s_ph, c_ph, swt, cwt,
+                           gx, gk, gt);
+  else
+    grad_h_photon<V, false>(P, x1, r, kt1, kt2, kt3, ergt_ph, s_th, c_th, s_ph, c_ph, swt, cwt,
+                            gx, gk, gt);
+}
+
 // Hamilton's equations in log time; g^rr at the ray's own r (pool semantics).
 template <int V = kMelrose>
 static __device__ void rhs(const MegaParams& P, const double* u, double lnt, double erg, bool photon,
@@ -214,7 +252,10 @@ static __device__ void rhs(const MegaParams& P, const double* u, double lnt, dou
 }
 
 // Conversion probability p = 1 - exp(-P_nonAD) at a crossing state, with the
-// gradients of wp, |B| and k.B^i differentiated by hand (exterior point).
+// gradients of wp, |B| and k.B^i differentiated by hand.  g^rr and its
+// derivative take the metric's branch at r (interior below r_metric); the
+// local energy's lapse and the Christoffel symbols are exterior everywhere,
+// as in the host function (ops/conversion.get_prob_nonad).
 static __device__ double prob_nd(const MegaParams& P, const double* u, double erg) {
   const double r = u[0];
   double s_th, c_th, s_ph, c_ph;
@@ -250,7 +291,14 @@ static __device__ double prob_nd(const MegaParams& P, const double* u, double er
       (br * (-2.0 * s_th * bph) + bth * (c_th * bph) + bph * dbph_ph) / bmag};
 
   const double sqA = sqrt(g.rr);
-  const double dsqA = 0.5 * (P.rs0_full * inv_r * inv_r) / sqA;
+  double dsqA;  // d sqrt(g^rr)/dr, on the metric's branch at r
+  if (r < P.r_metric) {
+    double d[4];
+    dmetric_dr(r, s_th, P.rs0_full, P.r_metric, d);
+    dsqA = 0.5 * d[1] / sqA;
+  } else {
+    dsqA = 0.5 * (P.rs0_full * inv_r * inv_r) / sqA;
+  }
   const double inv_rs = inv_r / abs_s;
   const double term1[3] = {
       kt1 * (-3.0 * br * inv_r * sqA + br * dsqA) +

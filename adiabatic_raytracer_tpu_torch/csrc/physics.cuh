@@ -166,6 +166,23 @@ __device__ __forceinline__ T line_omega_p(T px, T py, T rr, T cz, T st,
   return wp;
 }
 
+// K1: sin(theta) at a Cartesian point of radius rr and cos(theta) cz.  In
+// f32, within ~0.6 degrees of a pole (1 - cz^2 < 1e-4), the difference
+// 1 - cz^2 keeps few digits (its relative error is ~6e-8 / (1 - cz^2)) and
+// the azimuthal ratios px / (rr st), py / (rr st) inherit it: there the
+// <float> instantiation takes sin(theta) from the cylindrical radius.  The
+// <double> instantiation, and everywhere else the <float> one, take it from
+// cz as the plain version (sampler._line_condition) does, so near the poles
+// the f32 kernel departs from its f32 plain version, towards the f64 value.
+template <typename T>
+__device__ __forceinline__ T line_sin_theta(T px, T py, T rr, T cz) {
+  const T s2 = T(1) - cz * cz;
+  if constexpr (sizeof(T) == sizeof(float)) {
+    if (s2 < T(1e-4)) return dmax(dsqrt(px * px + py * py) / rr, T(1e-15));
+  }
+  return dsqrt(dmax(s2, T(1e-30)));
+}
+
 // K1: thick-surface condition at a Cartesian point of a sampling line, the
 // momentum renormalized onto the axion shell along the local-velocity
 // direction (sampler._line_condition; pallas_kernels._condition_block).
@@ -174,7 +191,7 @@ __device__ __forceinline__ T line_condition(T px, T py, T pz, T vlx, T vly, T vl
                                             const LineSceneT<T>& S) {
   const T rr = dsqrt(px * px + py * py + pz * pz);
   const T cz = pz / rr;
-  const T st = dsqrt(dmax(T(1) - cz * cz, T(1e-30)));
+  const T st = line_sin_theta<T>(px, py, rr, cz);
   const T aa = rr < S.r_ns ? T(1) : T(1) - S.rs0 / rr;
   const T dr_dt = (px * vlx + py * vly + pz * vlz) / rr;
   const T v_th = (pz * dr_dt - rr * vlz) / (rr * st);
@@ -219,7 +236,7 @@ template <typename T>
 __device__ __forceinline__ bool line_accept(T px, T py, T pz, T erg, const LineSceneT<T>& S) {
   const T rr = dsqrt(px * px + py * py + pz * pz);
   const T cz = pz / rr;
-  const T st = dsqrt(dmax(T(1) - cz * cz, T(1e-30)));
+  const T st = line_sin_theta<T>(px, py, rr, cz);
   const Metric<T> g = metric<T>(rr, st, S.rs0, S.r_metric);
   T br, bth, bph;
   const T wp = line_omega_p<T>(px, py, rr, cz, st, S, &br, &bth, &bph);

@@ -34,7 +34,9 @@
 // event's aux and u rows back.
 //
 // Layout: every block is row-major per event, the JAX wrapper's own API
-// layout (ops/treekernel.py holds the row indices): uio [E, 16] (u in 0..6),
+// layout (ops/treekernel.py holds the row indices): uio [E, 16] (u in 0..6;
+// rows 7 and 8 count the event's photon steps begun and crossings recorded
+// below r_metric, where the metric takes its interior branch),
 // aux [E, 32] (integrator and node registers), uni [E, UU] (uniform of node
 // index n at n - 1), q [E, QD, 16] (the pending queue) and fin [E, NF, 16]
 // (final records).  uio, aux, q and fin are updated in place.
@@ -67,7 +69,7 @@ constexpr int Q_U0 = 0, Q_LNT = 7, Q_ISPH = 8, Q_W = 9, Q_PROB = 10, Q_PCONV = 1
 // final slot rows
 constexpr int F_VALID = 0, F_ISFIN = 1, F_ISPH = 2, F_ORD = 3, F_W = 4, F_PROB = 5,
               F_PCONV = 6, F_PCONV0 = 7, F_TB = 8, F_U0 = 9, F_ROWS = 16;
-constexpr int U_ROWS = 16;
+constexpr int U_ROWS = 16, U_PH_IN = 7, U_CROSS_IN = 8;
 constexpr double INFO_OVERFLOW = 9.0;  // needs the host replay
 
 // Rare-fail guard (MainRunner.jl:213-224): a Cartesian proper-velocity
@@ -144,14 +146,16 @@ __device__ __forceinline__ bool tree_run(const MegaParams& P, const TreeParams& 
   R.dt = a[A_DT] > 0.0 ? a[A_DT] : initial_dt(P, R.u, R.f0, lnt1 - R.lnt);
 
   // work of this call for the bound: photon steps, accepted steps,
-  // recorded crossings (each evaluates prob_nd once)
-  int n_ph = 0, n_acc = 0, n_rec = 0;
+  // recorded crossings (each evaluates prob_nd once); and the photon steps
+  // begun and crossings recorded below r_metric
+  int n_ph = 0, n_acc = 0, n_rec = 0, n_ph_in = 0, n_rec_in = 0;
   double ustar[7], lnt_star = 0.0, p_star = 0.0;
   auto record = [&](const double* us, double lnt_s, int) {
     for (int c = 0; c < 7; ++c) ustar[c] = us[c];
     lnt_star = lnt_s;
     p_star = P.with_prob ? prob_nd(P, us, erg) : 0.0;
     n_rec += 1;
+    n_rec_in += us[0] < P.r_metric ? 1 : 0;
   };
 
   bool done = false;
@@ -160,6 +164,7 @@ __device__ __forceinline__ bool tree_run(const MegaParams& P, const TreeParams& 
     int code = 1;  // a node born at or after lnt1 ends at once, without a crossing
     if (R.lnt < lnt1) {
       const double lnt_prev = R.lnt;  // an accepted step always advances lnt
+      n_ph_in += photon && R.u[0] < P.r_metric ? 1 : 0;
       code = dp5_step_warp(P, R, lnt1, erg, photon, x0c, 0.0, nullptr, lane, record);
       steptot += 1.0;
       n_ph += photon ? 1 : 0;
@@ -305,6 +310,8 @@ __device__ __forceinline__ bool tree_run(const MegaParams& P, const TreeParams& 
 
   if (lane == 0) {
     for (int c = 0; c < 7; ++c) uu[c] = R.u[c];
+    uu[U_PH_IN] += n_ph_in;
+    uu[U_CROSS_IN] += n_rec_in;
     a[A_LNT] = R.lnt;
     a[A_ERROLD] = R.errold;
     a[A_DT] = R.dt;

@@ -72,6 +72,8 @@ MAX_SLOTS = 16
 # evaluates the metric's interior branch below r = 10 km whatever the scene's
 # r_ns (models/metric.py: metric_inverse's r_ns default); the kernels follow
 # the pool, so their metric takes this radius while fields and cuts use r_ns.
+# At r_ns < 10 km the photon side meets that branch between r_ns and 10 km
+# (the reference's TPU kernel takes r_ns there instead, megakernel.py:273).
 METRIC_R_NS = 10.0
 
 
@@ -108,11 +110,6 @@ def check_supported(sc: Scene, cfg: NumericsConfig, max_crossings: int):
         raise NotImplementedError("megakernel: rhs_mode='vjp' / cond_mode="
                                   "'canonical' are left unported on purpose (ROADMAP "
                                   "Queue 1, \"Left unported on purpose\")")
-    if float(sc.r_ns) < METRIC_R_NS:
-        raise NotImplementedError("megakernel: r_ns < 10 km is not ported (the "
-                                  "photon hand adjoint assumes the exterior metric "
-                                  "outside the star; ROADMAP Queue 2a, \"K2 at "
-                                  "r_NS < 10 km\")")
     if not 1 <= max_crossings <= MAX_SLOTS:
         raise ValueError(f"max_crossings must be in 1..{MAX_SLOTS}")
 
@@ -270,9 +267,27 @@ def _condition(P, u, lnt):
 def _grad_h_hand(P, x1, x2, x3, kt1, kt2, kt3, time, ergt_ph, ergt_ax, photon):
     """Hand adjoint of the nondimensionalized Hamiltonians (megakernel.py:602
     of the reference): (dH~/dx (3), dH~/dk~ (3), dH~/dt), Melrose or
-    isotropic photon branch (exterior metric) and axion branch (metric only).
-    The boundary layer enters the photon's time derivative only, not its
-    spatial gradients (RayTracer.jl:84-88)."""
+    isotropic photon branch and axion branch (metric only).  The boundary
+    layer enters the photon's time derivative only, not its spatial
+    gradients (RayTracer.jl:84-88).
+
+    The photon branch, at r = max(x1, r_NS), for the diagonal metric with
+    g^rr = G(r) and g^tt = T(r):
+        H~ = 0.5 (T e~^2 + G k1^2 + k2^2 / r^2 + k3^2 / (r s)^2 + wp2 F),
+        n = sqrt(G) k1 B_r + k2 B_th / r + k3 B_ph / (r s),  kp2 = n^2 / |B|^2,
+        F = 1 - kp2 G E  (Melrose; isotropic: F = 1),  E = 1 / e~^2,
+    e~ = ergt_ph, s = sin(theta), B the unit dipole.  G enters F through
+    e2 = e~^2 / g^rr of the pool's Hamiltonian.  Then
+        dH~/dk1 = G k1 - lam sqrt(G) B_r,  lam = wp2 G E n / |B|^2,
+        d(ksqr)/dr = T' e~^2 + G' k1^2 - 2 (k2^2 + k3^2 / s^2) / r^3,
+        dn/dr = (G' / (2 sqrt(G))) k1 B_r - 3 n / r - (k2 B_th / r + k3 B_ph / (r s)) / r,
+        dF/dr = -E (G dkp2/dr + kp2 G'),
+    and the theta, phi and t chains through B only.  Outside r_metric G is
+    A = 1 - rs0 / r = -1 / T, so T' = A' / A^2: that arithmetic is kept
+    there as it was.  Below r_metric, which the clamp reaches when r_NS <
+    r_metric, G, G' and T' are the interior branch of _metric and
+    _dmetric_dr, as the pool's metric_inverse takes them (r_metric = 10 km
+    whatever r_NS)."""
     z = torch.zeros_like(x1)
     s_th, c_th = torch.sin(x2), torch.cos(x2)
     if P.species != SPECIES["photon"]:
@@ -311,8 +326,18 @@ def _grad_h_hand(P, x1, x2, x3, kt1, kt2, kt3, time, ergt_ph, ergt_ax, photon):
     wp2 = P.wp2_scale * torch.abs(bz)
     w_fac = P.wp2_scale * torch.sign(bz)
 
-    dksqr_r = (ergt_ph**2 * inv_A * inv_A + kt1**2) * dA_dr \
-        - 2.0 * inv_r2 * inv_r * (kt2**2 + inv_s * inv_s * kt3**2)
+    # g^rr, its r-derivative and d(ksqr)/dr's metric part: exterior, then
+    # the interior branch where the clamped r lies below r_metric
+    G, dG = A, dA_dr
+    dk_r = (ergt_ph**2 * inv_A * inv_A + kt1**2) * dA_dr
+    if P.r_ns < P.r_metric:
+        inside = r < P.r_metric
+        g_rr = _metric(P, r, s_th)[1]
+        d_tt, d_rr = _dmetric_dr(P, r, s_th)[:2]
+        G = torch.where(inside, g_rr, A)
+        dG = torch.where(inside, d_rr, dA_dr)
+        dk_r = torch.where(inside, ergt_ph**2 * d_tt + kt1**2 * d_rr, dk_r)
+    dksqr_r = dk_r - 2.0 * inv_r2 * inv_r * (kt2**2 + inv_s * inv_s * kt3**2)
     dinv_s = -inv_s * inv_s * c_th
     dksqr_th = 2.0 * inv_r2 * inv_s * dinv_s * kt3**2
     bndry = P.bndry_lyr > 0
@@ -325,31 +350,31 @@ def _grad_h_hand(P, x1, x2, x3, kt1, kt2, kt3, time, ergt_ph, ergt_ax, photon):
         ph_r = 0.5 * (dksqr_r + w_fac * dbz_r)
         ph_th = 0.5 * (dksqr_th + w_fac * dbz_th)
         ph_ph = 0.5 * w_fac * dbz_ph
-        ph_k = (A * kt1, inv_r2 * kt2, g_pp * kt3)
+        ph_k = (G * kt1, inv_r2 * kt2, g_pp * kt3)
         ph_t = 0.5 * w_fac * dbz_t
         if bndry:
             wpt = torch.sqrt(torch.clamp(wp2, min=1e-30))
             ph_t = ph_t + 0.5 * (_bndry_t(P, r) / wpt) * w_fac * dbz_t
         return _photon_or_axion(P, x1, photon, (ph_r, ph_th, ph_ph), ph_k, ph_t, ax)
 
-    sqA = torch.sqrt(A)
-    q1 = sqA * kt1
+    sqG = torch.sqrt(G)
+    q1 = sqG * kt1
     q2 = inv_r * kt2
     q3 = inv_r * inv_s * kt3
     n = q1 * br + q2 * bth + q3 * bph
     bm2 = br * br + bth * bth + bph * bph
     inv_bm2 = 1.0 / bm2
     kp2 = n * n * inv_bm2
-    F = 1.0 - kp2 * A * E
-    lam = wp2 * A * E * n * inv_bm2
-    ph_k = (A * kt1 - lam * sqA * br, inv_r2 * kt2 - lam * inv_r * bth,
+    F = 1.0 - kp2 * G * E
+    lam = wp2 * G * E * n * inv_bm2
+    ph_k = (G * kt1 - lam * sqG * br, inv_r2 * kt2 - lam * inv_r * bth,
             g_pp * kt3 - lam * inv_r * inv_s * bph)
-    aE = A * E
+    aE = G * E
 
-    dn_r = (0.5 * dA_dr / sqA) * kt1 * br - 3.0 * inv_r * n - inv_r * (q2 * bth + q3 * bph)
+    dn_r = (0.5 * dG / sqG) * kt1 * br - 3.0 * inv_r * n - inv_r * (q2 * bth + q3 * bph)
     dkp2_r = inv_bm2 * 2.0 * n * dn_r + 6.0 * kp2 * inv_r
     dwp2_r = -3.0 * wp2 * inv_r
-    dF_r = -E * (dkp2_r * A + kp2 * dA_dr)
+    dF_r = -E * (dkp2_r * G + kp2 * dG)
     ph_r = 0.5 * (dksqr_r + dwp2_r * F + wp2 * dF_r)
 
     dbr_th = -2.0 * bth
@@ -431,8 +456,11 @@ def _prob_nd(P, u, erg):
     """Conversion probability p = 1 - exp(-P_nonAD) at a crossing state
     (megakernel.py:494 of the reference; get_Prob_nonAD -> conversion_prob),
     nondimensionalized, with the three gradient pulls (grad wp, grad |B|,
-    grad k.B^i) differentiated by hand.  Exterior points only (crossings are
-    recorded at r >= 1.01 r_NS)."""
+    grad k.B^i) differentiated by hand.  As in the host function, the metric
+    takes its interior branch below r_metric (g^rr, and so the r-derivative
+    of sqrt(g^rr) in grad k.B^r), while the local energy's lapse and the
+    Christoffel symbols keep the exterior form at every r.  Crossings are
+    recorded at r >= 1.01 r_NS, which lies below r_metric when r_NS < 9.9 km."""
     x1, x2, x3, w1, w2, w3, e7 = u
     r = x1
     s_th, c_th = torch.sin(x2), torch.cos(x2)
@@ -467,6 +495,9 @@ def _prob_nd(P, u, erg):
     # grad of kb = kt1 br sqrt(g_rr) + kt2 bth / r + kt3 bph / (r |sin|)
     sqA = torch.sqrt(g_rr)
     dsqA = 0.5 * (P.rs0_full * inv_r * inv_r) / sqA
+    if P.r_ns < P.r_metric:   # d sqrt(g^rr)/dr on the metric's interior branch
+        d_rr = _dmetric_dr(P, r, s_th, rs0=P.rs0_full)[1]
+        dsqA = torch.where(r < P.r_metric, 0.5 * d_rr / sqA, dsqA)
     inv_rs = inv_r / abs_s
     term1 = (kt1 * (-3.0 * br * inv_r * sqA + br * dsqA)
              + kt2 * (-3.0 * bth * inv_r * inv_r - bth * inv_r * inv_r)

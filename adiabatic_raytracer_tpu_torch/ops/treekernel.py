@@ -76,7 +76,10 @@ A_X0X, A_X0Y, A_X0Z, A_ITERS, A_ERG, A_LNT1, A_STEPTOT = range(20, 27)
 # crossings (one prob_nd each), accepted steps
 A_NFINE, A_NBISECT, A_STEPS_PH, A_NCROSS, A_NACC = 27, 28, 29, 30, 31
 AUX_ROWS = 32
-U_ROWS = 16   # uin [B, 16]: u in rows 0..6
+U_ROWS = 16   # uin [B, 16]: u in rows 0..6, then the counts below
+# photon steps begun and crossings recorded below r_metric (the metric's
+# interior branch), summed over the event's launches
+U_PH_IN, U_CROSS_IN = 7, 8
 # queue slot rows (16 per slot): u(7), lnt, is_ph, weight, prob, pconv,
 # pconv0, dw, pool slot, status
 Q_U0, Q_LNT, Q_ISPH, Q_W, Q_PROB, Q_PCONV, Q_PCONV0, Q_DW, Q_SLOT, Q_ST = (
@@ -624,6 +627,7 @@ def _load(P, uin, aux, uni, qin, ev, nf: int, qd: int):
     a = aux[ev]
     L = {k: a[:, r].clone() for k, r in _REGS.items()}
     L["u"] = uin[ev, 0:7].clone()
+    L["ph_in"], L["cross_in"] = uin[ev, U_PH_IN].clone(), uin[ev, U_CROSS_IN].clone()
     L["erg"], L["lnt1"] = a[:, A_ERG], a[:, A_LNT1]
     L["x0"] = a[:, A_X0X:A_X0Z + 1].clone()
     L["un"] = uni[ev]
@@ -649,6 +653,7 @@ def _store(L, lanes, ev, uout, auxout, qout, fin, done, iters):
     a[:, A_ITERS] = iters
     auxout[ev] = a
     uout[ev, 0:7] = L["u"][lanes]
+    uout[ev, U_PH_IN], uout[ev, U_CROSS_IN] = L["ph_in"][lanes], L["cross_in"][lanes]
     qout[ev] = L["q"][lanes].reshape(n, -1)
     fin[ev] = L["fl"][lanes].reshape(n, -1)
 
@@ -664,7 +669,9 @@ def _advance(P, T: TreeParams, L, active, mass_eff):
     L["steptot"] = L["steptot"] + run.to(f64)
     L["steps_ph"] = L["steps_ph"] + (run & (L["is_ph"] > 0.5)).to(f64)
     lnt_prev = L["lnt"]   # an accepted step always advances lnt
+    L["ph_in"] = L["ph_in"] + (run & (L["is_ph"] > 0.5) & (L["u"][:, 0] < P.r_metric)).to(f64)
     seg_end, crossed, u_root, lnt_root = _step(P, L, run, L["lnt1"], L["erg"], L["x0"])
+    L["cross_in"] = L["cross_in"] + (crossed & (u_root[:, 0] < P.r_metric)).to(f64)
     L["nacc"] = L["nacc"] + (run & (L["lnt"] != lnt_prev)).to(f64)
     L["ncross"] = L["ncross"] + crossed.to(f64)
     ends = (seg_end & run) | nostep
@@ -709,11 +716,12 @@ def tree_kernel_launch(uin, aux, uni, qin, sc: Scene, cfg: NumericsConfig, tcfg:
     (uout, auxout, qout, fin [B, NF*16]): the state after at most it_cap
     steps per event, and this launch's final records (F_VALID set on the
     slots written).  Events with aux[A_DONE] set are left as they are.
-    CPU tensors run tree_kernel_launch_plain."""
+    CPU tensors run tree_kernel_launch_plain; a scene the kernel refuses
+    (check_tree_scene) raises on either device."""
+    check_tree_scene(sc, cfg)
     if uin.device.type == "cpu":
         return tree_kernel_launch_plain(uin, aux, uni, qin, sc, cfg, tcfg, nf=nf, qd=qd,
                                         it_cap=it_cap)
-    check_tree_scene(sc, cfg)
     lib = cuda_lib.lib()
     B = uin.shape[0]
     uu = uni.shape[1]
@@ -842,14 +850,15 @@ def tree_refill_launch(uin, aux, uni, qin, sc: Scene, cfg: NumericsConfig, tcfg:
     (then its A_DONE stays clear); aux[A_ITERS] gets the serving warp's
     iteration count when the event stopped.  CPU tensors run
     tree_refill_launch_plain (128 lockstep lanes per partition); the results
-    per event depend on neither schedule."""
+    per event depend on neither schedule.  A scene the kernel refuses
+    (check_tree_scene) raises on either device."""
+    check_tree_scene(sc, cfg)
     if uin.device.type == "cpu":
         return tree_refill_launch_plain(uin, aux, uni, qin, sc, cfg, tcfg, nf=nf, qd=qd,
                                         epart=epart, refill_k=refill_k, it_cap=it_cap)
     _check_refill(epart, refill_k, it_cap, 1 if warps is None else warps)
     E = uin.shape[0]
     warps = refill_warps(E, epart, uin.device) if warps is None else warps
-    check_tree_scene(sc, cfg)
     lib = cuda_lib.lib()
     _require_blocks(uin, aux, uni, qin, qd)
     uout, auxout, qout = uin.clone(), aux.clone(), qin.clone()

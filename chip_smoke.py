@@ -86,8 +86,9 @@ non-zero):
      isotropic scene; (c) K2 vs integrate_mega_plain at bndry_lyr 0.5 on a
      backtrace (axion, B flipped, 16 slots) and on a queue-path tree
      iteration (photon and axion mixed, one slot), 512 rays each (the plain
-     version is slow), dense and gated, at phase 5's bars, with the slowest
-     ray's steps and microseconds per step; (d) the mixed launch at the
+     version on the CPU, in plain_pool's processes while the card runs the
+     rest), dense and gated, at phase 5's bars, with the slowest ray's
+     steps and microseconds per step; (d) the mixed launch at the
      isotropic scene; (e) the CLI at --bndry_lyr 0.5, 2 x 2048 events
      (--tree_engine auto -> queue), warm under torch.profiler, counters
      reset just before it: K1 and K2 must launch, K3 not; events/s, the
@@ -150,6 +151,30 @@ non-zero):
      topology of (b) or of a probe and its weights within ILL_K = 10 times
      its probe spread of the nearest such f64 run; the worst events logged;
      (c) stopped after one batch of 1024 and resumed, rows bitwise
+ 24. r_NS below 10 km, where K2-K4's photon side takes the metric's
+     interior branch (scene A: --rNS 9; scene B: --rNS 9 --MassA 3e-5, the
+     conversion surface at 9-11 km): (a) K1 at scene B on 4096 lines at
+     phase 3's bars and the share of its roots below 10 km; the probe
+     (condition, RHS, prob_nd) at scene B's conversion points; (b) K2 mixed
+     and backtrace at both scenes, 512 rays, at phase 13c's bars with the
+     census verdict, the endpoint error split by start radius (below or
+     above 10 km) and, at scene B's backtrace, a witness of the endpoints'
+     own sensitivity: the plain version on inputs moved by one ulp;
+     (c) on 512 events at scene B (compute "state"): K3 in one launch
+     against its plain version and K4 against K3 at phase 6's bars, then
+     K3's tree engine against the host engine at tree_k=1: counters on
+     >= 99%, every column's median < 1e-8, weight, probabilities, birth
+     time and energy at phase 6's p99 and worst bars, the final position
+     and momentum's p99 and worst logged with a witness (the host engine
+     at rtol 1e-10 on the worst records' events); the plain versions of
+     (b) and (c) run in plain_pool while (a) runs; (d) the CLI at both
+     scenes, 4096 events, on the kernel path, then driver.run with
+     tree_refill 1, and at scene A the queue path (2048 events), warm under
+     torch.profiler: events/s, the device busy share, the launches, and
+     the photon steps and crossings the kernels ran below 10 km
+     (zone_counts, whose few reductions per launch run inside the timed
+     run); the kernel and refill paths must show both; the rows check
+     lets a weight be 0 at scene B where the survival weight is 0
  14. the kernels' JSON line: each kernel's launches on its path (K1's
      grid kernel, a check only, 0 on the main path; P1's through its entry
      point), and its time,
@@ -266,7 +291,7 @@ def birth_states(P, u_end, lnt_end, lnt_b, erg, is_ph):
     return res.u
 
 
-def record_notes(fin, aux, ev, sl):
+def record_notes(fin, aux, ev, sl, scene=None):
     """Where each final record (fin [E, NF, 16] at events ev, slots sl; aux
     the run's [E, 32] rows) stands, as text: r, theta and |w| of its state
     columns (F_U0..: the state at the event's end time, where the record
@@ -283,7 +308,7 @@ def record_notes(fin, aux, ev, sl):
     from adiabatic_raytracer_tpu_torch.ops import megakernel as mk
     from adiabatic_raytracer_tpu_torch.ops import treekernel as tk
 
-    sc, cfg, *_ = scene_setup(torch.device("cpu"))
+    sc, cfg, *_ = scene_setup(torch.device("cpu"), **(scene or {}))
     P = tk.kernel_params(sc, cfg)
     rec = fin[ev, sl].double().cpu()
     u_end = rec[:, tk.F_U0:tk.F_U0 + 7]
@@ -309,7 +334,7 @@ def record_notes(fin, aux, ev, sl):
             f"dg/dlnt {rate[i].item():.3g}" for i in range(rec.shape[0])]
 
 
-def compare_records(fa, fb, slots, tag, phase=6, aux=None):
+def compare_records(fa, fb, slots, tag, phase=6, aux=None, scene=None):
     """Relative error of each K3 final record of fa against fb ([E, NF, 16]
     fin blocks) on `slots`, the worst over its REC_NAMES columns: each
     column relative to its own size, the angles relative to max(|value|,
@@ -331,7 +356,7 @@ def compare_records(fa, fb, slots, tag, phase=6, aux=None):
     rel, col = ((x - y).abs() / scale.clamp(min=1e-300)).max(dim=1)
     ev, sl = slots.nonzero(as_tuple=True)
     worst5 = [j for j in torch.argsort(rel, descending=True)[:5].tolist() if rel[j] > 0]
-    notes = (record_notes(fa, aux, ev[worst5], sl[worst5]) if aux is not None and worst5
+    notes = (record_notes(fa, aux, ev[worst5], sl[worst5], scene) if aux is not None and worst5
              else [""] * len(worst5))
     for j, note in zip(worst5, notes):
         c = int(col[j])
@@ -376,6 +401,78 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
+# The plain versions of K2 and K3 behind phases 13c-d and 24b-c run in a pool
+# of CPU processes while this process runs the kernels on the card: they are
+# eager torch, set by per-op host overhead (a DP5 step of a 512-ray batch
+# took ~80 ms on one CPU thread, ~200 ms on the card), and four run at once.
+PLAIN_WORKERS = 4
+_PLAIN_POOL = []
+
+
+def plain_pool():
+    """The pool (spawned processes, one torch thread each), started at its
+    first use; close_plain_pool stops it."""
+    if not _PLAIN_POOL:
+        import concurrent.futures
+        import multiprocessing
+
+        _PLAIN_POOL.append(concurrent.futures.ProcessPoolExecutor(
+            PLAIN_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_plain_worker_init))
+    return _PLAIN_POOL[0]
+
+
+def close_plain_pool():
+    """Stops plain_pool's processes: queued jobs are dropped, running ones
+    waited for."""
+    while _PLAIN_POOL:
+        _PLAIN_POOL.pop().shutdown(wait=True, cancel_futures=True)
+
+
+def _plain_worker_init():
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def _plain_job(blob):
+    """In a plain_pool process: K2's (kind "k2") or K3's ("k3") plain version
+    on the pickled CPU inputs; returns the pickled (outputs, seconds)."""
+    import pickle
+
+    from adiabatic_raytracer_tpu_torch.ops import megakernel as mk
+    from adiabatic_raytracer_tpu_torch.ops import treekernel as tk
+
+    kind, args, kwargs = pickle.loads(blob)
+    fn = {"k2": mk.integrate_mega_plain, "k3": tk.tree_kernel_launch_plain}[kind]
+    t0 = time.time()
+    out = fn(*args, **kwargs)
+    return pickle.dumps((out, time.time() - t0))
+
+
+def submit_plain(kind, *args, **kwargs):
+    """A future of the plain version `kind` on CPU copies of the inputs (sent
+    as bytes: plain pickling, no shared memory)."""
+    import pickle
+
+    import torch
+
+    cpu = lambda a: a.cpu() if isinstance(a, torch.Tensor) else a
+    blob = pickle.dumps((kind, tuple(cpu(a) for a in args),
+                         {n: cpu(v) for n, v in kwargs.items()}))
+    return plain_pool().submit(_plain_job, blob)
+
+
+def plain_result(fut, device):
+    """(outputs on `device`, seconds) of a submit_plain future."""
+    import pickle
+
+    import torch
+
+    out, sec = pickle.loads(fut.result())
+    return tuple(o.to(device) if isinstance(o, torch.Tensor) else o for o in out), sec
+
+
 def phase_device():
     import torch
 
@@ -387,12 +484,15 @@ def phase_device():
     return smi
 
 
-# (registers, stack, spill stores, spill loads) from ptxas.  K2's, as built
-# when it became one warp per ray on the step K3 and K4 run (NVIDIA H100
-# 80GB HBM3 machine, CUDA 12.8), are checked: K2 must not change when the
-# step does without a reason.  K3's and K4's before K2 joined the warp step
-# are printed beside their own.
-K2_PTXAS = (255, 480, 88, 56)
+# (registers, stack, spill stores, spill loads) from ptxas.  K2's are
+# checked: K2 must not change when the step does without a reason.  They
+# were (255, 480, 88, 56) when K2 became one warp per ray on the step K3 and
+# K4 run; since the photon hand adjoint gained its instantiation on the
+# metric's interior branch (grad_h_photon<V, true>, r_NS < 10 km) they are
+# these (NVIDIA H100 80GB HBM3 machine, CUDA 12.8), the exterior arithmetic
+# bitwise the old (scripts/torch_tree_ab.py --parent).  K3's and K4's before
+# K2 joined the warp step are printed beside their own.
+K2_PTXAS = (255, 496, 128, 72)
 TREE_PTXAS_BEFORE = {"tree_kernel": (255, 568, 188, 184),
                      "tree_refill_kernel": (255, 560, 184, 192)}
 
@@ -485,7 +585,7 @@ def scene_setup(device, **scene):
     from adiabatic_raytracer_tpu_torch.models.magnetosphere import conversion_surface_radius
     from adiabatic_raytracer_tpu_torch.ops import sampler
 
-    sc = Scene(mass_a=1e-5, theta_m=0.2, b0=1e14, **scene)
+    sc = Scene(**{"mass_a": 1e-5, "theta_m": 0.2, "b0": 1e14, **scene})
     cfg = NumericsConfig(atol=1e-6, rtol=1e-7, compute_dtype="f32", engine="mega")
     maxR = conversion_surface_radius(sc.mass_a, sc.theta_m, sc.omega_pul, sc.b0, sc.r_ns)
     return sc, cfg, TreeConfig(), maxR, sampler.default_n_grid(maxR)
@@ -536,6 +636,19 @@ def phase_line_scan(device, n_lines, phase=3, **scene):
     away = torch.abs(g_p) > 1e-3
     sign_bad = int((torch.sign(g_k) != torch.sign(g_p))[away].sum())
     if not (rel <= 2.0 * rel_plain + 1e-6 and k999 <= 2.0 * p999 + 1e-7) or sign_bad:
+        worst = (torch.argsort(rel_k, descending=True)[:5].tolist()
+                 + torch.argsort(rel_p, descending=True)[:2].tolist())
+        for i in worst:
+            li, j = divmod(i, n_grid)
+            pt = par[li, 0:3] + s_grid[j].double() * par[li, 3:6]
+            g64 = sampler._line_condition(pt[None, None], par[li, None, None, 6:9],
+                                          par[li, None, 9], sc, sc.mass_ns).item()
+            rr = pt.norm().item()
+            log(phase, f"  K1 grid worst point (kernel's 5, plain's 2): line {li} s "
+                       f"{s_grid[j].item():.6g} r {rr:.6g} cos theta {pt[2].item() / rr:.6g}: "
+                       f"f64 {g64:.9g}, kernel "
+                       f"{g_k[li, j].item():.9g} (rel {rel_k[i].item():.3g}), plain "
+                       f"{g_p[li, j].item():.9g} (rel {rel_p[i].item():.3g})")
         raise AssertionError(f"K1 disagrees: max rel err vs f64 {rel:.3g} (plain "
                              f"{rel_plain:.3g}), p99.9 {k999:.3g} (plain {p999:.3g}), "
                              f"sign flips away from roots {sign_bad}")
@@ -855,10 +968,12 @@ def sample_events(n, device, sc, cfg, maxR, n_grid, seed):
     return x, k, e
 
 
-def phase_probe(device, phase=4, **scene):
+def phase_probe(device, phase=4, funcs=("condition", "rhs"), **scene):
     """The device functions against their torch twins on conversion-surface
     states of the production scene; with `scene`'s fields changed (K2's
-    other dispersion variants), the condition and the RHS of each species."""
+    other dispersion variants, r_NS below 10 km), `funcs` of each species
+    (the RHS and the condition by default).  Logs how many of the states lie
+    below 10 km."""
     import torch
 
     from adiabatic_raytracer_tpu_torch.ops import megakernel as mk
@@ -875,7 +990,7 @@ def phase_probe(device, phase=4, **scene):
     parts = []
     cases = [("photon", w) for w in mk.PROBE_FUNCS] + [("axion", "rhs"), ("mixed", "rhs")]
     if scene:
-        cases = [(sp, w) for sp in ("photon", "axion", "mixed") for w in ("condition", "rhs")]
+        cases = [(sp, w) for sp in ("photon", "axion", "mixed") for w in funcs]
     for species, which in cases:
         P = mk.mega_params(sc, cfg, species=species, with_prob=True)
         uu = u
@@ -894,8 +1009,9 @@ def phase_probe(device, phase=4, **scene):
                                  f"finite {ok_n}")
         worst = max(worst, err)
         parts.append(f"{which}/{species[0]} {err:.1e}")
-    log(phase, f"probe{scene or ''} vs torch twins on {B} states, f64: worst {worst:.2e} (bar "
-               f"1e-12 of |value| + column scale); " + ", ".join(parts))
+    log(phase, f"probe{scene or ''} vs torch twins on {B} states ({int((u[:, 0] < 10.0).sum())} "
+               f"below 10 km), f64: worst {worst:.2e} (bar 1e-12 of |value| + column scale); "
+               + ", ".join(parts))
     return worst
 
 
@@ -1056,40 +1172,62 @@ def census_cfg(device, **scene):
     return out, stats.scan_gate
 
 
-def phase_k2_variant(device, n, launch, phase, **scene):
+def k2_variant_job(device, n, launch, witness=False, **scene):
+    """phase_k2_variant's inputs, made on the card, with K2's plain version on
+    them submitted to plain_pool; with `witness`, also the plain version on
+    the same inputs with u0 moved by one ulp (u0 * (1 + 2^-52))."""
+    make = k2_backtrace_inputs if launch == "backtrace" else k2_queue_inputs
+    u0, lnt0, lnt1, e, x, sc, cfg, kw = make(device, n, seed=43, **scene)
+    args = (u0, lnt0, lnt1, e, x, sc, cfg)
+    job = dict(launch=launch, scene=scene, args=args, kw=kw,
+               plain=submit_plain("k2", *args, **kw))
+    if witness:
+        job["ulp"] = submit_plain("k2", u0 * (1.0 + 2.0 ** -52), *args[1:], **kw)
+    return job
+
+
+def endpoint_rel(out_a, out_b):
+    """Per ray, the largest relative difference of K2's final states of two
+    runs over their 7 components, and the mask of rays both ended at lnt1."""
+    import torch
+
+    rel = (torch.abs(out_a[0] - out_b[0]) / (torch.abs(out_b[0]) + 1e-30)).amax(dim=1)
+    return rel, (out_a[3] == 1) & (out_b[3] == 1)
+
+
+def phase_k2_variant(device, job, phase):
     """K2's instantiation for a scene with `scene`'s fields changed (the
-    boundary-layer or isotropic dispersion variant) against
+    boundary-layer or isotropic dispersion variant, r_NS below 10 km) against
     integrate_mega_plain at phase 5's bars, with the dense scan and with the
     gate the main path runs there (the scan-gate census's choice, whose
     verdict is printed; the production default gate's agreement is printed
-    beside it): `launch` "backtrace" (axion, B flipped, 16 slots) or "mixed"
-    (one queue-path tree iteration: photon and axion, one slot).  n is kept
-    small (512) because the plain version takes ~34 s at 2048 rays (phase
-    5)."""
+    beside it), on a k2_variant_job: `launch` "backtrace" (axion, B
+    flipped, 16 slots) or "mixed" (one queue-path tree iteration: photon and
+    axion, one slot).  The plain version runs on the CPU (plain_pool); on
+    the card it took ~34 s at 2048 rays (phase 5), set by the slowest ray.
+    Where rays start below 10 km, the endpoint error is also split by start
+    radius with the worst rays' radii, and a witness job's plain version on
+    inputs moved by one ulp is held against the plain version alike: the
+    endpoints' own sensitivity to rounding."""
     import dataclasses
 
     import torch
 
     from adiabatic_raytracer_tpu_torch.ops import megakernel as mk
 
-    make = k2_backtrace_inputs if launch == "backtrace" else k2_queue_inputs
-    u0, lnt0, lnt1, e, x, sc, cfg, kw = make(device, n, seed=43, **scene)
+    launch, scene, kw = job["launch"], job["scene"], job["kw"]
+    u0, lnt0, lnt1, e, x, sc, cfg = job["args"]
     B = x.shape[0]
     dense = dataclasses.replace(cfg, interp_coarse=0)
     gate, verdict = census_cfg(device, **scene)
     run = lambda c: mk.integrate_mega(u0, lnt0, lnt1, e, x, sc, c, **kw)
     out_d, out_g, out_0 = run(dense), run(gate), run(cfg)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    out_p = mk.integrate_mega_plain(u0, lnt0, lnt1, e, x, sc, cfg, **kw)
-    torch.cuda.synchronize()
-    plain_ms = (time.time() - t0) * 1e3
     ms, ms_dense = cuda_ms(lambda: run(gate), 3), cuda_ms(lambda: run(dense), 3)
+    out_p, plain_s = plain_result(job["plain"], device)
     nc_p = out_p[4]
     same = lambda out: (out[4] == nc_p).double().mean().item()
     same_d, same_g, same_0 = same(out_d), same(out_g), same(out_0)
-    end = (out_d[3] == 1) & (out_p[3] == 1)
-    rel = (torch.abs(out_d[0] - out_p[0]) / (torch.abs(out_p[0]) + 1e-30)).amax(dim=1)
+    rel, end = endpoint_rel(out_d, out_p)
     med = rel[end].median().item() if bool(end.any()) else float("nan")
     finite = bool(torch.isfinite(out_g[0]).all() and torch.isfinite(out_d[0]).all())
     for i in (out_0[4] != nc_p).nonzero().squeeze(1).tolist()[:5]:
@@ -1097,6 +1235,8 @@ def phase_k2_variant(device, n, launch, phase, **scene):
                    f"crossings at lnt {out_p[6][i, :int(nc_p[i])].tolist()}")
     slow = int(torch.argmax(out_g[2]).item())
     steps_slow = out_g[2][slow].item()
+    used = torch.arange(out_g[5].shape[1], device=device)[None, :] < out_g[4][:, None]
+    below = int((used & (out_g[5][..., 0] < mk.METRIC_R_NS)).sum())
     species = {"backtrace": "axion, B flipped, 16 slots", "mixed": "photon and axion, 1 slot"}
     log(phase, f"K2 {launch} {B} rays {scene} ({species[launch]}): dense kernel vs plain "
                f"identical "
@@ -1105,10 +1245,33 @@ def phase_k2_variant(device, n, launch, phase, **scene):
                f"{gate.interp_coarse}, theta {gate.scan_gate_theta}): gated vs plain identical "
                f"counts {same_g:.4f} (bar 0.99); the production default gate (coarse "
                f"{cfg.interp_coarse}, theta {cfg.scan_gate_theta}) {same_0:.4f}; crossings "
-               f"{int(nc_p.sum().item())}; kernel {ms:.3f} ms gated / {ms_dense:.3f} ms dense, "
-               f"plain {plain_ms:.1f} ms; slowest ray {slow}: {int(steps_slow)} steps, "
+               f"{int(nc_p.sum().item())} ({below} of the kernel's below {mk.METRIC_R_NS:g} km); "
+               f"kernel {ms:.3f} ms gated / {ms_dense:.3f} ms dense, "
+               f"plain {plain_s:.1f} s on one CPU thread (plain_pool); slowest ray {slow}: "
+               f"{int(steps_slow)} steps, "
                f"{int(out_g[11][slow].item())} dense passes, {ms * 1e3 / steps_slow:.2f} us per "
                f"step of it gated; steps per ray mean {out_g[2].mean().item():.1f}")
+    inside = u0[:, 0] < mk.METRIC_R_NS
+    split = lambda r, m: (f"{r[m].median().item():.3g} on {int(m.sum())}"
+                          if bool(m.any()) else "none")
+    if bool(inside.any()):
+        log(phase, f"  endpoint rel err by start radius: below {mk.METRIC_R_NS:g} km median "
+                   f"{split(rel, end & inside)}, above {split(rel, end & ~inside)}")
+        comp = torch.abs(out_d[0] - out_p[0]) / (torch.abs(out_p[0]) + 1e-30)
+        for i in torch.argsort(torch.where(end, rel, torch.zeros_like(rel)),
+                               descending=True)[:3].tolist():
+            log(phase, f"  worst ray {i}: rel {rel[i].item():.3g} in component "
+                       f"{int(comp[i].argmax())}; start r {u0[i, 0].item():.6g} km, end r "
+                       f"{out_p[0][i, 0].item():.6g} km, end k_r {out_p[0][i, 3].item():.3g}, "
+                       f"crossings at r {out_p[5][i, :int(nc_p[i]), 0].tolist()}")
+    if "ulp" in job:
+        out_u, ulp_s = plain_result(job["ulp"], device)
+        rel_u, end_u = endpoint_rel(out_u, out_p)
+        log(phase, f"  witness: the plain version on u0 moved by one ulp vs the plain version: "
+                   f"identical counts {(out_u[4] == nc_p).double().mean().item():.4f}, endpoint "
+                   f"median rel err {split(rel_u, end_u)} rays, below {mk.METRIC_R_NS:g} km "
+                   f"{split(rel_u, end_u & inside)}, above {split(rel_u, end_u & ~inside)} "
+                   f"({ulp_s:.1f} s)")
     if not (same_d >= 0.99 and same_g >= 0.99 and med < 1e-8 and finite
             and int(end.sum()) > 0 and verdict != "off"):
         raise AssertionError(f"K2 {launch} at {scene} disagrees with its plain version")
@@ -1231,7 +1394,7 @@ def tree_bound(a, uu, nf, qd, cfg):
     return bound(nbytes, nflop, F64_PER_S)
 
 
-def tree_agreement(a_k, f_k, a_r, f_r, nf, tag, phase):
+def tree_agreement(a_k, f_k, a_r, f_r, nf, tag, phase, scene=None):
     """Phase 6's comparison of a kernel run (a_k, f_k: aux and fin blocks)
     with a reference run of the same events: counters identical (tree done)
     on >= 99% of events; on those the steps, photon steps, accepted steps,
@@ -1256,7 +1419,7 @@ def tree_agreement(a_k, f_k, a_r, f_r, nf, tag, phase):
                    f"{a_r[i, rows].tolist()}")
     fk, fr = f_k.reshape(n, nf, tk.ROWS), f_r.reshape(n, nf, tk.ROWS)
     slots = same[:, None] & (fk[..., tk.F_VALID] > 0.5) & (fr[..., tk.F_VALID] > 0.5)
-    med, p99, worst = compare_records(fk, fr, slots, tag, phase, aux=a_k)
+    med, p99, worst = compare_records(fk, fr, slots, tag, phase, aux=a_k, scene=scene)
     cols = [tk.F_W, tk.F_PROB, tk.F_PCONV, tk.F_PCONV0, tk.F_TB] + list(range(tk.F_U0, 16))
     d = torch.abs(fk[slots][:, cols] - fr[slots][:, cols])
     keep = [r for r in range(tk.AUX_ROWS) if r != tk.A_ITERS]
@@ -1445,11 +1608,24 @@ def phase_refill_vs_tree(device, n_tree):
                 f"K4 bound {b_ms:.4f} ms ({b_by}); K4 vs K3 bitwise {r['bitwise']}")
 
 
+def rows_ok(rows, zero_weight_ok=False):
+    """Rows finite and every weight (column 8) positive.  With
+    zero_weight_ok (phase 24d's scene B only), a weight may be 0 exactly
+    where its event's backtrace survival weight (column 25) is: a backtrace
+    crossing converted with probability 1 (1 - exp(-P_nonAD) rounds to 1 in
+    f64 at P_nonAD > ~37, as at the r_NS 9 km, MassA 3e-5 scene)."""
+    import numpy as np
+
+    w, sbw = rows[:, 8], rows[:, 25]
+    pos = (w > 0) | ((w == 0) & (sbw == 0)) if zero_weight_ok else w > 0
+    return bool(np.all(np.isfinite(rows)) and np.all(pos))
+
+
 def profiled_driver_run(device, sc, cfg, tcfg, n_events, batch, phase, tag, what,
-                        must_launch, must_not_launch):
+                        must_launch, must_not_launch, zero_weight_ok=False):
     """driver.run on the card, warm under torch.profiler, with the launch
     counters reset just before it and read just after: the rows must be
-    finite with positive weights, every kernel of must_launch must have
+    finite with positive weights (rows_ok), every kernel of must_launch must have
     launched and none of must_not_launch, and the scan-gate census must have
     run.  Logs events/s, the stage times and the launches; returns (launches,
     rows, stats)."""
@@ -1472,7 +1648,7 @@ def profiled_driver_run(device, sc, cfg, tcfg, n_events, batch, phase, tag, what
     rows = np.load(path)
     if not (rows.ndim == 2 and rows.shape[1] == 29 and rows.shape[0] > 0):
         raise AssertionError(f"{what} output has shape {rows.shape}")
-    if not np.all(np.isfinite(rows)) or not np.all(rows[:, 8] > 0):
+    if not rows_ok(rows, zero_weight_ok):
         raise AssertionError(f"{what} rows not finite or weights not positive")
     if not all(launches[n] > 0 for n in must_launch):
         raise AssertionError(f"{what} did not launch {must_launch}: {launches}")
@@ -1524,12 +1700,14 @@ def phase_variants(device):
     """Phase 13: the boundary-layer and isotropic path (K1 with the boundary
     layer, K2's boundary-layer and isotropic instantiations)."""
     bndry, iso = dict(bndry_lyr=0.5), dict(isotropic=True)
+    jobs = [k2_variant_job(device, 512, "backtrace", **bndry),
+            k2_variant_job(device, 512, "mixed", **bndry),
+            k2_variant_job(device, 512, "mixed", **iso)]
     timed("13a", phase_line_scan, device, 16384, phase="13a", **bndry)
     timed("13b", phase_probe, device, phase="13b", **bndry)
     timed("13b", phase_probe, device, phase="13b", **iso)
-    timed("13c", phase_k2_variant, device, 512, "backtrace", "13c", **bndry)
-    timed("13c", phase_k2_variant, device, 512, "mixed", "13c", **bndry)
-    timed("13d", phase_k2_variant, device, 512, "mixed", "13d", **iso)
+    for tag, job in zip(("13c", "13c", "13d"), jobs):
+        timed(tag, phase_k2_variant, device, job, tag)
     timed("13e", phase_slice, device, 4096, 2048, "auto", "13e", cold_run=False,
           extra=["--bndry_lyr", "0.5"], uses_tree_kernel=False)
     timed("13f", phase_driver_iso, device, 2048, 2048, "13f")
@@ -2497,14 +2675,350 @@ def phase_precision(device, n_events, batch):
         raise AssertionError("phase 23: " + "; ".join(fails))
 
 
+# r_NS below 10 km (phase 24): scene A keeps the production defaults but for
+# r_NS 9 km (the conversion surface far outside 10 km but for the null cone of
+# B_z), scene B also takes MassA 3e-5 (the surface at 9-11 km)
+RNS_SCENES = {"A": dict(r_ns=9.0), "B": dict(r_ns=9.0, mass_a=3e-5)}
+RNS_FLAGS = {"A": ["--rNS", "9"], "B": ["--rNS", "9", "--MassA", "3e-5"]}
+
+
+@contextlib.contextmanager
+def zone_counts(device):
+    """While active, counts what the kernels did below r_metric (10 km),
+    where the metric takes its interior branch: the photon steps K3 and K4
+    began and the crossings they recorded there (their uio rows U_PH_IN and
+    U_CROSS_IN, summed over launches as deltas), and the crossings K2
+    recorded there (its crossing states).  Yields a dict of device tensors,
+    read after the run, so that counting adds no host read to it; it does
+    add ~6 small device ops per K3/K4 launch and ~7 per K2 launch to the
+    run it counts (phase 24d's runs are timed with them)."""
+    import torch
+
+    from adiabatic_raytracer_tpu_torch.ops import megakernel as mk
+    from adiabatic_raytracer_tpu_torch.ops import treekernel as tk
+
+    c = {n: torch.zeros((), dtype=torch.float64, device=device)
+         for n in ("k34_steps", "k34_cross", "k2_cross")}
+    saved = {n: getattr(tk, n) for n in ("tree_kernel_launch", "tree_refill_launch")}
+    k2 = mk.integrate_mega
+    rows = [tk.U_PH_IN, tk.U_CROSS_IN]
+
+    def tree_wrap(fn):
+        def launch(uin, *args, **kwargs):
+            out = fn(uin, *args, **kwargs)
+            d = (out[0][:, rows] - uin[:, rows]).sum(dim=0)
+            c["k34_steps"] += d[0]
+            c["k34_cross"] += d[1]
+            return out
+        return launch
+
+    def k2_wrap(*args, **kwargs):
+        out = k2(*args, **kwargs)
+        used = torch.arange(out[5].shape[1], device=out[5].device)[None, :] < out[4][:, None]
+        c["k2_cross"] += (used & (out[5][..., 0] < mk.METRIC_R_NS)).sum()
+        return out
+
+    for n, fn in saved.items():
+        setattr(tk, n, tree_wrap(fn))
+    mk.integrate_mega = k2_wrap
+    try:
+        yield c
+    finally:
+        for n, fn in saved.items():
+            setattr(tk, n, fn)
+        mk.integrate_mega = k2
+
+
+def zone_text(c):
+    """The counts of zone_counts as (text, photon steps, crossings)."""
+    steps, cross = int(c["k34_steps"].item()), int(c["k34_cross"].item() + c["k2_cross"].item())
+    return (f"below 10 km: K3/K4 photon steps {steps}, crossings recorded by K3/K4 "
+            f"{int(c['k34_cross'].item())} and by K2 {int(c['k2_cross'].item())}", steps, cross)
+
+
+def phase_rns_k1(device, n_lines, phase):
+    """K1 at scene B: phase 3's checks on n_lines lines, then the share of
+    the fused kernel's roots (every recorded slot of every line) that lie
+    below 10 km."""
+    import torch
+
+    from adiabatic_raytracer_tpu_torch.ops import line_scan, sampler
+    from adiabatic_raytracer_tpu_torch.utils import rng
+
+    phase_line_scan(device, n_lines, phase=phase, **RNS_SCENES["B"])
+    sc, cfg, _, maxR, n_grid = scene_setup(device, **RNS_SCENES["B"])
+    key = rng.PRNGKey(20261018, device=device)
+    geo = sampler._draw(rng.split(key, n_lines), maxR, sc, 220.0, True, torch.float32)
+    s_grid = torch.linspace(0.0, 2.2 * maxR, n_grid, dtype=torch.float64,
+                            device=device).to(torch.float32)
+    s_star, ok, _ = line_scan.line_roots(geo.x0, geo.vvec, geo.vvec_loc, geo.erg_inf, s_grid,
+                                         sc, sc.mass_ns)
+    r = torch.linalg.vector_norm(geo.x0[:, None, :] + s_star[..., None] * geo.vvec[:, None, :],
+                                 dim=-1)
+    n_ok, n_in = int(ok.sum()), int((ok & (r < 10.0)).sum())
+    log(phase, f"K1 at scene B {RNS_SCENES['B']}: {n_ok} roots on {n_lines} lines, {n_in} "
+               f"below 10 km (share {n_in / max(n_ok, 1):.4f})")
+    if n_in == 0:
+        raise AssertionError("K1 found no root below 10 km at scene B")
+
+
+def tree_finals(tr, n_ord):
+    """(values [E, n_ord, 12], present [E, n_ord]) of a TreeResult's final
+    nodes indexed by order: weight, prob, pconv, pconv0, t, ferg, fpos (3),
+    fmom (3)."""
+    import torch
+
+    pl = tr.pools
+    E = pl.weight.shape[0]
+    ev, sl = (pl.is_final & (pl.status == 2)).nonzero(as_tuple=True)
+    order = pl.order[ev, sl]
+    vals = torch.stack([pl.weight[ev, sl], pl.prob[ev, sl], pl.prob_conv[ev, sl],
+                        pl.prob_conv0[ev, sl], pl.t[ev, sl], pl.ferg[ev, sl]], dim=1)
+    vals = torch.cat([vals, pl.fpos[ev, sl], pl.fmom[ev, sl]], dim=1).double()
+    table = torch.zeros((E, n_ord, 12), dtype=torch.float64, device=vals.device)
+    present = torch.zeros((E, n_ord), dtype=torch.bool, device=vals.device)
+    table[ev, order] = vals
+    present[ev, order] = True
+    return table, present
+
+
+def rns_tree_job(device, n):
+    """phase_rns_tree's inputs: n events at scene B, compute dtype "state",
+    their K3 blocks made on the card and K3's plain version on them
+    submitted to plain_pool."""
+    import dataclasses
+
+    import torch
+
+    from adiabatic_raytracer_tpu_torch.ops import treekernel as tk
+    from adiabatic_raytracer_tpu_torch.utils import rng
+
+    sc, cfg, tcfg, maxR, n_grid = scene_setup(device, **RNS_SCENES["B"])
+    cfg = dataclasses.replace(cfg, tree_engine="kernel", compute_dtype="state")
+    x, k, e = sample_events(n, device, sc, cfg, maxR, n_grid, seed=19)
+    keys = rng.fold_in(rng.PRNGKey(2029, device=device), torch.arange(n, device=device))
+    kw = dict(nf=int(min(cfg.tree_kernel_finals, tcfg.num_cutoff)), qd=tcfg.mc_nodes + 2,
+              it_cap=(tcfg.max_nodes + 2) * (cfg.max_steps + 2))
+    blocks = tk.tree_inputs(keys, x, k, e, sc, cfg, tcfg, lnt_end=0.0)
+    return dict(sc=sc, cfg=cfg, tcfg=tcfg, x=x, k=k, e=e, keys=keys, kw=kw, blocks=blocks,
+                plain=submit_plain("k3", *blocks, sc, cfg, tcfg, **kw))
+
+
+# Phase 24c's witness for the final positions the host engine gives: its
+# tolerances for a rerun of the worst records' events
+HOST_TIGHT = dict(rtol=1e-10, atol=1e-9)
+
+
+def phase_rns_tree(device, job, phase):
+    """K3, K4 and the tree engine on a rns_tree_job's events at scene B:
+    K3 in one launch against its plain version at phase 6's bars
+    (tree_agreement) and K4 (tree_refill 1) against K3 at the same bars;
+    then K3's tree engine against the host engine at tree_k=1 (K2 per
+    iteration): counters identical on >= 99% of events, and on those the
+    final records by order (orders identical): weight, probabilities, birth
+    time and energy, each relative to itself, at phase 6's REC_P99 and
+    REC_WORST; every column's median, fpos and fmom vector-relative, below
+    1e-8 (their p99 and worst logged).  The host engine is not K3's plain version: a child
+    starts from a Cartesian round trip of its birth state and its
+    probability comes from get_prob_nonad, and the final position of an
+    axion born bound (end r ~8000 km) is sensitive to both; the witness
+    reruns the host engine on the worst records' events at its own and at
+    HOST_TIGHT's tolerances.  K3 and K4 must each run photon steps and
+    record crossings below 10 km."""
+    import dataclasses
+
+    import torch
+
+    from adiabatic_raytracer_tpu_torch.ops import tree
+    from adiabatic_raytracer_tpu_torch.ops import treekernel as tk
+
+    sc, cfg, tcfg, blocks, kw = job["sc"], job["cfg"], job["tcfg"], job["blocks"], job["kw"]
+    keys, x, k, e = job["keys"], job["x"], job["k"], job["e"]
+    n, nf = x.shape[0], kw["nf"]
+    with zone_counts(device) as zc3:
+        _, a3, _, f3 = tk.tree_kernel_launch(*blocks, sc, cfg, tcfg, **kw)
+    with zone_counts(device) as zc4:
+        a4, f4 = tk.run_tree_kernel(*blocks, sc, dataclasses.replace(cfg, tree_refill=1), tcfg,
+                                    nf=nf, qd=kw["qd"])
+    (_, a_p, _, f_p), plain_s = plain_result(job["plain"], device)
+    r3 = tree_agreement(a3, f3, a_p, f_p, nf, "K3 vs plain (scene B)", phase, RNS_SCENES["B"])
+    st = a3[:, tk.A_STEPTOT]
+    log(phase, f"K3 one launch vs its plain version on {n} events at scene B "
+               f"{RNS_SCENES['B']}: {r3['text']}; steps per event mean {st.mean().item():.1f} "
+               f"max {int(st.max().item())}; plain {plain_s:.1f} s on one CPU thread "
+               f"(plain_pool); K3 {zone_text(zc3)[0]}")
+    r4 = tree_agreement(a4, f4, a3, f3, nf, "K4 vs K3 (scene B)", phase, RNS_SCENES["B"])
+    log(phase, f"K4 (tree_refill 1) vs K3 one launch on the same events: {r4['text']}; K4 "
+               f"{zone_text(zc4)[0]}")
+    if not (r3["ok"] and r4["ok"]):
+        raise AssertionError("K3 or K4 disagrees with its reference at scene B")
+    z3, z4 = zone_text(zc3), zone_text(zc4)
+    if min(z3[1], z3[2], z4[1], z4[2]) == 0:
+        raise AssertionError("K3/K4 ran no photon step or recorded no crossing below 10 km")
+
+    host_cfg = dataclasses.replace(cfg, tree_engine="queue", tree_k=1)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with zone_counts(device) as zc_h:
+        host = tree.forward_tree(keys, x, k, e, sc, host_cfg, tcfg, lnt_end=0.0)
+    torch.cuda.synchronize()
+    host_ms = (time.time() - t0) * 1e3
+    kern = tree.forward_tree(keys, x, k, e, sc, cfg, tcfg, lnt_end=0.0)
+    same = torch.ones(n, dtype=torch.bool, device=device)
+    for name in ("count", "count_main", "info", "n_alloc", "dw_anomalies"):
+        same &= getattr(kern, name) == getattr(host, name)
+    frac = same.double().mean().item()
+    n_ord = int(max(int(host.pools.order.max()), int(kern.pools.order.max()))) + 1
+    (vk, pk), (vh, ph) = tree_finals(kern, n_ord), tree_finals(host, n_ord)
+    orders = bool((pk[same] == ph[same]).all())
+    both = same[:, None] & pk & ph
+    a, b = vk[both], vh[both]
+    rel = final_rel(a, b)
+    qs = torch.tensor([0.5, 0.99], dtype=rel.dtype, device=device)
+    med = torch.quantile(rel, 0.5, dim=0)
+    sq = torch.quantile(rel[:, :6].amax(dim=1), qs)
+    s_p99, s_worst = sq[1].item(), rel[:, :6].max().item()
+    vq = torch.quantile(rel[:, 6:].amax(dim=1), qs)
+    ev, order = both.nonzero(as_tuple=True)
+    names = ("w", "prob", "pconv", "pconv0", "t", "ferg", "fpos", "fmom")
+    worst_rel, worst_col = rel.max(dim=1)
+    worst = torch.argsort(worst_rel, descending=True)[:5].tolist()
+    for i in worst:
+        e_i = int(ev[i])
+        log(phase, f"  K3 tree engine vs host worst record: event {e_i} order {int(order[i])} "
+                   f"column {names[int(worst_col[i])]} (rel {worst_rel[i].item():.3g}); w, prob, "
+                   f"pconv, pconv0, t, ferg: K3 {[float(f'{v:.10g}') for v in a[i, :6].tolist()]}, "
+                   f"host {[float(f'{v:.10g}') for v in b[i, :6].tolist()]}; |fpos| "
+                   f"{a[i, 6:9].norm().item():.6g} / {b[i, 6:9].norm().item():.6g} km; the "
+                   f"event's root at r {x[e_i].norm().item():.6g} km")
+    log(phase, f"K3 tree engine vs host engine at tree_k=1 on the same {n} events: identical "
+               f"counters {frac:.4f} (bar 0.99), orders identical {orders}, {int(both.sum())} "
+               f"finals; per-column median rel err "
+               f"{dict(zip(names, [float(f'{v:.3g}') for v in med.tolist()]))} (bar "
+               f"1e-8); w, prob, pconv, pconv0, t, ferg: p99 {s_p99:.3g} worst "
+               f"{s_worst:.3g} (bars {REC_P99:g}, {REC_WORST:g}); fpos, fmom: "
+               f"p99 {vq[1].item():.3g} worst {rel[:, 6:].max().item():.3g} (logged); host "
+               f"engine {host_ms:.1f} ms host clock, {zone_text(zc_h)[0]}")
+    host_witness(device, job, host_cfg, kern, host, ev[worst], order[worst], n_ord, phase)
+    if not (frac >= 0.99 and orders and bool((med < 1e-8).all())
+            and s_p99 < REC_P99 and s_worst < REC_WORST):
+        raise AssertionError("K3's tree engine disagrees with the host engine at scene B")
+
+
+def final_rel(a, b):
+    """Per final record ([N, 12] tree_finals values of two runs), the
+    relative difference of w, prob, pconv, pconv0, t and ferg, each to
+    itself, and of fpos and fmom, vector-relative: [N, 8]."""
+    import torch
+
+    rel_s = (a[:, :6] - b[:, :6]).abs() / b[:, :6].abs().clamp(min=1e-300)
+    rel_v = torch.stack([(a[:, s] - b[:, s]).norm(dim=1) / b[:, s].norm(dim=1).clamp(min=1e-300)
+                         for s in (slice(6, 9), slice(9, 12))], dim=1)
+    return torch.cat([rel_s, rel_v], dim=1)
+
+
+def host_witness(device, job, host_cfg, kern, host, ev, order, n_ord, phase):
+    """The witness for phase 24c's worst records (events ev, orders order):
+    the host engine rerun on those events alone, at its tolerances (it must
+    give the full run's records, events being independent) and at
+    HOST_TIGHT's; per record, fpos and fmom of K3's tree engine and of the
+    host engine against the tight run.  Where the host engine moves as far
+    between its two tolerances as it lies from K3, the gap is the
+    integration's, not the kernel's."""
+    import dataclasses
+
+    import torch
+
+    from adiabatic_raytracer_tpu_torch.ops import tree
+
+    sc, tcfg, keys, x, k, e = (job[n] for n in ("sc", "tcfg", "keys", "x", "k", "e"))
+    uniq = torch.unique(ev)
+    runs = [tree.forward_tree(keys[uniq], x[uniq], k[uniq], e[uniq], sc, c, tcfg, lnt_end=0.0)
+            for c in (host_cfg, dataclasses.replace(host_cfg, **HOST_TIGHT))]
+    (v_re, p_re), (v_t, p_t) = (tree_finals(r, n_ord) for r in runs)
+    vk, _ = tree_finals(kern, n_ord)
+    vh, _ = tree_finals(host, n_ord)
+    at = torch.searchsorted(uniq, ev)
+    for j in range(ev.shape[0]):
+        i, o, u = int(ev[j]), int(order[j]), int(at[j])
+        if not bool(p_re[u, o]) or not bool(p_t[u, o]):
+            log(phase, f"  witness, event {i} order {o}: no such final in the rerun "
+                       f"(own tolerances {bool(p_re[u, o])}, tight {bool(p_t[u, o])})")
+            continue
+        row = lambda v: v[None, :]
+        rerun = final_rel(row(v_re[u, o]), row(vh[i, o]))[0].max().item()
+        k_t = final_rel(row(vk[i, o]), row(v_t[u, o]))[0, 6:].tolist()
+        h_t = final_rel(row(vh[i, o]), row(v_t[u, o]))[0, 6:].tolist()
+        k_h = final_rel(row(vk[i, o]), row(vh[i, o]))[0, 6:].tolist()
+        log(phase, f"  witness, event {i} order {o}: host rerun vs the full run {rerun:.3g}; "
+                   f"fpos, fmom rel: K3 vs host {k_h[0]:.3g}, {k_h[1]:.3g}; host vs host at "
+                   f"{HOST_TIGHT} {h_t[0]:.3g}, {h_t[1]:.3g}; K3 vs host at it {k_t[0]:.3g}, "
+                   f"{k_t[1]:.3g}")
+
+
+def phase_rns_cli(device, name, n_events, batch, phase):
+    """The CLI at scene `name` on the kernel path (auto -> K3), then
+    driver.run with tree_refill 1 (K4), each warm under torch.profiler with
+    the launch counters reset just before it (phase_slice,
+    profiled_driver_run); at scene A also the CLI on the queue path (K2 per
+    tree iteration).  Each run counts its kernels' work below 10 km
+    (zone_counts, inside the timed run); the kernel and refill paths must
+    show photon steps and recorded crossings there.  At scene B a row may
+    have weight 0 where its survival weight is 0 (rows_ok)."""
+    import dataclasses
+
+    sc, cfg, tcfg, _, _ = scene_setup(device, **RNS_SCENES[name])
+    zw = name == "B"
+    runs = [("kernel path", lambda: phase_slice(device, n_events, batch, "auto",
+                                                f"{phase}{name}", cold_run=False,
+                                                extra=RNS_FLAGS[name], uses_tree_kernel=True,
+                                                zero_weight_ok=zw)),
+            ("refill path", lambda: profiled_driver_run(
+                device, sc, dataclasses.replace(cfg, tree_engine="kernel", tree_kernel_chunk=64,
+                                                tree_refill=1), tcfg, n_events, batch,
+                f"{phase}{name}", f"refill_{phase}{name}",
+                f"refill path (driver.run, tree_refill 1) at scene {name}",
+                ("line_roots", "megakernel", "treerefill"), ("treekernel", "line_scan"),
+                zero_weight_ok=zw))]
+    if name == "A":
+        runs.append(("queue path", lambda: phase_slice(
+            device, n_events // 2, batch, "queue", f"{phase}{name}", cold_run=False,
+            extra=RNS_FLAGS[name])))
+    for what, run in runs:
+        with zone_counts(device) as zc:
+            run()
+        text, steps, cross = zone_text(zc)
+        log(phase, f"scene {name} {RNS_SCENES[name]}, {what}: {text}")
+        if what != "queue path" and (steps == 0 or cross == 0):
+            raise AssertionError(f"scene {name}'s {what} did no work below 10 km")
+
+
+def phase_rns(device):
+    """Phase 24: --rNS below 10 km, where the photon side of K2-K4 takes
+    the metric's interior branch.  The plain versions of 24b and 24c are
+    submitted to plain_pool first and run while 24a runs."""
+    jobs = [k2_variant_job(device, 512, launch, witness=(name, launch) == ("B", "backtrace"),
+                           **RNS_SCENES[name])
+            for name in ("A", "B") for launch in ("mixed", "backtrace")]
+    tree_job = rns_tree_job(device, 512)
+    timed("24a", phase_rns_k1, device, 4096, "24a")
+    timed("24a", phase_probe, device, phase="24a", funcs=("condition", "rhs", "prob"),
+          **RNS_SCENES["B"])
+    for job in jobs:
+        timed("24b", phase_k2_variant, device, job, "24b")
+    timed("24c", phase_rns_tree, device, tree_job, "24c")
+    for name in ("A", "B"):
+        timed("24d", phase_rns_cli, device, name, 4096, 2048, "24d")
+
+
 def phase_slice(device, n_events, batch, tree_engine, phase, cold_run=True, extra=(),
-                uses_tree_kernel=None):
+                uses_tree_kernel=None, zero_weight_ok=False):
     """The main path through the CLI: a cold run when asked (one CLI
     invocation in a fresh process, what a user's call costs), then a warm run
     in this process under torch.profiler, with the launch counters reset just
     before it and read just after.  `extra`: more CLI flags; K3 must launch
     when uses_tree_kernel is true (default: tree_engine "auto"), and must
-    not when it is false."""
+    not when it is false; zero_weight_ok as in rows_ok."""
     import numpy as np
     import torch
 
@@ -2541,7 +3055,7 @@ def phase_slice(device, n_events, batch, tree_engine, phase, cold_run=True, extr
     rows = np.load(path)
     if not (rows.ndim == 2 and rows.shape[1] == 29 and rows.shape[0] > 0):
         raise AssertionError(f"slice output has shape {rows.shape}")
-    if not np.all(np.isfinite(rows)) or not np.all(rows[:, 8] > 0):
+    if not rows_ok(rows, zero_weight_ok):
         raise AssertionError("slice rows not finite or weights not positive")
     if uses_tree_kernel is None:
         uses_tree_kernel = tree_engine == "auto"
@@ -2638,6 +3152,7 @@ def main():
     timed(21, phase_pool_compact, device, 2, 2, 8)
     timed(22, phase_diagnostics, device, 4096, rows_kernel)
     timed(23, phase_precision, device, 2048, 2048)
+    timed(24, phase_rns, device)
     log(14, f"chip_smoke wall {time.time() - t_start:.1f} s")
     kernels = [
         {"name": "line_roots", "route": "cuda",
@@ -2673,4 +3188,8 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        close_plain_pool()
+    sys.exit(rc)

@@ -21,8 +21,8 @@ ptxas info    : Used 96 registers, used 1 barriers
 ptxas info    : Function properties for _ZN3art7prob_ndERKNS_10MegaParamsEPKdd
     8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Function properties for _ZN12_GLOBAL__N_111mega_kernelILi0EEEvPKdS2_iiPiN3art10MegaParamsEPdS6_S6_S6_S6_S6_S6_
-    480 bytes stack frame, 88 bytes spill stores, 56 bytes spill loads
-ptxas info    : Used 255 registers, used 0 barriers, 480 bytes cumulative stack size
+    496 bytes stack frame, 128 bytes spill stores, 72 bytes spill loads
+ptxas info    : Used 255 registers, used 0 barriers, 496 bytes cumulative stack size
 ptxas info    : Function properties for _ZN12_GLOBAL__N_111mega_kernelILi3EEEvPKdS2_iiPiN3art10MegaParamsEPdS6_S6_S6_S6_S6_S6_
     464 bytes stack frame, 80 bytes spill stores, 48 bytes spill loads
 ptxas info    : Used 255 registers, used 0 barriers, 464 bytes cumulative stack size
@@ -123,3 +123,31 @@ def test_record_notes_find_the_birth_state():
         assert math.isclose(float(born[3].rstrip(",")), u0[i, 1].item(), rel_tol=1e-6)
         assert math.isclose(float(born[5]), g[i].item(), rel_tol=1e-2, abs_tol=1e-6)
         assert math.isfinite(float(note.rsplit("dg/dlnt ", 1)[1]))
+
+
+def test_plain_pool_gives_the_plain_version_bitwise(monkeypatch):
+    """chip_smoke's plain_pool (spawned CPU processes, inputs and outputs
+    sent pickled) returns K2's plain version's outputs bitwise as a call in
+    this process gives them, with its time, and close_plain_pool stops it."""
+    from adiabatic_raytracer_tpu_torch.ops import megakernel as mk
+    from adiabatic_raytracer_tpu_torch.ops.propagate import launch_state
+
+    monkeypatch.setattr(chip_smoke, "PLAIN_WORKERS", 1)
+    f64 = torch.float64
+    sc, cfg, *_ = chip_smoke.scene_setup(torch.device("cpu"))
+    x = torch.tensor([[12.0, 3.0, 4.0], [-20.0, 5.0, 1.0]], dtype=f64)
+    k = torch.tensor([[0.3, -0.2, 0.9], [0.1, 0.8, -0.1]], dtype=f64)
+    erg = torch.full((2,), 1.0000005e-5, dtype=f64)
+    u0 = launch_state(x, k, sc, erg, -torch.ones(2, dtype=f64))
+    args = (u0, torch.full((2,), -1.0, dtype=f64), torch.zeros(2, dtype=f64), erg, x, sc, cfg)
+    kw = dict(max_crossings=1, is_photon=torch.tensor([True, False]), species="mixed",
+              with_prob=True)
+    try:
+        fut = chip_smoke.submit_plain("k2", *args, **kw)
+        got, sec = chip_smoke.plain_result(fut, torch.device("cpu"))
+    finally:
+        chip_smoke.close_plain_pool()
+    want = mk.integrate_mega_plain(*args, **kw)
+    assert sec > 0 and len(got) == len(want)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert not chip_smoke._PLAIN_POOL

@@ -228,3 +228,47 @@ def test_line_roots_warp_synthetic_grids(dtype):
     s_grid = T(np.linspace(0.0, 55.0, g32.shape[1]))
     n, _ = check_warp_model(g32, (T(x0), T(vvec), T(vloc), T(erg)), s_grid, sc)
     assert n.tolist() == [0, 1, 1, 40, 1, 3, 1, int(n[7])] and int(n[7]) > 16
+
+
+def line_sin_theta_f32(p):
+    """A torch replica, in f32, of K1's `line_sin_theta<float>`
+    (csrc/physics.cuh): sin(theta) from the cylindrical radius where
+    1 - cos^2(theta) < 1e-4, else from cos(theta) as the plain version."""
+    p = p.to(torch.float32)
+    rr = torch.sqrt((p * p).sum(dim=-1))
+    cz = p[..., 2] / rr
+    s2 = 1.0 - cz * cz
+    pole = torch.clamp(torch.sqrt(p[..., 0] * p[..., 0] + p[..., 1] * p[..., 1]) / rr, min=1e-15)
+    return torch.where(s2 < 1e-4, pole, torch.sqrt(torch.clamp(s2, min=1e-30))), s2
+
+
+def test_line_sin_theta_f32_pole_form():
+    """K1's f32 sin(theta) within 0.6 degrees of either pole, where the f32
+    form of the plain version, sqrt(1 - cz^2), keeps few digits (the pole
+    form takes over at 1 - cz^2 < 1e-4, 0.573 degrees): the
+    replica's relative error against f64 stays at f32 rounding, the old
+    form's does not (the witness that these points need the pole form);
+    away from the poles the replica is the old form bitwise."""
+    rng_ = np.random.default_rng(5)
+    n = 4096
+    r = rng_.uniform(9.0, 12.0, n)
+    th = rng_.uniform(1e-4, np.deg2rad(0.57), n)
+    th = np.where(rng_.random(n) < 0.5, th, np.pi - th)
+    ph = rng_.uniform(0.0, 2.0 * np.pi, n)
+    p = torch.tensor(np.stack([r * np.sin(th) * np.cos(ph), r * np.sin(th) * np.sin(ph),
+                               r * np.cos(th)], axis=1))
+    p32 = p.to(torch.float32).double()   # the f32 point, exactly, in f64
+    exact = torch.sqrt(p32[:, 0] ** 2 + p32[:, 1] ** 2) / p32.norm(dim=1)
+    st, s2 = line_sin_theta_f32(p)
+    assert bool((s2 < 1e-4).all())
+    rel = ((st.double() - exact).abs() / exact).max().item()
+    old = torch.sqrt(torch.clamp(s2, min=1e-30)).double()
+    rel_old = ((old - exact).abs() / exact).max().item()
+    assert rel < 1e-6 and rel_old > 1e-3, (rel, rel_old)
+    th_far = rng_.uniform(np.deg2rad(0.6), np.pi - np.deg2rad(0.6), n)
+    q = torch.tensor(np.stack([r * np.sin(th_far) * np.cos(ph), r * np.sin(th_far) * np.sin(ph),
+                               r * np.cos(th_far)], axis=1))
+    st_far, s2_far = line_sin_theta_f32(q)
+    far = s2_far >= 1e-4
+    assert int(far.sum()) > n // 2
+    assert torch.equal(st_far[far], torch.sqrt(s2_far[far]))

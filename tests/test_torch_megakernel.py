@@ -178,24 +178,41 @@ def jax_test_states(which):
             T(is_ph.astype(np.float64)))
 
 
-@pytest.mark.parametrize("scene", ["default", "bndry", "iso"])
+# the four dispersion variants K2 instantiates (art::Disp)
+DISPERSIONS = ({}, VARIANTS["bndry"], VARIANTS["iso"], dict(isotropic=True, bndry_lyr=0.5))
+
+
+@pytest.mark.parametrize("scene", ["default", "bndry", "iso", "rns"])
 @pytest.mark.parametrize("species", ["photon", "axion", "mixed"])
 def test_hand_rhs_matches_pool_rhs(species, scene):
     """The twin RHS (hand adjoint, what the kernel runs) against the pool's
     autograd RHS, including axion states inside the star, where the TPU
     kernel's r-clamped lapse factor differed from the pool; at the
-    boundary-layer and isotropic scenes also on the JAX tests' states."""
-    sc = tcfg.Scene(**KW, **VARIANTS.get(scene, {}))
-    draws = [states(r_lo=4.0, r_hi=45.0, seed=1)]
-    if scene != "default":
-        draws += [jax_test_states("shell"), jax_test_states("wide")]
-    for u, lnt, erg, is_ph in draws:
-        ph = is_ph > 0.5 if species == "mixed" else torch.full(is_ph.shape, species == "photon")
-        want = make_rhs(sc, sc.mass_ns_eff, 0.0, species)(u, lnt, {"erg": erg, "is_photon": ph})
-        P = mk.mega_params(sc, tcfg.NumericsConfig(), species=species)
-        got = torch.stack(mk._rhs(P, tuple(u[:, i] for i in range(7)), lnt, erg, ph.double()), 1)
-        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12,
-                                   atol=1e-12 * want.abs().max().item())
+    boundary-layer and isotropic scenes also on the JAX tests' states.  The
+    rns scene takes r_NS 8 and 9 km under the four dispersion variants, on
+    states between 1.02 r_NS and 10 km, where the photon side meets the
+    metric's interior branch (mk.METRIC_R_NS)."""
+    cases = [(tcfg.Scene(**KW, **VARIANTS.get(scene, {})),
+              [states(r_lo=4.0, r_hi=45.0, seed=1)])]
+    if scene in VARIANTS:
+        cases[0][1].extend([jax_test_states("shell"), jax_test_states("wide")])
+    if scene == "rns":
+        cases = [(tcfg.Scene(**dict(KW, r_ns=r_ns), **disp),
+                  [states(r_lo=1.02 * r_ns, r_hi=mk.METRIC_R_NS, seed=1)])
+                 for r_ns in (8.0, 9.0) for disp in DISPERSIONS]
+    for sc, draws in cases:
+        for u, lnt, erg, is_ph in draws:
+            if scene == "rns":   # every state inside the zone, photons unfrozen
+                assert bool((u[:, 0] < mk.METRIC_R_NS).all() and (u[:, 0] > 1.01 * sc.r_ns).all())
+            ph = is_ph > 0.5 if species == "mixed" else torch.full(is_ph.shape,
+                                                                   species == "photon")
+            want = make_rhs(sc, sc.mass_ns_eff, 0.0, species)(u, lnt, {"erg": erg,
+                                                                       "is_photon": ph})
+            P = mk.mega_params(sc, tcfg.NumericsConfig(), species=species)
+            got = torch.stack(mk._rhs(P, tuple(u[:, i] for i in range(7)), lnt, erg,
+                                      ph.double()), 1)
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12,
+                                       atol=1e-12 * want.abs().max().item())
 
 
 def test_bndry_pool_backtrace_matches_jax_pool():
@@ -337,10 +354,11 @@ def test_integrate_mega_plain_contract():
 
 
 def test_kernel_scene_checks():
-    """K2 takes the boundary-layer and isotropic scenes; it still refuses the
-    non-Melrose anisotropic dispersion and r_NS < 10 km.  K3 and K4 (built
-    for the Melrose variant, with the in-kernel probability) refuse every
-    scene without the in-kernel probability, naming the ROADMAP item."""
+    """K2 takes the boundary-layer and isotropic scenes and r_NS < 10 km; it
+    still refuses the non-Melrose anisotropic dispersion.  K3 and K4 (built
+    for the Melrose variant, with the in-kernel probability) take r_NS < 10
+    km and refuse every scene without the in-kernel probability, naming the
+    ROADMAP item, on CPU tensors (their plain versions) as on the card."""
     from adiabatic_raytracer_tpu_torch.ops import treekernel as tk
 
     cfg = tcfg.NumericsConfig()
@@ -349,6 +367,17 @@ def test_kernel_scene_checks():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tk.check_tree_scene(tcfg.Scene(**KW, **scene), cfg)
     tk.check_tree_scene(tcfg.Scene(**KW), cfg)
-    for scene in (dict(melrose=False), dict(r_ns=8.0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            mk.check_supported(tcfg.Scene(**dict(KW, **scene)), cfg, 1)
+    mk.check_supported(tcfg.Scene(**dict(KW, r_ns=8.0)), cfg, 1)
+    tk.check_tree_scene(tcfg.Scene(**dict(KW, r_ns=8.0)), cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        mk.check_supported(tcfg.Scene(**dict(KW, melrose=False)), cfg, 1)
+    # the CPU dispatch checks the scene before the plain version runs
+    z = lambda *shape: torch.zeros(shape, dtype=F64)
+    blocks = (z(2, tk.ROWS), z(2, 32), z(2, 8), z(2, tk.ROWS))
+    bndry = tcfg.Scene(**KW, **VARIANTS["bndry"])
+    tc = tcfg.TreeConfig()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tk.tree_kernel_launch(*blocks, bndry, cfg, tc, nf=1, qd=1, it_cap=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tk.tree_refill_launch(*blocks, bndry, cfg, tc, nf=1, qd=1, epart=2, refill_k=1,
+                              it_cap=1)
