@@ -19,10 +19,13 @@ whenever event_batch > 128, the JAX CLI's rule at the width the card ran
 fastest.  `--pipeline_depth 0` (auto) is PIPELINE_DEPTH.  `--mesh N` shards
 each batch over the first N cards (raising when there are fewer; on cpu, N
 virtual shards).  `--coordinator host:port --nprocs N --procid P` joins a
-torch.distributed group over gloo: each process runs its own shard of events
-(its own --seed and --ftag) on card P % device_count, and the processes' pulse
-profiles are summed over the group and printed.  Options the port does not
-run raise NotImplementedError.
+torch.distributed group over gloo, each process on card P % device_count.
+With `--mesh N` (N > 1) there the group runs one run over a mesh of the
+first N processes' devices, one each: process 0's seed, process 0 writes
+the files, every process prints the run's pulse profile.  With `--mesh 0/1`
+each process runs its own shard of events (its own --seed and --ftag), the
+reference's fan-out, and the processes' pulse profiles are summed over the
+group and printed.  Options the port does not run raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -114,7 +117,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "the backtrace in chunks, compacting the rays still running")
     p.add_argument("--mesh", type=int, default=0,
                    help="shard each batch over an N-device mesh (0/1 = one device): the "
-                        "first N cards on cuda (fewer raises), N virtual shards on cpu")
+                        "first N cards on cuda (fewer raises), N virtual shards on cpu; "
+                        "with --coordinator, one device of each of the first N processes")
     p.add_argument("--pipeline_depth", type=int, default=0,
                    help="batches issued but not yet assembled; 0 = auto "
                         "(PIPELINE_DEPTH); rows are bitwise equal across depths")
@@ -187,34 +191,48 @@ def run_from_args(argv=None):
 
     device = args.device
     had_group = mesh.process_group_exists()
-    grouped = mesh.init_distributed(args.coordinator, args.nprocs, args.procid)
+    # a mesh over the group waits on the other processes at every batch:
+    # bound each wait, so that a failed process ends the run
+    grouped = mesh.init_distributed(args.coordinator, args.nprocs, args.procid,
+                                    timeout_s=mesh.GROUP_TIMEOUT_S if args.mesh > 1 else None)
+    over_group = grouped and args.mesh > 1
     try:
         if grouped:
             if on_cuda and torch.cuda.device_count():
-                device = f"cuda:{mesh.process_index() % torch.cuda.device_count()}"
+                device = mesh.process_device("cuda")
                 torch.cuda.set_device(device)
             print(f"distributed: process {mesh.process_index()}/{mesh.process_count()} "
-                  f"on {device}")
+                  f"on {device}" + (f", in a mesh of {args.mesh} over the group"
+                                    if over_group else ""))
         print(f"Axion parameters: {args.MassA}\n{args.Axg}")
         t0 = time.time()
         out = None
         if args.run_RT == 1:
-            for sub in ("npy", "event", "tree"):
-                os.makedirs(os.path.join(args.dir_tag, sub), exist_ok=True)
+            if not over_group or mesh.process_index() == 0:   # the process that writes
+                for sub in ("npy", "event", "tree"):
+                    os.makedirs(os.path.join(args.dir_tag, sub), exist_ok=True)
             out = run(sc, cfg, tcfg, args.Nts, seed=args.seed, save_mode=args.saveMode,
                       file_tag=args.ftag, dir_tag=args.dir_tag, event_batch=event_batch,
                       mesh_devices=args.mesh, checkpoint=args.checkpoint,
                       resume=args.resume, profile_dir=args.profile_dir,
                       pipeline_depth=depth, device=device, precision=args.precision)
             if mesh.process_count() > 1:
-                # each process ran its own shard: sum the pulse profiles over the group
                 from adiabatic_raytracer_tpu_torch.parallel.reduce import pulse_profile_from_rows
 
                 rows = out[0] if out is not None else np.zeros((0,))
-                h_ph, h_ax = mesh.all_reduce_sum(*pulse_profile_from_rows(rows))
-                print("pulse profile summed over processes: " + json.dumps(
-                    {"processes": mesh.process_count(), "photon": h_ph.tolist(),
-                     "axion": h_ax.tolist()}))
+                if over_group:
+                    # every process holds the whole run's rows: summed over the
+                    # group they would count P times
+                    h_ph, h_ax = pulse_profile_from_rows(rows)
+                    print("pulse profile of the run over the group: " + json.dumps(
+                        {"processes": mesh.process_count(), "mesh": args.mesh,
+                         "photon": h_ph.tolist(), "axion": h_ax.tolist()}))
+                else:
+                    # each process ran its own shard: sum the pulse profiles over the group
+                    h_ph, h_ax = mesh.all_reduce_sum(*pulse_profile_from_rows(rows))
+                    print("pulse profile summed over processes: " + json.dumps(
+                        {"processes": mesh.process_count(), "photon": h_ph.tolist(),
+                         "axion": h_ax.tolist()}))
         if args.run_Combine == 1:
             combined = combine_files(args.dir_tag, args.MassA, args.Axg, args.ThetaM,
                                      args.rotW, args.B0, args.Nts, 3, args.numCutoff,

@@ -74,6 +74,7 @@ class RunStats:
     t_fetch: float = 0.0      # waiting for a batch's packs at assembly (s)
     t_issue: float = 0.0      # issuing a batch: inputs up, the pipeline's host code (s)
     t_sampd: float = 0.0      # issuing the next batch's primary sampler chunk (s)
+    t_gather: float = 0.0     # mesh over a group: gathering the shards' packs, in t_issue (s)
     vns: tuple = (0.0, 0.0, 0.0)
     scan_gate: str = "off"    # "off" | "ok" | "widened" | "fallback_plain" | "unchecked"
 
@@ -85,7 +86,9 @@ def check_ported(cfg: NumericsConfig, *, save_mode: int = 0, mesh_devices: int =
     the ROADMAP item; none of them quietly runs something else.  Every run
     option comes through here, so one that is not ported fails before
     anything runs.  A tree_engine='kernel' configuration K3 does not cover
-    raises in tree.forward_tree."""
+    raises in tree.forward_tree.  `processes`, the size of the process
+    group: a mesh over a group takes one device per process, so a mesh
+    larger than the group raises ValueError, naming the missing device."""
     todo = [
         (cfg.engine not in ("pool", "mega", "pool_compact"), f"engine={cfg.engine!r}"),
         (cfg.backtrace_chunk > 0, "backtrace_chunk > 0, K2's chunked relaunch, left unported on "
@@ -95,14 +98,14 @@ def check_ported(cfg: NumericsConfig, *, save_mode: int = 0, mesh_devices: int =
         (cfg.rhs_mode != "hand" or cfg.cond_mode != "fast" or cfg.gate_trig != "precise",
          "rhs_mode='vjp' / cond_mode='canonical' / gate_trig='native', left unported on "
          "purpose (ROADMAP Queue 1, left unported on purpose)"),
-        (mesh_devices > 1 and processes > 1,
-         "a mesh across processes (mesh_devices > 1 with more than one process); each "
-         "process runs its own shard of events, or one process its mesh (ROADMAP Queue 1, "
-         "mesh / torch.distributed)"),
     ]
     for bad, what in todo:
         if bad:
             raise NotImplementedError(f"not ported: {what}")
+    if processes > 1 and mesh_devices > processes:
+        raise ValueError(f"a mesh of {mesh_devices} devices over a group of {processes} "
+                         f"processes, one device each: process {processes}'s device is "
+                         "missing")
 
 
 def sln_scale(sc: Scene, maxR, tcfg: TreeConfig) -> float:
@@ -354,6 +357,27 @@ def _clear_checkpoint(out_path: str):
             os.remove(p)
 
 
+def _agree_on_run(seed: int, drawn: int, run_args: dict) -> int:
+    """The seed of a run over a process group: process 0's, drawn there at
+    seed <= 0.  Raises ValueError on every process, before anything runs,
+    when a process was given another positive seed or other run
+    parameters than process 0's."""
+    from adiabatic_raytracer_tpu_torch.parallel.mesh import gather_objects
+
+    got = gather_objects((seed, drawn, run_args))
+    run_seed, first = got[0][1], got[0][2]
+    for p, (given, _, args) in enumerate(got):
+        if given > 0 and given != run_seed:
+            raise ValueError(f"a run over the process group takes process 0's seed "
+                             f"{run_seed}; process {p} was given seed {given}")
+        diff = sorted(k for k in first if args.get(k) != first[k])
+        if diff:
+            raise ValueError(f"a run over the process group takes one set of run "
+                             f"parameters; process {p}'s {', '.join(diff)} differ from "
+                             "process 0's")
+    return run_seed
+
+
 def _host(nt, names):
     """The named fields of a result tuple as numpy, one copy each."""
     return {n: getattr(nt, n).cpu().numpy() for n in names}
@@ -457,25 +481,44 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
     event, keys come from global event numbers, each shard runs the pipeline
     on its device, and the padding's rows are dropped; engine pool_compact
     runs as pool there.  profile_dir: a torch.profiler trace of the run is
-    written there.
+    written there, one per process (p<rank>).
+
+    Under a torch.distributed group the mesh spans the group, one device per
+    process (parallel/mesh.make_mesh), and every process of the group calls
+    run with the same arguments: one run over the group.  Its seed is
+    process 0's (drawn there at seed <= 0); a process given another positive
+    seed, or other run parameters, raises on every process before anything
+    runs.  Process 0 runs the scan-gate census, samples every batch and
+    reads the checkpoint, and sends each result to the group; each process
+    runs its own shards, every shard's packs are gathered, and every process
+    assembles the same rows and returns them.  Only process 0 writes files
+    (the npy, the text and tree files, the checkpoint).  mesh_devices <= 1
+    under a group runs this process's own run, the reference's fan-out.
 
     precision: the state dtype of every tensor of the pipeline, "f64" or
     "f32" (the JAX CLI's --precision: x64 on or off).  Rows are f64 numpy
     either way."""
-    from adiabatic_raytracer_tpu_torch.parallel.mesh import (make_mesh, process_count,
-                                                            process_index, shard_over_events)
+    from adiabatic_raytracer_tpu_torch.parallel import mesh as pmesh
 
     check_ported(cfg, save_mode=save_mode, mesh_devices=mesh_devices,
                  pipeline_depth=pipeline_depth, checkpoint=checkpoint, resume=resume,
-                 processes=process_count())
+                 processes=pmesh.process_count())
     dtype = state_dtype(precision)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() "
                            "is false")
     n_sh = int(mesh_devices) if mesh_devices and mesh_devices > 1 else 1
-    mesh = make_mesh(n_sh, device) if n_sh > 1 else [device]
-    device = mesh[0]
+    mesh = pmesh.make_mesh(n_sh, device) if n_sh > 1 else [device]
+    group = pmesh.spans_group(mesh)
+    device = pmesh.home_device(mesh)
+    # the process that runs the census, samples, and reads and writes the files
+    lead = not group or pmesh.process_index() == 0
+    run_args = dict(scene=sc, numerics=cfg, tree=tcfg, n_trajs=n_trajs, save_mode=save_mode,
+                    event_batch=event_batch, fix_time=fix_time, ntimes=ntimes,
+                    mesh_devices=n_sh, checkpoint=checkpoint, resume=resume,
+                    max_batches=max_batches, pipeline_depth=pipeline_depth,
+                    precision=precision, device=device.type)
     if save_mode > 1 and cfg.tree_engine == "kernel":
         # the dumps need every node's records, which K3 keeps for the finals
         # only: the reference's recorded choice (driver.py:492-505 there)
@@ -496,6 +539,8 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
         stats.seed = int(np.random.SeedSequence().entropy % (2**31))
     else:
         stats.seed = seed
+    if group:
+        stats.seed = _agree_on_run(seed, stats.seed, run_args)
 
     maxR = float(conversion_surface_radius(sc.mass_a, sc.theta_m, sc.omega_pul,
                                            sc.b0, sc.r_ns, t_in=fix_time))
@@ -513,7 +558,14 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
     remaining = n_trajs - 1   # the reference loop runs while photon_trajs < Ntajs
     succ_rate = 0.25
     key = rng.PRNGKey(stats.seed, device=device)
-    ck = _load_checkpoint(out_path, stats) if resume else None
+    ck = None
+    if resume and group:    # process 0's checkpoint, its state sent to every process
+        ck, st = pmesh.run_on_first(lambda: (_load_checkpoint(out_path, stats),
+                                             dataclasses.asdict(stats)))
+        for k, v in st.items():
+            setattr(stats, k, v)
+    elif resume:
+        ck = _load_checkpoint(out_path, stats)
     if ck is not None:
         key, succ_rate, event_no, remaining, rows = ck
         key = key.to(device)
@@ -522,7 +574,12 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
     if verbose:
         print(f"Using seed {stats.seed}")
     t_g0 = time.time()
-    cfg = _apply_scan_gate_guard(sc, cfg, maxR, lnt_end, stats, device, dtype)
+    if group:   # process 0's census verdict runs on every process
+        cfg, stats.scan_gate = pmesh.run_on_first(lambda: (
+            _apply_scan_gate_guard(sc, cfg, maxR, lnt_end, stats, device, dtype),
+            stats.scan_gate))
+    else:
+        cfg = _apply_scan_gate_guard(sc, cfg, maxR, lnt_end, stats, device, dtype)
     _sync(device)
     stats.t_gate += time.time() - t_g0
 
@@ -530,7 +587,7 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
     stats.vns = vns_spherical(sc.v_ns)
     scale = sln_scale(sc, maxR, tcfg)
     ev_files = (EventFiles(dir_tag, file_tag, append=ck is not None)
-                if save_mode > 1 else None)
+                if save_mode > 1 and lead else None)
     batches_done = 0
     batches_issued = 0
     issue_event_no = event_no
@@ -584,13 +641,31 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
         samp = np.concatenate(xs, axis=0).astype(np.float64)
         return samp, attempts, time.time() - t0
 
+    samp_next = None
+
+    def sample_next(batch):
+        """This batch's samples, then the next batch's primary chunk issued
+        (the first batch's own primary chunk on the first call)."""
+        nonlocal samp_next
+        if samp_next is None:
+            samp_next = sample_dispatch(batch)
+        samp, attempts, t_sample = sample_collect(samp_next, batch)
+        rng_snap = (key, succ_rate)
+        # the next batch's primary chunk goes ahead of this batch's pipeline
+        left = issue_remaining - batch
+        samp_next = (sample_dispatch(min(event_batch, left))
+                     if left > 0 and (max_batches is None or batches_issued + 1 < max_batches)
+                     else None)
+        return samp, attempts, t_sample, rng_snap
+
     def shard_pipeline(keys, xpos, v_loc, erg_inf):
         fin_t, ev_t, bt, pl = pipeline(keys, xpos, v_loc, erg_inf, sc, cfg, tcfg, maxR, lnt_end)
         return (fin_t, ev_t) + ((bt, pl) if save_mode > 1 else (None, None))
 
     # one shard after another from this thread (parallel/mesh.py); a single
-    # device is a mesh of one
-    run_shards = shard_over_events(mesh, shard_pipeline)
+    # device is a mesh of one; on a mesh over a group, this process's shards
+    run_shards = pmesh.shard_over_events(mesh, shard_pipeline)
+    t_gather0 = stats.t_gather    # a resumed run's gathers before the stop
 
     def issue_batch(samp, batch, attempts, t_sample, rng_snap):
         """Run one batch's pipeline over the mesh (its host code, which waits
@@ -608,6 +683,7 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
                                          tens(samp[:, 6]))
         t_issue = time.time() - t0
         stats.t_issue += t_issue
+        stats.t_gather = t_gather0 + run_shards.t_gather
         rec = {"batch": batch, "event_no": issue_event_no, "packs": (fin_t, ev_t),
                "host": (_to_host(fin_t), _to_host(ev_t)), "bt": bt, "pools": pl,
                "xpos": samp[:, 0:3], "v_ifty": samp[:, 7:10], "attempts": attempts,
@@ -704,7 +780,7 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
         stats.finals += nfin
         stats.t_rows += time.time() - t2
 
-        if save_mode > 1:
+        if save_mode > 1 and lead:
             t3 = time.time()
             _write_text(ev_files, save_mode, dir_tag, file_tag, event_no, t_batch / batch,
                         rec["bt"], rec["pools"],
@@ -718,7 +794,7 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
         stats.events += batch
         remaining -= batch
         batches_done += 1
-        if checkpoint:
+        if checkpoint and lead:
             ck_key, ck_rate = rec["rng_after"]
             _write_checkpoint(out_path, ck_key, ck_rate, event_no, remaining, stats, rows)
 
@@ -733,22 +809,22 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
     # takes one split of the carried key and chunk j of a batch draws from
     # fold_in(batch_key, j), so how issues interleave changes no draw; the
     # checkpoint after batch i stores the (key, succ_rate) of right after
-    # batch i's collect, the state batch i+1's sampling starts from.
+    # batch i's collect, the state batch i+1's sampling starts from.  On a
+    # mesh over a group process 0 samples and sends each batch's samples
+    # (and that state) to every process.
     inflight: deque = deque()
     try:
-        samp_next = (sample_dispatch(min(event_batch, issue_remaining))
-                     if issue_remaining > 0 else None)
         while issue_remaining > 0 or inflight:
             nxt = None
             if issue_remaining > 0 and (max_batches is None or batches_issued < max_batches):
                 try:
                     batch = min(event_batch, issue_remaining)
-                    samp, attempts, t_sample = sample_collect(samp_next, batch)
-                    rng_snap = (key, succ_rate)
-                    # the next batch's primary chunk goes ahead of this batch's pipeline
-                    left = issue_remaining - batch
-                    if left > 0 and (max_batches is None or batches_issued + 1 < max_batches):
-                        samp_next = sample_dispatch(min(event_batch, left))
+                    t0 = time.time()
+                    samp, attempts, t_sample, rng_snap = (
+                        pmesh.run_on_first(lambda: sample_next(batch)) if group
+                        else sample_next(batch))
+                    if not lead:
+                        t_sample = time.time() - t0
                     nxt = issue_batch(samp, batch, attempts, t_sample, rng_snap)
                 except Exception:
                     # a failure while sampling or issuing keeps the batches in
@@ -766,7 +842,7 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
         if prof is not None:
             prof.stop()
             trace = os.path.join(profile_dir, f"trace_{file_tag or 'run'}_"
-                                              f"p{process_index()}.json")
+                                              f"p{pmesh.process_index()}.json")
             prof.export_chrome_trace(trace)
             if verbose:
                 print(f"profile -> {trace}")
@@ -782,8 +858,9 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
         return save_all, out_path, stats
     if save_all.size:
         save_all[:, 7] /= float(stats.f_inx) if stats.f_inx else 1.0
-    save_npy(out_path, save_all)
-    _clear_checkpoint(out_path)
+    if lead:
+        save_npy(out_path, save_all)
+        _clear_checkpoint(out_path)
     stats.wall_time = time.time() - t_run0
     if verbose:
         print(f"events={stats.events} finals={stats.finals} f_inx={stats.f_inx} "
@@ -791,5 +868,6 @@ def run(sc: Scene, cfg: NumericsConfig, tcfg: TreeConfig, n_trajs: int, *,
               f"wall={stats.wall_time:.1f}s (gate {stats.t_gate:.1f} sample "
               f"{stats.t_sample:.1f} pipe {stats.t_pipeline:.1f} fetch {stats.t_fetch:.1f} "
               f"rows {stats.t_rows:.1f} issue {stats.t_issue:.1f} sampd {stats.t_sampd:.1f} "
-              f"text {stats.t_text:.1f}) -> {out_path}")
+              f"text {stats.t_text:.1f}" + (f" gather {stats.t_gather:.1f}" if group else "")
+              + f") -> {out_path}")
     return save_all, out_path, stats

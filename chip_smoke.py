@@ -6,7 +6,8 @@ the shapes the main path gives it, then drives the port's main path through
 its CLI entry point at the production default scene, and at a boundary-layer
 and an isotropic scene, its saveMode 3 text and tree dumps, checkpoint and
 resume, the forward tree's streaming window, pipeline depth 2, two processes
-in one group, the mesh, engine pool_compact, the diagnostics and
+in one group, the mesh (in one process and over a group of processes),
+engine pool_compact, the diagnostics and
 analysis, and --precision f32 / --computeDtype, and checks the output.
 
     python3 chip_smoke.py            # needs one CUDA device
@@ -120,8 +121,15 @@ non-zero):
      the one-process shard, the --run_Combine outputs byte-identical, the
      pulse profile summed over the group equal to the one-process sum;
      each process's wall and stage times (a cold start)
- 20. the mesh: --mesh 2 against --mesh 1 where two cards exist; on one
-     card --mesh 2 must raise naming cuda:1 and --mesh 1 give phase 7's
+ 20. the mesh: two fresh CLI processes in one gloo group on the one card
+     at --mesh 2 (one run over the group, phase 7's flags and the card
+     defaults): process 0's rows against phase 7's at the mesh bar (event,
+     species, node count, stop code and c_bck bitwise, the rest within
+     1e-9 relative), process 1 writes no file, both print the rows' pulse
+     profile and run the kernel path (K1 on process 0, which samples; K2
+     and K3 on both), each process's wall, stage times and cold start;
+     --mesh 2 against --mesh 1 where two cards exist; on one card --mesh 2
+     without a group must raise naming cuda:1 and --mesh 1 give phase 7's
      rows bitwise; --profile_dir on a 256-event run, its trace holding
      kernels
  21. engine pool_compact: CompactedPropagator against propagate on 8
@@ -215,6 +223,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 SCENE_ARGS = ["--MassA", "1e-5", "--B0", "1e14", "--ThetaM", "0.2"]
+# phase_slice's runs by phase: wall times (s) and the warm run's RunStats
+SLICE_RUNS = {}
 
 # K1's root bars, km: f32 bisections on two routes differ by the f32
 # condition's rounding near the root (readings up to 1.5e-4 km); two f64
@@ -2069,18 +2079,139 @@ def phase_processes(device, n_events):
         raise AssertionError("phase 19: " + "; ".join(fails))
 
 
+# A CLI process that prints its kernels' launch counts when its run ends
+# (the counters start at 0 in the fresh process).
+COUNTED_CLI = ("import json, sys\n"
+               "from adiabatic_raytracer_tpu_torch import cli\n"
+               "from adiabatic_raytracer_tpu_torch.ops import cuda_lib\n"
+               "cli.main(sys.argv[1:])\n"
+               "print('launches ' + json.dumps(cuda_lib.LAUNCHES))\n")
+
+
+def mesh_bar(rows, ref):
+    """The mesh bar: event, species, node count, stop code and c_bck
+    bitwise, every other column within 1e-9 relative."""
+    import numpy as np
+
+    return (rows.shape == ref.shape
+            and all(np.array_equal(rows[:, c], ref[:, c]) for c in (0, 1, 20, 21, 27))
+            and np.allclose(rows, ref, rtol=1e-9, atol=1e-300))
+
+
+def mesh_over_group(n_events, rows_kernel):
+    """Phase 20's mesh over a process group: two fresh CLI processes in one
+    gloo group on the one card (--mesh 2 --coordinator --nprocs 2 --procid
+    p, the card defaults, phase 7's flags), one run over the group.
+    Process 0's npy against phase 7's rows at the mesh bar (whether bitwise
+    logged); process 1 wrote no file; both printed the run's pulse
+    profile, that of process 0's rows and of phase 7's (within the bar's
+    1e-9 unless bitwise); both logged tree_engine auto -> kernel; process 0
+    launched K1, K2 and K3, process 1 K2 and K3, neither K1's grid kernel.
+    Logs each process's wall from both starts, its run's stage times and
+    the cold start (wall less the run's own), beside phase 7's run in one
+    process."""
+    import shutil
+    import socket
+
+    import numpy as np
+
+    from adiabatic_raytracer_tpu_torch.parallel.reduce import pulse_profile_from_rows
+
+    dirs = [os.path.join(OUT, f"mesh_group_{p}") for p in range(2)]
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + os.environ.get("PYTHONPATH", "").split(os.pathsep)))
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", COUNTED_CLI, "--device", "cuda", "--Nts", str(n_events + 1),
+         "--saveMode", "1", "--seed", "1769", "--mesh", "2", "--dir_tag", dirs[p],
+         "--ftag", "group", "--coordinator", f"127.0.0.1:{port}", "--nprocs", "2",
+         "--procid", str(p)] + SCENE_ARGS,
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for p in range(2)]
+    logs, walls = [], []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=600)
+            walls.append(time.time() - t0)
+            logs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 20: a process of the mesh over the group failed:\n"
+                                 f"{out[-3000:]}")
+    fails = []
+    npys = [f for f in os.listdir(os.path.join(dirs[0], "npy")) if f.endswith(".npy")]
+    if len(npys) != 1:
+        fails.append(f"process 0 wrote {npys}")
+    rows = np.load(os.path.join(dirs[0], "npy", npys[0]))
+    if os.path.exists(dirs[1]):
+        fails.append(f"process 1 wrote {os.listdir(dirs[1])}")
+    within, bitwise = mesh_bar(rows, rows_kernel), np.array_equal(rows, rows_kernel)
+    if not within:
+        fails.append(f"rows {rows.shape} beyond the mesh bar of phase 7's {rows_kernel.shape}")
+    mine, ref = pulse_profile_from_rows(rows), pulse_profile_from_rows(rows_kernel)
+    cold = []
+    for p, out in enumerate(logs):
+        (line,) = re.findall(r"pulse profile of the run over the group: (\{.*\})", out)
+        got = json.loads(line)
+        for i, sp in enumerate(("photon", "axion")):
+            if not (np.array_equal(got[sp], mine[i].numpy())
+                    and np.allclose(got[sp], ref[i].numpy(), rtol=1e-9, atol=0)):
+                fails.append(f"process {p}'s {sp} pulse profile differs from the rows'")
+        if "tree_engine auto -> kernel" not in out:
+            fails.append(f"process {p} did not log tree_engine auto -> kernel")
+        (launch_line,) = re.findall(r"^launches (\{.*\})$", out, re.M)
+        launches = json.loads(launch_line)
+        need = ("line_roots", "megakernel", "treekernel") if p == 0 else ("megakernel",
+                                                                          "treekernel")
+        if not all(launches[n] for n in need) or launches["line_scan"]:
+            fails.append(f"process {p} launched {launches}: it must launch {need}, not "
+                         "line_scan")
+        summary = next(ln for ln in out.splitlines() if ln.startswith("events="))
+        run_wall = float(re.search(r"wall=([0-9.]+)s", summary).group(1))
+        cold.append(walls[p] - run_wall)
+        log(20, f"mesh over the group, process {p}: wall {walls[p]:.2f} s from both starts, "
+                f"{walls[p] - run_wall:.2f} s of it before its run (cold start); launches "
+                f"{launches}; {summary.split(' -> ')[0]}")
+    one = SLICE_RUNS.get(7)
+    if one:
+        st = one["stats"]
+        log(20, f"phase 7 in one process, the same {n_events} events: cold run {one['cold']:.2f} "
+                f"s (a fresh process), warm run {one['warm']:.2f} s (gate {st.t_gate:.2f} sample "
+                f"{st.t_sample:.2f} pipe {st.t_pipeline:.2f} fetch {st.t_fetch:.2f} rows "
+                f"{st.t_rows:.2f})")
+    log(20, f"mesh over a group of 2 processes on one card, {n_events} events: rows "
+            f"{rows.shape} within the mesh bar of phase 7's {within}, bitwise {bitwise}; "
+            f"pulse profiles photon {float(mine[0].sum()):.6g}, axion {float(mine[1].sum()):.6g} "
+            f"(phase 7's {float(ref[0].sum()):.6g}, {float(ref[1].sum()):.6g}); cold starts "
+            f"{cold[0]:.2f} / {cold[1]:.2f} s")
+    if fails:
+        raise AssertionError("phase 20: " + "; ".join(fails))
+
+
 def phase_mesh(device, n_events, batch, rows_kernel):
-    """Phase 20: the mesh.  With two cards, --mesh 2 against --mesh 1 on the
-    kernel path: event, species, node count, stop code and c_bck bitwise,
-    the rest within 1e-9 relative.  With one card, --mesh 2 must raise
-    naming the missing card, and --mesh 1 gives phase 7's rows bitwise.
-    Then --profile_dir on a 256-event run: its trace (under build/) must
-    hold kernels."""
+    """Phase 20: the mesh.  First the mesh over a process group
+    (mesh_over_group).  With two cards, --mesh 2 against --mesh 1 on the
+    kernel path at the mesh bar (mesh_bar).  With one card, --mesh 2
+    without a group must raise naming the missing card, and --mesh 1 gives
+    phase 7's rows bitwise.  Then --profile_dir on a 256-event run: its
+    trace (under build/) must hold kernels."""
     import numpy as np
     import torch
 
     from adiabatic_raytracer_tpu_torch import cli
     from adiabatic_raytracer_tpu_torch.ops import cuda_lib
+
+    mesh_over_group(n_events, rows_kernel)
 
     def argv(tag, mesh):
         return (["--device", "cuda", "--event_batch", str(batch), "--Nts", str(n_events + 1),
@@ -2096,9 +2227,7 @@ def phase_mesh(device, n_events, batch, rows_kernel):
         raise AssertionError(f"phase 20: --mesh 1 launches {launches}: K1, K2 and K3 must")
     if torch.cuda.device_count() >= 2:
         rows2 = cli.run_from_args(argv("mesh2", 2))[0]
-        ok = (rows2.shape == rows1.shape
-              and all(np.array_equal(rows2[:, c], rows1[:, c]) for c in (0, 1, 20, 21, 27))
-              and np.allclose(rows2, rows1, rtol=1e-9, atol=1e-300))
+        ok = mesh_bar(rows2, rows1)
         log(20, f"--mesh 2 on {torch.cuda.device_count()} cards vs --mesh 1: rows {rows2.shape} "
                 f"within the mesh bar {ok}, bitwise {np.array_equal(rows2, rows1)}")
         if not ok:
@@ -3031,7 +3160,7 @@ def phase_slice(device, n_events, batch, tree_engine, phase, cold_run=True, extr
                  os.path.join(OUT, "slice"), "--ftag", tag, "--tree_engine", tree_engine]
                 + SCENE_ARGS + list(extra))
 
-    cold_msg = ""
+    cold_msg, cold_wall = "", None
     if cold_run:   # one CLI invocation in a fresh process: imports and warm-up included
         t0 = time.time()
         proc = subprocess.run([sys.executable, "-m", "adiabatic_raytracer_tpu_torch",
@@ -3052,6 +3181,7 @@ def phase_slice(device, n_events, batch, tree_engine, phase, cold_run=True, extr
         wall = time.time() - t0
         launches = dict(cuda_lib.LAUNCHES)
     write_profile(prof, wall, phase, tag)
+    SLICE_RUNS[phase] = dict(cold=cold_wall, warm=wall, stats=stats)
     rows = np.load(path)
     if not (rows.ndim == 2 and rows.shape[1] == 29 and rows.shape[0] > 0):
         raise AssertionError(f"slice output has shape {rows.shape}")

@@ -76,7 +76,6 @@ def test_port_never_imports_jax():
 @pytest.mark.parametrize("kw", [
     dict(cfg=dict(backtrace_chunk=64)),
     dict(cfg=dict(mc_chain=1)),
-    dict(mesh_devices=2, processes=2),
 ], ids=lambda kw: str(kw))
 def test_unported_options_raise(kw):
     cfg = tcfg.NumericsConfig(**kw.pop("cfg", {}))
@@ -94,12 +93,44 @@ def test_unported_options_raise(kw):
     dict(pipeline_depth=2),
     dict(mesh_devices=2, processes=1),
     dict(mesh_devices=1, processes=2),
+    dict(mesh_devices=2, processes=2),
 ], ids=lambda kw: str(kw))
 def test_ported_options_pass(kw):
     """The streaming window, saveMode 2/3, checkpoint/resume, pool_compact,
-    a mesh, pipeline depth 2 and processes each running their own shard are
-    ported: check_ported lets them pass."""
+    a mesh, pipeline depth 2, processes each running their own shard and a
+    mesh over the process group are ported: check_ported lets them pass."""
     check_ported(tcfg.NumericsConfig(**kw.pop("cfg", {})), **kw)
+
+
+def test_mesh_larger_than_group_raises(tmp_path):
+    """A mesh over a group takes one device per process: a mesh larger than
+    the group raises naming the missing device, in check_ported (the CLI
+    calls it before it joins the group), in make_mesh and in driver.run
+    under a group of one process, before anything runs."""
+    import socket
+
+    from adiabatic_raytracer_tpu_torch.driver import run
+    from adiabatic_raytracer_tpu_torch.parallel import mesh
+
+    with pytest.raises(ValueError, match="process 2's device is missing"):
+        check_ported(tcfg.NumericsConfig(), mesh_devices=3, processes=2)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    assert not mesh.process_group_exists()
+    mesh.init_distributed(f"127.0.0.1:{port}", 1, 0, timeout_s=60)
+    try:
+        assert [tuple(sh) for sh in mesh.make_mesh(1, "cpu")] == [(0, torch.device("cpu"))]
+        with pytest.raises(RuntimeError, match=r"process 1's device \(cpu there\) is missing"):
+            mesh.make_mesh(2, "cpu")
+        with pytest.raises(RuntimeError, match="process 1's device"):
+            run(tcfg.Scene(theta_m=0.2), tcfg.NumericsConfig(), tcfg.TreeConfig(), 3, seed=1,
+                dir_tag=str(tmp_path), device="cpu", mesh_devices=2)
+    finally:
+        mesh.leave_group()
+    assert not list(tmp_path.iterdir())
+    assert len(mesh.make_mesh(2, "cpu")) == 2      # without a group: virtual shards again
 
 
 def test_cli_takes_every_jax_run_flag():

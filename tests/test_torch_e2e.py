@@ -123,8 +123,15 @@ def test_refill_engine_through_driver_matches_kernel(tmp_path):
 
 
 def test_unported_cli_options_raise(tmp_path):
-    for extra in (["--tree_engine", "kernel", "--bndry_lyr", "1.0"],
-                  ["--mesh", "2", "--nprocs", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """An option the port does not run raises naming its ROADMAP item; a
+    mesh over a process group is ported, and one that cannot form (more
+    devices than processes, or no coordinator to join) raises naming why.
+    None of them runs anything."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_from_args(GOLDEN_ARGS + ["--dir_tag", str(tmp_path), "--tree_engine", "kernel",
+                                     "--bndry_lyr", "1.0"])
+    for extra, why in ((["--mesh", "3", "--nprocs", "2"], "process 2's device is missing"),
+                       (["--mesh", "2", "--nprocs", "2"], "needs the coordinator")):
+        with pytest.raises(ValueError, match=why):
             run_from_args(GOLDEN_ARGS + ["--dir_tag", str(tmp_path)] + extra)
     assert not glob.glob(str(tmp_path / "npy" / "*.npy"))
