@@ -380,6 +380,10 @@ struct Ray {
   double f0[7];  // derivative at u: the next step's first stage (FSAL)
   double lnt, dt, g0, errold, lnt_ck;
   int steps, n_cross, nfine, nbisect;  // nfine/nbisect: dense passes, bisected roots
+  // K2's chain instantiation only (dp5_step_warp<V, true>): the slot of the
+  // current segment's first crossing (the start-point rejection applies to
+  // it) and the crossing count at which the segment stops
+  int seg0, stop_n;
 };
 
 }  // namespace art

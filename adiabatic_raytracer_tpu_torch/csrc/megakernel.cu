@@ -12,6 +12,10 @@
 // boundary-layer plasma term; _condition, _grad_h_hand) is a template
 // parameter: one instantiation per variant, the launch picks the scene's, so
 // the production Melrose instantiation carries no other variant's code.
+// The in-kernel MC chain (_mega_kernel's with_chain: a pure-MC tree chain
+// continued through its crossings) is one more instantiation,
+// mega_chain_kernel, on the Melrose scene only (run_ray's Chain flag), so
+// mega_kernel's instantiations carry none of it.
 //
 // What bounds it on the card: the latency of one ray's serial chain, not
 // bytes or operations.  A step costs 6 RHS (sincos, exp and pow in the
@@ -69,21 +73,39 @@ __device__ __forceinline__ double pick(const double* v, int k) {
 
 // Ray i, integrated by all 32 lanes of the warp (same registers in every
 // lane); `lane` is the caller's lane index; V the dispersion variant.
-template <int V>
+//
+// Chain (mega_chain_kernel): aux column 7 holds the ray's chain cap c.  A
+// ray with c > 0 is a pure-MC chain of tree nodes (the reference's
+// with_chain, megakernel.py:885-893 there): each segment stops at its first
+// recorded crossing; while the crossing is not rare (rare_velocity) and
+// fewer than c crossings are recorded, the child is born in the kernel as
+// K3 and K4 give birth (child_birth: the draw uni[i, slot] < p at the
+// crossing, slot its crossing index, the species flipped if it converts, the
+// momenta renormalized in place) and a fresh segment starts at the crossing:
+// f0 and g0 there, a fresh initial step, the controller memory and the step
+// and stall counters reset, the crossing point as the start point of the
+// start-point rejection, as the host engine starts every node.  A chain ends
+// where the ray exits, at a rare crossing, or when c crossings are
+// recorded.  A ray with c = 0 runs the multi-crossing semantics of the
+// other instantiations.  chain_out gets the in-kernel restarts and the
+// final species; diag's steps count every segment's.
+template <int V, bool Chain>
 __device__ __forceinline__ void run_ray(const double* __restrict__ u_in,
-                                        const double* __restrict__ aux, int i,
+                                        const double* __restrict__ aux,
+                                        const double* __restrict__ uni, int i,
                                         const MegaParams& P, double* __restrict__ uf,
                                         double* __restrict__ lntf, double* __restrict__ diag,
                                         double* __restrict__ cru, double* __restrict__ crlnt,
                                         double* __restrict__ save_out,
-                                        double* __restrict__ pcx, int lane) {
+                                        double* __restrict__ pcx,
+                                        double* __restrict__ chain_out, int lane) {
   const int S = P.max_crossings;
   Ray R;
   for (int c = 0; c < 7; ++c) R.u[c] = u_in[(size_t)i * 7 + c];
   const double* a = aux + (size_t)i * 8;
   const double lnt0 = a[0], lnt1 = a[1], erg = a[2];
-  const double x0c[3] = {a[3], a[4], a[5]};
-  const bool photon = a[6] > 0.5;
+  double x0c[3] = {a[3], a[4], a[5]};
+  bool photon = a[6] > 0.5;
   for (int c = lane; c < S * 7; c += 32) cru[(size_t)i * S * 7 + c] = 0.0;
   for (int s = lane; s < S; s += 32) {
     crlnt[(size_t)i * S + s] = 0.0;
@@ -106,6 +128,15 @@ __device__ __forceinline__ void run_ray(const double* __restrict__ u_in,
   R.lnt_ck = lnt0;
   R.errold = 1e-4;
   int code = 0;
+  // the chain's cap and counters, and the last recorded crossing
+  int cap = 0, nodes = 0, steps_done = 0;
+  double ustar[7], p_star = 0.0;
+  if constexpr (Chain) {
+    const int c = (int)(a[7] + 0.5);
+    cap = c < S ? c : S;
+    R.seg0 = 0;
+    R.stop_n = cap > 0 ? 1 : S;
+  }
   // every recorded crossing: its state, log time and (with_prob) probability
   auto record = [&](const double* us, double lnt_s, int n) {
     const size_t slot = (size_t)i * S + n;
@@ -115,13 +146,47 @@ __device__ __forceinline__ void run_ray(const double* __restrict__ u_in,
       crlnt[slot] = lnt_s;
       if (P.with_prob) pcx[slot] = p;
     }
+    if constexpr (Chain) {
+      for (int c = 0; c < 7; ++c) ustar[c] = us[c];
+      p_star = p;
+    }
   };
   while (!done) {
-    code = dp5_step_warp<V>(P, R, lnt1, erg, photon, x0c, lnt_mid, save_mid, lane, record);
+    code = dp5_step_warp<V, Chain>(P, R, lnt1, erg, photon, x0c, lnt_mid, save_mid, lane,
+                                   record);
+    if constexpr (Chain) {
+      // a chain segment that stopped at its crossing (R is there): continue
+      // through it unless the crossing is rare or the cap is reached
+      if (code == 3 && cap > 0 && R.n_cross < cap && !rare_velocity(P, ustar, erg)) {
+        double dw_child;
+        if (child_birth(P, ustar, erg, uni[(size_t)i * S + R.n_cross - 1], p_star, R.u,
+                        &dw_child))
+          photon = !photon;
+        rhs<V>(P, R.u, R.lnt, erg, photon, R.f0);
+        R.g0 = condition<V>(P, R.u, R.lnt);
+        R.dt = initial_dt(P, R.u, R.f0, lnt1 - R.lnt);
+        steps_done += R.steps;
+        R.steps = 0;
+        R.lnt_ck = R.lnt;
+        R.errold = 1e-4;
+        double st, ct, sp, cp;
+        sincos(R.u[1], &st, &ct);
+        sincos(R.u[2], &sp, &cp);
+        x0c[0] = R.u[0] * st * cp;
+        x0c[1] = R.u[0] * st * sp;
+        x0c[2] = R.u[0] * ct;
+        R.seg0 = R.n_cross;
+        R.stop_n = R.n_cross + 1;
+        nodes += 1;
+        code = 0;
+        done = lnt1 - R.lnt <= 0.0;  // a node born at lnt1 takes no step
+        continue;
+      }
+    }
     done = code != 0;
   }
 
-  // lanes 0..6 uf, 7..13 save_mid, 14 lntf, 15..18 diag
+  // lanes 0..6 uf, 7..13 save_mid, 14 lntf, 15..18 diag (19, 20 chain_out)
   if (lane < 7) {
     uf[(size_t)i * 7 + lane] = pick<7>(R.u, lane);
   } else if (lane < 14) {
@@ -129,8 +194,11 @@ __device__ __forceinline__ void run_ray(const double* __restrict__ u_in,
   } else if (lane == 14) {
     lntf[i] = R.lnt;
   } else if (lane < 19) {
-    const double d[4] = {(double)R.steps, (double)code, (double)R.n_cross, (double)R.nfine};
+    const double d[4] = {(double)(R.steps + steps_done), (double)code, (double)R.n_cross,
+                         (double)R.nfine};
     diag[(size_t)i * 4 + lane - 15] = pick<4>(d, lane - 15);
+  } else if (Chain && lane < 21) {
+    chain_out[(size_t)i * 2 + lane - 19] = lane == 19 ? (double)nodes : (photon ? 1.0 : 0.0);
   }
 }
 
@@ -150,7 +218,32 @@ __global__ void __launch_bounds__(kThreads)
     if (lane == 0) i = atomicAdd(head, 1);
     i = __shfl_sync(kFullMask, i, 0);
     if (i >= B) return;
-    run_ray<V>(u_in, aux, i, P, uf, lntf, diag, cru, crlnt, save_out, pcx, lane);
+    run_ray<V, false>(u_in, aux, nullptr, i, P, uf, lntf, diag, cru, crlnt, save_out, pcx,
+                      nullptr, lane);
+  }
+}
+
+// K2's chain instantiation: mega_kernel's ray queue over run_ray<kMelrose,
+// true>, with the uniforms [B, S] and chain_out [B, 2] (in-kernel restarts,
+// final species).  The in-kernel probability, which the chain draws
+// against, covers the Melrose scene without boundary layer only
+// (megakernel.can_prob), so that is the one instantiation.
+__global__ void __launch_bounds__(kThreads)
+    mega_chain_kernel(const double* __restrict__ u_in, const double* __restrict__ aux,
+                      const double* __restrict__ uni, int B, int warps, int* __restrict__ head,
+                      MegaParams P, double* __restrict__ uf, double* __restrict__ lntf,
+                      double* __restrict__ diag, double* __restrict__ cru,
+                      double* __restrict__ crlnt, double* __restrict__ save_out,
+                      double* __restrict__ pcx, double* __restrict__ chain_out) {
+  const int lane = threadIdx.x & 31;
+  if ((int)(blockIdx.x * kWarps + threadIdx.x / 32) >= warps) return;
+  for (;;) {
+    int i = 0;
+    if (lane == 0) i = atomicAdd(head, 1);
+    i = __shfl_sync(kFullMask, i, 0);
+    if (i >= B) return;
+    run_ray<kMelrose, true>(u_in, aux, uni, i, P, uf, lntf, diag, cru, crlnt, save_out, pcx,
+                            chain_out, lane);
   }
 }
 
@@ -220,23 +313,26 @@ const ProbeKernel kProbeKernels[4] = {probe_kernel<kMelrose>, probe_kernel<kMelr
                                       probe_kernel<kIso>, probe_kernel<kIsoBndry>};
 
 
-// The warps the scene's instantiation keeps resident at once on the current
-// device: active blocks per SM (occupancy at its registers) x SMs x 4, asked
-// once per device and variant.
-int resident_warps(const MegaParams& P, int* out) {
+// The warps the scene's instantiation (chain: the chain instantiation) keeps
+// resident at once on the current device: active blocks per SM (occupancy
+// at its registers) x SMs x 4, asked once per device and instantiation.
+int resident_warps(const MegaParams& P, bool chain, int* out) {
   constexpr int kDevices = 64;
-  static int cache[kDevices][4] = {};
+  static int cache[kDevices][5] = {};
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  const int v = disp_of(P);
+  const int v = chain ? 4 : disp_of(P);
   if (dev < kDevices && cache[dev][v] > 0) {
     *out = cache[dev][v];
     return 0;
   }
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kMegaKernels[v], kThreads, 0);
+    err = chain ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mega_chain_kernel,
+                                                                kThreads, 0)
+                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kMegaKernels[v],
+                                                                kThreads, 0);
   *out = per_sm * sms * kWarps;
   if (err == cudaSuccess && dev < kDevices) cache[dev][v] = *out;
   return (int)err;
@@ -258,7 +354,7 @@ extern "C" int art_megakernel(const double* u_in, const double* aux, int B, Mega
   if (B <= 0) return 0;
   if (P.max_crossings < 1 || P.max_crossings > kMaxSlots) return (int)cudaErrorInvalidValue;
   int resident = 0;
-  const int err = resident_warps(P, &resident);
+  const int err = resident_warps(P, false, &resident);
   if (err != 0) return err;
   const int warps = resident < 1 ? 1 : (resident < B ? resident : B);
   const int blocks = (warps + kWarps - 1) / kWarps;
@@ -267,10 +363,35 @@ extern "C" int art_megakernel(const double* u_in, const double* aux, int B, Mega
   return (int)cudaGetLastError();
 }
 
+// art_megakernel's chain instantiation: aux column 7 holds each ray's chain
+// cap (0: the multi-crossing semantics; c > 0: the chain, at most S
+// crossings), uni [B, S] the uniform of each crossing slot's node, and
+// chain_out [B, 2] gets the in-kernel restarts and the final species
+// (1 photon).  The scene must be one megakernel.can_prob covers, with
+// P.with_prob set.  Returns cudaGetLastError().
+extern "C" int art_megakernel_chain(const double* u_in, const double* aux, const double* uni,
+                                    int B, MegaParams P, double* uf, double* lntf,
+                                    double* diag, double* cru, double* crlnt,
+                                    double* save_mid, double* pcx, double* chain_out,
+                                    int* head, void* stream) {
+  if (B <= 0) return 0;
+  if (P.max_crossings < 1 || P.max_crossings > kMaxSlots || disp_of(P) != kMelrose ||
+      !P.with_prob)
+    return (int)cudaErrorInvalidValue;
+  int resident = 0;
+  const int err = resident_warps(P, true, &resident);
+  if (err != 0) return err;
+  const int warps = resident < 1 ? 1 : (resident < B ? resident : B);
+  const int blocks = (warps + kWarps - 1) / kWarps;
+  mega_chain_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      u_in, aux, uni, B, warps, head, P, uf, lntf, diag, cru, crlnt, save_mid, pcx, chain_out);
+  return (int)cudaGetLastError();
+}
+
 // The warps art_megakernel launches at most for P's scene (its
 // instantiation's resident warps on the current device).
 extern "C" int art_megakernel_resident_warps(MegaParams P, int* out) {
-  return resident_warps(P, out);
+  return resident_warps(P, false, out);
 }
 
 extern "C" int art_probe(int which, const double* u, const double* lnt, const double* erg,

@@ -72,24 +72,6 @@ constexpr int F_VALID = 0, F_ISFIN = 1, F_ISPH = 2, F_ORD = 3, F_W = 4, F_PROB =
 constexpr int U_ROWS = 16, U_PH_IN = 7, U_CROSS_IN = 8;
 constexpr double INFO_OVERFLOW = 9.0;  // needs the host replay
 
-// Rare-fail guard (MainRunner.jl:213-224): a Cartesian proper-velocity
-// component above 1 at the crossing (geometry.celerity_to_cart_vel).
-static __device__ bool rare_velocity(const MegaParams& P, const double* u, double erg) {
-  const double r = u[0];
-  double sth, cth, sph, cph;
-  sincos(u[1], &sth, &cth);
-  sincos(u[2], &sph, &cph);
-  const double a = 1.0 - P.rs0 / r;
-  const double v_r = u[3] * erg * sqrt(a) * a;
-  const double v_t = u[4] * erg / r * a;
-  const double v_p = u[5] * erg / (r * sth) * a;
-  const double v_tmp = sth * v_r + cth * v_t;
-  const double vx = cph * v_tmp - sph * v_p;
-  const double vy = sph * v_tmp + cph * v_p;
-  const double vz = cth * v_r - sth * v_t;
-  return fabs(vx) > 1.0 || fabs(vy) > 1.0 || fabs(vz) > 1.0;
-}
-
 // Lanes 0..15 each store row `lane` of a 16-row record at dst.
 __device__ __forceinline__ void store_rows(double* dst, const double (&v)[16], int lane) {
   double x = v[0];
@@ -191,20 +173,8 @@ __device__ __forceinline__ bool tree_run(const MegaParams& P, const TreeParams& 
       const bool mc = ord > T.mc_nodes + 0.5;
       const int ix = (int)ord - 1;  // node index n draws fold_in(event_key, n)
       const double u_draw = (ix >= 0 && ix < T.uu) ? un[ix] : 0.0;
-      const bool conv = u_draw < p_star;
-      // birth state: the crossing's momenta renormalized onto the axion
-      // shell at the event energy, in place (the host's launch_state does a
-      // Cartesian round trip; in f64 the two differ by rounding)
-      const double r_s = ustar[0] > P.r_ns ? ustar[0] : P.r_ns;
-      const Metric<double> g = metric<double>(r_s, sin(ustar[1]), P.rs0_full, P.r_metric);
-      const double wsq =
-          g.rr * ustar[3] * ustar[3] + g.thth * ustar[4] * ustar[4] + g.pp * ustar[5] * ustar[5];
-      const double et = erg / P.mass_a;
-      const double nn = (-g.tt * et * et - 1.0) / (et * et * wsq);
-      const double nrm = sqrt(nn > 0.0 ? nn : 0.0);
-      const double uc[7] = {ustar[0], ustar[1], ustar[2], ustar[3] * nrm,
-                            ustar[4] * nrm, ustar[5] * nrm, ustar[6]};
-      const double dw_child = ustar[6] / erg;
+      double uc[7], dw_child;  // the birth state, in place (child_birth)
+      const bool conv = child_birth(P, ustar, erg, u_draw, p_star, uc, &dw_child);
       const double is_ph = photon ? 1.0 : 0.0, flip = photon ? 0.0 : 1.0;
       const double spA = mc ? (conv ? flip : is_ph) : flip;
       const double wA = mc ? w : p_star * w;

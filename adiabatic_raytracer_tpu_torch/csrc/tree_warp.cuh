@@ -122,8 +122,11 @@ __device__ __forceinline__ unsigned scan_round(const MegaParams& P, const double
 // Returns 0 to go on, else the end code, warp-uniform: 1 lnt1 reached, 2
 // photon at the star, 3 crossing cap, 4 step cap, 5 stalled.  V is the
 // dispersion variant (physics.cuh Disp) of the RHS and the condition; K3 and
-// K4 run only the Melrose one.
-template <int V = kMelrose, class Record>
+// K4 run only the Melrose one.  Chain (K2's chain instantiation): the
+// start-point rejection applies to the crossing in slot R.seg0, the first of
+// the current segment, and the crossing cap is R.stop_n instead of
+// P.max_crossings; without it the step is the code every other kernel runs.
+template <int V = kMelrose, bool Chain = false, class Record>
 __device__ __forceinline__ int dp5_step_warp(const MegaParams& P, Ray& R, double lnt1, double erg,
                                              bool photon, const double x0c[3], double lnt_mid,
                                              double* save_mid, int lane, Record&& record) {
@@ -234,12 +237,12 @@ __device__ __forceinline__ int dp5_step_warp(const MegaParams& P, Ray& R, double
           for (int c = 0; c < 3; ++c)
             within = within && fabs(pc[c]) < fabs(x0c[c]) * 1.0001 &&
                      fabs(pc[c]) > fabs(x0c[c]) / 1.0001;
-          const bool start_dup = within && R.n_cross == 0;
+          const bool start_dup = within && R.n_cross == (Chain ? R.seg0 : 0);
           const bool below = us[0] < P.r_ns * 1.01;
           if (!start_dup && !below && R.n_cross < P.max_crossings) {
             record(us, lnt_s, R.n_cross);
             R.n_cross += 1;
-            if (R.n_cross >= P.max_crossings) {  // crossing cap: stop at the crossing
+            if (R.n_cross >= (Chain ? R.stop_n : P.max_crossings)) {  // cap: stop there
               for (int c = 0; c < 7; ++c) R.u[c] = us[c];
               R.lnt = lnt_s;
               code = 3;
@@ -265,6 +268,52 @@ __device__ __forceinline__ int dp5_step_warp(const MegaParams& P, Ray& R, double
     code = ns ? 2 : reached ? 1 : maxed ? 4 : stalled ? 5 : 0;
   }
   return __shfl_sync(kFullMask, code, 0);
+}
+
+// Rare-fail guard (MainRunner.jl:213-224): a Cartesian proper-velocity
+// component above 1 at the crossing (geometry.celerity_to_cart_vel).  K3 and
+// K4 test it at every recorded crossing, K2's chain at each crossing it
+// would continue through.
+static __device__ bool rare_velocity(const MegaParams& P, const double* u, double erg) {
+  const double r = u[0];
+  double sth, cth, sph, cph;
+  sincos(u[1], &sth, &cth);
+  sincos(u[2], &sph, &cph);
+  const double a = 1.0 - P.rs0 / r;
+  const double v_r = u[3] * erg * sqrt(a) * a;
+  const double v_t = u[4] * erg / r * a;
+  const double v_p = u[5] * erg / (r * sth) * a;
+  const double v_tmp = sth * v_r + cth * v_t;
+  const double vx = cph * v_tmp - sph * v_p;
+  const double vy = sph * v_tmp + cph * v_p;
+  const double vz = cth * v_r - sth * v_t;
+  return fabs(vx) > 1.0 || fabs(vy) > 1.0 || fabs(vz) > 1.0;
+}
+
+// A child's birth at the recorded crossing us (MainRunner.jl:278-305), the
+// one block that K3's and K4's segment end and K2's chain share: returns the
+// MC draw u_draw < p (the node's uniform against the crossing's conversion
+// probability); uc gets the birth state, the crossing's momenta renormalized
+// onto the axion shell at the event energy with the full-NS-mass metric, in
+// place (the host's launch_state does a Cartesian round trip; in f64 the two
+// differ by rounding), and dw_child the child's Delta_omega.
+// ops/megakernel.py child_birth is its torch twin.
+__device__ __forceinline__ bool child_birth(const MegaParams& P, const double* us, double erg,
+                                            double u_draw, double p, double uc[7],
+                                            double* dw_child) {
+  const double r_s = us[0] > P.r_ns ? us[0] : P.r_ns;
+  const Metric<double> g = metric<double>(r_s, sin(us[1]), P.rs0_full, P.r_metric);
+  const double wsq = g.rr * us[3] * us[3] + g.thth * us[4] * us[4] + g.pp * us[5] * us[5];
+  const double et = erg / P.mass_a;
+  const double nn = (-g.tt * et * et - 1.0) / (et * et * wsq);
+  const double nrm = sqrt(nn > 0.0 ? nn : 0.0);
+  for (int c = 0; c < 3; ++c) {
+    uc[c] = us[c];
+    uc[3 + c] = us[3 + c] * nrm;
+  }
+  uc[6] = us[6];
+  *dw_child = us[6] / erg;
+  return u_draw < p;
 }
 
 }  // namespace art

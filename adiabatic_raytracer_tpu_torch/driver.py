@@ -91,13 +91,11 @@ def check_ported(cfg: NumericsConfig, *, save_mode: int = 0, mesh_devices: int =
     larger than the group raises ValueError, naming the missing device."""
     todo = [
         (cfg.engine not in ("pool", "mega", "pool_compact"), f"engine={cfg.engine!r}"),
-        (cfg.backtrace_chunk > 0, "backtrace_chunk > 0, K2's chunked relaunch, left unported on "
-         "purpose (ROADMAP Queue 1, left unported on purpose)"),
-        (bool(cfg.mc_chain), "mc_chain, left unported on purpose (ROADMAP Queue 1, left unported "
-         "on purpose)"),
+        (cfg.backtrace_chunk > 0, "backtrace_chunk > 0, K2's chunked relaunch, not ported yet "
+         "(ROADMAP Queue 2a, K2's branches still to port)"),
         (cfg.rhs_mode != "hand" or cfg.cond_mode != "fast" or cfg.gate_trig != "precise",
-         "rhs_mode='vjp' / cond_mode='canonical' / gate_trig='native', left unported on "
-         "purpose (ROADMAP Queue 1, left unported on purpose)"),
+         "rhs_mode='vjp' / cond_mode='canonical' / gate_trig='native', not ported yet "
+         "(ROADMAP Queue 2a, K2's branches still to port)"),
     ]
     for bad, what in todo:
         if bad:

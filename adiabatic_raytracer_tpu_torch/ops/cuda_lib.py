@@ -29,8 +29,8 @@ BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "torc
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"line_scan": 0, "line_roots": 0, "megakernel": 0, "treekernel": 0, "treerefill": 0, "probe": 0,
-            "refill_probe": 0}
+LAUNCHES = {"line_scan": 0, "line_roots": 0, "megakernel": 0, "megakernel_chain": 0,
+            "treekernel": 0, "treerefill": 0, "probe": 0, "refill_probe": 0}
 
 _lib = None
 BUILD_LOG = ""

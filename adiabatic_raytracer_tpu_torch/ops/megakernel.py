@@ -12,7 +12,11 @@ warps) warps pull rays from a queue in device memory, so a ray's result
 does not depend on which warp ran it.  The dispersion (anisotropic Melrose
 or isotropic, each with or without the boundary-layer plasma term) is a
 template parameter of the device code: the launch picks the scene's
-instantiation from MegaParams (art::disp_of).
+instantiation from MegaParams (art::disp_of).  The in-kernel MC chain (the
+reference's with_chain; integrate_mega's chain_cap and uniforms) is one more
+instantiation on the Melrose scene, mega_chain_kernel: a chain lane is born
+again in the kernel at each clean crossing, by the birth block K3 and K4
+run (child_birth), and integrates on; _chain_plain is its plain version.
 
 Precision: f64 state and physics.  The TPU kernel's float-float state,
 Cody-Waite sin/cos/exp and f32 bisection cap were workarounds for a chip
@@ -108,8 +112,8 @@ def check_supported(sc: Scene, cfg: NumericsConfig, max_crossings: int):
                                   "(ROADMAP Queue 1, \"Left unported on purpose\")")
     if cfg.rhs_mode != "hand" or cfg.cond_mode != "fast":
         raise NotImplementedError("megakernel: rhs_mode='vjp' / cond_mode="
-                                  "'canonical' are left unported on purpose (ROADMAP "
-                                  "Queue 1, \"Left unported on purpose\")")
+                                  "'canonical' are not ported yet (ROADMAP Queue 2a, "
+                                  "K2's branches still to port)")
     if not 1 <= max_crossings <= MAX_SLOTS:
         raise ValueError(f"max_crossings must be in 1..{MAX_SLOTS}")
 
@@ -547,6 +551,37 @@ def _hermite(u0, u1, f0, f1, h, tau):
                  for a, b, fa, fb in zip(u0, u1, f0, f1))
 
 
+def child_birth(P, us, erg, u_draw, p):
+    """Torch twin of art::child_birth (csrc/tree_warp.cuh), a child's birth
+    at the recorded crossings us [n, 7] (MainRunner.jl:278-305): (the MC
+    draw u_draw < p, the birth state [n, 7], the child's Delta_omega).  The
+    birth state is the crossing's momenta renormalized onto the axion shell
+    at the event energy with the full-NS-mass metric, in place."""
+    r_s = torch.clamp(us[:, 0], min=P.r_ns)
+    g_tt, g_rr, g_thth, g_pp = _metric(P, r_s, torch.sin(us[:, 1]), rs0=P.rs0_full)
+    wsq = g_rr * us[:, 3] ** 2 + g_thth * us[:, 4] ** 2 + g_pp * us[:, 5] ** 2
+    et = erg / P.mass_a
+    nrm = torch.sqrt(torch.clamp((-g_tt * et * et - 1.0) / (et * et * wsq), min=0.0))
+    uc = torch.cat([us[:, 0:3], us[:, 3:6] * nrm[:, None], us[:, 6:7]], dim=1)
+    return u_draw < p, uc, us[:, 6] / erg
+
+
+def rare_crossing(us, erg, mass_eff):
+    """The rare-fail guard (MainRunner.jl:213-224) at crossing states us
+    [n, 7]: a Cartesian proper-velocity component above 1 (the twin of
+    art::rare_velocity)."""
+    v = celerity_to_cart_vel(us[:, 0:3], us[:, 3:6] * erg[:, None], mass_eff)
+    return (torch.abs(v) > 1.0).any(dim=1)
+
+
+def sph_point(u):
+    """The Cartesian point of states u [n, 7], as the kernels compute a
+    segment's start point for the start-point rejection."""
+    st, ct = torch.sin(u[:, 1]), torch.cos(u[:, 1])
+    return torch.stack([u[:, 0] * st * torch.cos(u[:, 2]), u[:, 0] * st * torch.sin(u[:, 2]),
+                        u[:, 0] * ct], dim=1)
+
+
 # ---------------------------------------------------------------------------
 # probe: the device functions one at a time, for the card-side checks
 # ---------------------------------------------------------------------------
@@ -611,6 +646,9 @@ def bind(lib):
     lib.art_megakernel.argtypes = [p, p, ctypes.c_int, MegaParams,
                                    p, p, p, p, p, p, p, p, p]
     lib.art_megakernel.restype = ctypes.c_int
+    lib.art_megakernel_chain.argtypes = [p, p, p, ctypes.c_int, MegaParams,
+                                         p, p, p, p, p, p, p, p, p, p]
+    lib.art_megakernel_chain.restype = ctypes.c_int
     lib.art_megakernel_resident_warps.argtypes = [MegaParams, ctypes.POINTER(ctypes.c_int)]
     lib.art_megakernel_resident_warps.restype = ctypes.c_int
 
@@ -631,15 +669,22 @@ def resident_warps(P: MegaParams, device: torch.device) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _outputs_from_pool(res, lnt0, lnt1, erg, P, S, with_prob):
-    """integrate_mega's output tuple from a pool run."""
-    B = res.u.shape[0]
-    code = torch.zeros(B, dtype=torch.float64, device=res.u.device)
+def _codes(res, lnt1):
+    """K2's end codes of a pool run (1 end, 2 NS, 3 crossing cap, 4 step
+    cap, 5 stalled; 0 a launch with nothing to integrate)."""
+    code = torch.zeros(res.u.shape[0], dtype=torch.float64, device=res.u.device)
     reached = (~res.cut_short & ~res.ns_hit & (res.lnt >= lnt1 - 1e-14)
                & (res.steps > 0))
     for flag, val in ((res.stalled, 5.0), (res.maxed, 4.0), (reached, 1.0),
                       (res.ns_hit, 2.0), (res.cut_short, 3.0)):
         code = torch.where(flag, torch.full_like(code, val), code)
+    return code
+
+
+def _outputs_from_pool(res, lnt0, lnt1, erg, P, S, with_prob):
+    """integrate_mega's output tuple from a pool run."""
+    B = res.u.shape[0]
+    code = _codes(res, lnt1)
     lnt_mid = 0.5 * (lnt0 + lnt1)
     save_mid = torch.where((lnt_mid <= res.lnt)[:, None], res.save_u[:, 1],
                            torch.zeros_like(res.save_u[:, 1]))
@@ -657,13 +702,20 @@ def _outputs_from_pool(res, lnt0, lnt1, erg, P, S, with_prob):
             pcx, torch.zeros_like(code), None, f(res.steps))
 
 
+def save_grid(lnt0, lnt1):
+    """K2's ntimes=3 save grid [B, 3]: start, midpoint, end."""
+    frac = torch.tensor([0.0, 0.5, 1.0], dtype=lnt0.dtype, device=lnt0.device)
+    return lnt0[:, None] + (lnt1 - lnt0)[:, None] * frac[None, :]
+
+
 def pool_run(u0, lnt0, lnt1, erg, x0_cart, sc: Scene, cfg: NumericsConfig, *,
-             max_crossings: int, is_photon, species: str):
-    """The pool engine on K2's inputs (save grid: start, midpoint, end);
-    returns its PoolResult, which also counts each ray's bisected roots."""
+             max_crossings: int, is_photon, species: str, save_lnt=None):
+    """The pool engine on K2's inputs (save grid: start, midpoint, end, or
+    `save_lnt`); returns its PoolResult, which also counts each ray's
+    bisected roots."""
     B = u0.shape[0]
-    frac = torch.tensor([0.0, 0.5, 1.0], dtype=u0.dtype, device=u0.device)
-    save_lnt = lnt0[:, None] + (lnt1 - lnt0)[:, None] * frac[None, :]
+    if save_lnt is None:
+        save_lnt = save_grid(lnt0, lnt1)
     mass_eff = sc.mass_ns_eff
     pool_cfg = dataclasses.replace(cfg, max_crossings=max_crossings, n_save=3)
     return integrate_pool(
@@ -681,20 +733,28 @@ def _in_dtype(out, dtype):
 
 def integrate_mega_plain(u0, lnt0, lnt1, erg, x0_cart, sc: Scene, cfg: NumericsConfig,
                          *, max_crossings: int = 1, is_photon=None,
-                         species: str = "photon", with_prob: bool = False):
+                         species: str = "photon", with_prob: bool = False,
+                         chain_cap=None, uniforms=None):
     """K2's plain version: the pool engine (same DP5 tableau, controller and
     event semantics; dense scan on every step) followed by the torch twin of
     _prob_nd at the recorded crossings.  Same output tuple as
     integrate_mega, at the same boundary: f64 inside, whatever the caller's
     dtype (compute_dtype does not apply: the kernel has one precision), the
     outputs in u0's dtype.  n_fine counts every step, since the pool always
-    scans densely."""
+    scans densely.  With chain_cap, the chain instantiation's plain version
+    (_chain_plain)."""
     B = u0.shape[0]
     S = int(max_crossings)
     if is_photon is None:
         is_photon = torch.ones(B, dtype=torch.bool, device=u0.device)
     f64 = torch.float64
     u0_, lnt0, lnt1, erg, x0_cart = (a.to(f64) for a in (u0, lnt0, lnt1, erg, x0_cart))
+    if chain_cap is not None:
+        check_chain(sc, species)
+        P = mega_params(sc, cfg, max_crossings=S, species=species, with_prob=True)
+        out = _chain_plain(P, u0_, lnt0, lnt1, erg, x0_cart, sc, cfg, S, is_photon, species,
+                           chain_cap.to(f64), uniforms.to(f64))
+        return _in_dtype(out, u0.dtype)
     P = mega_params(sc, cfg, max_crossings=S, species=species, with_prob=with_prob)
     res = pool_run(u0_, lnt0, lnt1, erg, x0_cart, sc, cfg, max_crossings=S,
                    is_photon=is_photon, species=species)
@@ -702,32 +762,124 @@ def integrate_mega_plain(u0, lnt0, lnt1, erg, x0_cart, sc: Scene, cfg: NumericsC
     return _in_dtype(out[:10] + (is_photon.to(f64),) + out[11:], u0.dtype)
 
 
+def check_chain(sc: Scene, species: str):
+    """Raise on a chain launch K2's chain instantiation does not run: it
+    draws against the in-kernel probability (can_prob's scenes) and flips a
+    ray's species, so it needs species "mixed"."""
+    if not can_prob(sc):
+        raise ValueError("the in-kernel MC chain needs the in-kernel probability: the "
+                         "anisotropic Melrose, curved-space scene without boundary layer")
+    if species != "mixed":
+        raise ValueError(f"the in-kernel MC chain flips species: species 'mixed', got {species!r}")
+
+
+def _chain_plain(P, u0, lnt0, lnt1, erg, x0_cart, sc, cfg, S, is_photon, species, cap, uni):
+    """The chain instantiation's plain version, f64: rays with cap 0 run the
+    pool at S crossings; the chain rays run segment by segment, each a pool
+    run at one crossing on the launch's save grid.  After a segment that
+    recorded a crossing, a ray whose crossing is not rare (rare_crossing)
+    and that has fewer than its cap recorded is born again at the crossing
+    (child_birth, drawing uni[ray, slot] against the crossing's _prob_nd)
+    and runs its next segment from there, its start point the crossing's.
+    Returns integrate_mega's output tuple."""
+    B = u0.shape[0]
+    dev, f64 = u0.device, torch.float64
+    uf, lntf = u0.clone(), lnt0.clone()
+    steps, code, n_cross = (torch.zeros(B, dtype=f64, device=dev) for _ in range(3))
+    cru = torch.zeros((B, S, 7), dtype=f64, device=dev)
+    crlnt = torch.zeros((B, S), dtype=f64, device=dev)
+    pcx = torch.zeros((B, S), dtype=f64, device=dev)
+    save_mid = torch.zeros((B, 7), dtype=f64, device=dev)
+    nodes = torch.zeros(B, dtype=f64, device=dev)
+    is_ph = is_photon.to(f64).clone()
+    grid = save_grid(lnt0, lnt1)
+
+    multi = (cap < 0.5).nonzero().squeeze(1)
+    if multi.numel():
+        res = pool_run(u0[multi], lnt0[multi], lnt1[multi], erg[multi], x0_cart[multi], sc,
+                       cfg, max_crossings=S, is_photon=is_photon[multi], species=species)
+        out = _outputs_from_pool(res, lnt0[multi], lnt1[multi], erg[multi], P, S, True)
+        for dst, src in zip((uf, lntf, steps, code, n_cross, cru, crlnt, save_mid, pcx),
+                            out[:9]):
+            dst[multi] = src
+
+    lanes = (cap >= 0.5).nonzero().squeeze(1)
+    cap_r = torch.clamp(torch.round(cap), max=S)
+    u, lnt, x0, ph = u0[lanes], lnt0[lanes], x0_cart[lanes], is_photon[lanes].clone()
+    while lanes.numel():
+        res = pool_run(u, lnt, lnt1[lanes], erg[lanes], x0, sc, cfg, max_crossings=1,
+                       is_photon=ph, species=species, save_lnt=grid[lanes])
+        spanned = (grid[lanes, 1] > lnt) & (grid[lanes, 1] <= res.lnt)
+        save_mid[lanes[spanned]] = res.save_u[spanned, 1]
+        steps[lanes] += res.steps.to(f64)
+        crossed = res.n_cross >= 1
+        ci = crossed.nonzero().squeeze(1)
+        lc, slot = lanes[ci], n_cross[lanes[ci]].long()
+        us = res.cross_u[ci, 0]
+        p = _prob_nd(P, us.unbind(1), erg[lc])
+        cru[lc, slot] = us
+        crlnt[lc, slot] = res.cross_lnt[ci, 0]
+        pcx[lc, slot] = p
+        n_cross[lc] += 1.0
+        go = torch.zeros_like(crossed)
+        go[ci] = (n_cross[lc] < cap_r[lc]) & ~rare_crossing(us, erg[lc], sc.mass_ns_eff)
+        end = (~go).nonzero().squeeze(1)
+        le = lanes[end]
+        uf[le], lntf[le], code[le] = res.u[end], res.lnt[end], _codes(res, lnt1[lanes])[end]
+        is_ph[le] = ph[end].to(f64)
+        gi = go.nonzero().squeeze(1)
+        lg = lanes[gi]
+        draw = uni[lg, n_cross[lg].long() - 1]
+        conv, uc, _ = child_birth(P, res.u[gi], erg[lg], draw, pcx[lg, n_cross[lg].long() - 1])
+        nodes[lg] += 1.0
+        u, lnt, x0 = uc, res.lnt[gi], sph_point(uc)
+        ph = torch.where(conv, ~ph[gi], ph[gi])
+        lanes = lg
+    save_mid = torch.where((0.5 * (lnt0 + lnt1) <= lntf)[:, None], save_mid,
+                           torch.zeros_like(save_mid))
+    return (uf, lntf, steps, code, n_cross, cru, crlnt, save_mid, pcx, nodes, is_ph, steps)
+
+
 def integrate_mega(u0, lnt0, lnt1, erg, x0_cart, sc: Scene, cfg: NumericsConfig, *,
                    max_crossings: int = 1, is_photon=None, species: str = "photon",
-                   with_prob: bool = False):
+                   with_prob: bool = False, chain_cap=None, uniforms=None):
     """Run K2 over a [B, 7] state batch, min(B, resident warps) warps
     pulling rays from a queue.  Returns (u_final [B,7],
     lnt_final [B], steps [B], code [B] (1 end, 2 NS, 3 crossing cap,
     4 step cap, 5 stalled), n_cross [B], cross_u [B,S,7], cross_lnt [B,S],
     save_mid [B,7] (0 where the midpoint was never spanned), pcx [B,S],
-    chain_nodes [B] (always 0), is_ph [B], n_fine [B]), in u0's dtype: the
+    chain_nodes [B], is_ph [B], n_fine [B]), in u0's dtype: the
     inputs go up to f64 and the kernel runs in f64 whatever the caller's
-    dtype (--precision f32 gives f32 in and out).  CPU tensors run
-    integrate_mega_plain."""
+    dtype (--precision f32 gives f32 in and out).
+
+    chain_cap [B] (0 = off) with uniforms [B, S] runs K2's chain
+    instantiation (the reference's with_chain; csrc/megakernel.cu run_ray):
+    a ray with cap c > 0 continues its pure-MC chain through up to c
+    recorded crossings, drawing uniforms[ray, slot] at crossing `slot`;
+    chain_nodes counts its in-kernel restarts and is_ph is its final
+    species.  It implies with_prob, needs species "mixed" and a scene
+    can_prob covers.  Without it chain_nodes is 0 and is_ph the input
+    species.  CPU tensors run integrate_mega_plain."""
     if u0.device.type == "cpu":
         return integrate_mega_plain(u0, lnt0, lnt1, erg, x0_cart, sc, cfg,
                                     max_crossings=max_crossings, is_photon=is_photon,
-                                    species=species, with_prob=with_prob)
+                                    species=species, with_prob=with_prob,
+                                    chain_cap=chain_cap, uniforms=uniforms)
     S = int(max_crossings)
     check_supported(sc, cfg, S)
+    chain = chain_cap is not None
+    if chain:
+        check_chain(sc, species)
+        with_prob = True
     lib = cuda_lib.lib()
     B = u0.shape[0]
     dev = u0.device
     f64 = torch.float64
     if is_photon is None:
         is_photon = torch.ones(B, dtype=torch.bool, device=dev)
+    col7 = chain_cap if chain else torch.zeros_like(erg)
     aux = torch.stack([a.to(f64) for a in (lnt0, lnt1, erg, x0_cart[:, 0], x0_cart[:, 1],
-                                           x0_cart[:, 2], is_photon, torch.zeros_like(erg))],
+                                           x0_cart[:, 2], is_photon, col7)],
                       dim=1).contiguous()
     u_in = u0.to(f64).contiguous()
     cuda_lib.require(u_in, "u0", f64, (B, 7))
@@ -741,28 +893,49 @@ def integrate_mega(u0, lnt0, lnt1, erg, x0_cart, sc: Scene, cfg: NumericsConfig,
     save_mid = torch.empty((B, 7), dtype=f64, device=dev)
     pcx = torch.empty((B, S), dtype=f64, device=dev)
     head = torch.zeros(1, dtype=torch.int32, device=dev)   # the ray queue's head
-    code = lib.art_megakernel(
-        u_in.data_ptr(), aux.data_ptr(), B, P, uf.data_ptr(), lntf.data_ptr(),
-        diag.data_ptr(), cru.data_ptr(), crlnt.data_ptr(), save_mid.data_ptr(),
-        pcx.data_ptr(), head.data_ptr(), cuda_lib.stream_ptr(u_in))
-    cuda_lib.check(code, "megakernel launch")
-    cuda_lib.LAUNCHES["megakernel"] += 1
+    if chain:
+        uni = uniforms.to(f64).contiguous()
+        cuda_lib.require(uni, "uniforms", f64, (B, S))
+        chain_out = torch.empty((B, 2), dtype=f64, device=dev)
+        code = lib.art_megakernel_chain(
+            u_in.data_ptr(), aux.data_ptr(), uni.data_ptr(), B, P, uf.data_ptr(),
+            lntf.data_ptr(), diag.data_ptr(), cru.data_ptr(), crlnt.data_ptr(),
+            save_mid.data_ptr(), pcx.data_ptr(), chain_out.data_ptr(), head.data_ptr(),
+            cuda_lib.stream_ptr(u_in))
+        cuda_lib.check(code, "megakernel chain launch")
+        cuda_lib.LAUNCHES["megakernel_chain"] += 1
+        nodes, is_ph_out = chain_out[:, 0], chain_out[:, 1]
+    else:
+        code = lib.art_megakernel(
+            u_in.data_ptr(), aux.data_ptr(), B, P, uf.data_ptr(), lntf.data_ptr(),
+            diag.data_ptr(), cru.data_ptr(), crlnt.data_ptr(), save_mid.data_ptr(),
+            pcx.data_ptr(), head.data_ptr(), cuda_lib.stream_ptr(u_in))
+        cuda_lib.check(code, "megakernel launch")
+        cuda_lib.LAUNCHES["megakernel"] += 1
+        nodes, is_ph_out = torch.zeros_like(lntf), is_photon.to(f64)
     return _in_dtype((uf, lntf, diag[:, 0], diag[:, 1], diag[:, 2], cru, crlnt, save_mid, pcx,
-                      torch.zeros_like(lntf), is_photon.to(f64), diag[:, 3]), u0.dtype)
+                      nodes, is_ph_out, diag[:, 3]), u0.dtype)
 
 
 def propagate_mega(x0_cart, k0_cart, sc: Scene, cfg: NumericsConfig, *, erg, delta_w,
                    lnt0, lnt1, is_photon, max_crossings: int = 1,
-                   species: str = "mixed", with_prob: bool = False) -> PropagateResult:
+                   species: str = "mixed", with_prob: bool = False, chain_cap=None,
+                   uniforms=None) -> PropagateResult:
     """PropagateResult around integrate_mega (the reference's propagate_mega);
-    the ntimes=3 trajectory is (launch point, midpoint, endpoint)."""
+    the ntimes=3 trajectory is (launch point, midpoint, endpoint).
+    chain_cap and uniforms run the in-kernel MC chain where can_prob covers
+    the scene (elsewhere they are ignored, as in the reference); the result
+    then carries chain_nodes and final_is_ph."""
     mass_eff = sc.mass_ns_eff
     u0 = launch_state(x0_cart, k0_cart, sc, erg, delta_w)
-    with_prob = bool(with_prob) and can_prob(sc)
-    (uf, lntf, steps, code, n_cross, cru, crlnt, save_mid, pcx, _chain, _isph,
+    chain = chain_cap is not None and can_prob(sc)
+    with_prob = (bool(with_prob) and can_prob(sc)) or chain
+    (uf, lntf, steps, code, n_cross, cru, crlnt, save_mid, pcx, nodes, is_ph_out,
      _nfine) = integrate_mega(u0, lnt0, lnt1, erg, x0_cart, sc, cfg,
                               max_crossings=max_crossings, is_photon=is_photon,
-                              species=species, with_prob=with_prob)
+                              species=species, with_prob=with_prob,
+                              chain_cap=chain_cap if chain else None,
+                              uniforms=uniforms if chain else None)
 
     def state_to_cart(uu):
         x_sph = uu[:, 0:3]
@@ -788,4 +961,6 @@ def propagate_mega(x0_cart, k0_cart, sc: Scene, cfg: NumericsConfig, *, erg, del
         n_cross=n_cross.to(torch.int64),
         times=lnt0[:, None] + (lnt1 - lnt0)[:, None] * frac[None, :],
         final_lnt=lntf, ns_hit=code == 2.0, maxed=(code == 4.0) | (code == 5.0),
-        steps=steps.to(torch.int64), pcx=pcx if with_prob else None)
+        steps=steps.to(torch.int64), pcx=pcx if with_prob else None,
+        chain_nodes=nodes.to(torch.int64) if chain else None,
+        final_is_ph=is_ph_out > 0.5 if chain else None)

@@ -64,6 +64,8 @@ class PropagateResult(NamedTuple):
     maxed: Any       # [B] bool
     steps: Any       # [B]
     pcx: Any = None  # [B, MAXC] in-kernel conversion probabilities (mega only)
+    chain_nodes: Any = None  # [B] in-kernel MC chain restarts (K2's chain only)
+    final_is_ph: Any = None  # [B] bool species at the end of the in-kernel chain
 
 
 def cast_scene(sc: Scene, dtype) -> Scene:

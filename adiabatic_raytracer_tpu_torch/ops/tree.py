@@ -269,6 +269,14 @@ def forward_tree(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
     whenever the work queue covers all valid lanes; only n_iters and done_it
     differ.
 
+    cfg.mc_chain (engine mega with the in-kernel probability on a scene
+    can_prob covers; tree.py:329-338 of the reference) runs the in-kernel
+    MC chain: an iteration with a chain lane launches K2's chain
+    instantiation for all its lanes (megakernel.integrate_mega's
+    chain_cap), and the chain's processed children are written from its
+    crossing slots (_chain_children).  A chained tree is the single-step
+    tree in fewer iterations.
+
     `skip`: optional [E] bool; events marked True start done (their pools
     hold only the seeded root).  K3's host replay uses it to run only the
     events that overflowed the kernel's finals slots (tree.py:282-287 of the
@@ -279,9 +287,6 @@ def forward_tree(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
 
         return forward_tree_kernel(key, xpos, k_init, erg_inf, sc, cfg, tcfg,
                                    lnt_end=lnt_end)
-    if cfg.mc_chain:
-        raise NotImplementedError("mc_chain is left unported on purpose "
-                                  "(ROADMAP Queue 1, left unported on purpose)")
     E = xpos.shape[0]
     dev, dtype = xpos.device, xpos.dtype
     P = 2 * tcfg.max_nodes + 4
@@ -297,10 +302,15 @@ def forward_tree(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
     else:
         K = int(min(P, tcfg.mc_nodes + 2))
     mega = cfg.engine == "mega"
+    mega_chain = False
     if mega:
         from adiabatic_raytracer_tpu_torch.ops.megakernel import can_prob, propagate_mega
 
         mega_prob = bool(cfg.in_kernel_prob) and can_prob(sc)
+        # the in-kernel MC chain (tree.py:329-338 of the reference): K2's
+        # chain instantiation on a scene with the in-kernel probability
+        mega_chain = bool(cfg.mc_chain) and mega_prob
+    CH = int(max(1, min(cfg.mc_chain_slots, tcfg.max_nodes + 2)))
     keys = _event_keys(key, E, dev)
     skey = physics_dtype(cfg.compute_dtype, dtype)
 
@@ -395,12 +405,38 @@ def forward_tree(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
         kw = dict(erg=erg_l, delta_w=dw_node[vw, vj], lnt0=lnt0,
                   lnt1=torch.full((L,), float(lnt_end), dtype=dtype, device=dev),
                   is_photon=is_ph[vw, vj], species="mixed")
+        # chain lanes (tree.py:476-516 of the reference): the lead lane of an
+        # event in MC mode with one pending node, in the endgame when
+        # mc_chain_gate > 0; cap bounds its recorded crossings by the node
+        # budget (an index may reach max_nodes + 1) and the CH slots.  Their
+        # uniforms are the host's draws of the node indices count_now + j.
+        chainy = torch.zeros(L, dtype=torch.bool, device=dev)
+        if mega_chain and L:
+            n_pend = (pending & active[:, None]).sum(dim=1)
+            chain_ev = (n_pend == 1) & (count_w + 1 > tcfg.mc_nodes)
+            if cfg.mc_chain_gate > 0:
+                chain_ev = chain_ev & (active.sum() * cfg.mc_chain_gate <= Ew)
+            cap = torch.where(chain_ev[vw] & (vj == 0),
+                              torch.clamp(tcfg.max_nodes + 2 - count_now[vw, vj], 1, CH),
+                              torch.ones_like(vw))
+            chainy = cap > 1
+        chain_launch = bool(chainy.any())
         pcx_l = None
         if L == 0:
             res = None
         elif mega:
+            chain_kw = {}
+            if chain_launch:
+                # one launch through the chain instantiation: every lane has
+                # cap >= 1 (cap 1 stops at its first crossing, as one slot does)
+                ci = chainy.nonzero().squeeze(1)
+                uni = torch.zeros((L, CH), dtype=dtype, device=dev)
+                ix = count_now[vw[ci], vj[ci]][:, None] + torch.arange(CH, device=dev)[None, :]
+                uni[ci] = rng.uniform(rng.fold_in(keys[ve[ci]][:, None, :], ix), dtype=dtype)
+                chain_kw = dict(chain_cap=cap.to(dtype), uniforms=uni)
             res = propagate_mega(pl.pos[ve, slot], pl.k[ve, slot], sc, cfg,
-                                 max_crossings=1, with_prob=bool(cfg.in_kernel_prob), **kw)
+                                 max_crossings=CH if chain_launch else 1,
+                                 with_prob=bool(cfg.in_kernel_prob), **chain_kw, **kw)
             pcx_l = res.pcx[:, 0] if (mega_prob and res.pcx is not None) else None
         else:
             res = propagate(pl.pos[ve, slot], pl.k[ve, slot], sc, cfg,
@@ -409,10 +445,45 @@ def forward_tree(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
 
         has_x = torch.zeros((Ew, K), dtype=torch.bool, device=dev)
         rare = torch.zeros_like(has_x)
+        if chain_launch:
+            chain_g = torch.zeros_like(has_x)        # chain lanes
+            chain_end = torch.zeros_like(has_x)      # chain lanes that ended in the kernel
+            chain_exit = torch.zeros_like(has_x)     # ... at an exit (a final node)
+            chain_kids = torch.zeros((Ew, K), dtype=torch.int64, device=dev)
+            chain_nodes = torch.zeros_like(chain_kids)
         if L:
             hx = res.n_cross >= 1
             kc0 = res.kc[:, 0]
             rr = hx & (torch.abs(kc0) > 1.0).any(dim=1)   # MainRunner.jl:213-224
+            traj_l, mom_l, ferg_l, ftime_l = res.traj, res.mom, res.erg[:, -1], res.final_lnt
+            if chain_launch:
+                # the chain's outputs (tree.py:648-680 of the reference): r_ch
+                # restarts in the kernel, so r_ch processed children; a stop
+                # at the budget with a clean last crossing leaves one more
+                # child pending; a stop below it was a rare crossing, which
+                # the kernel decided (slot 0's too: a chain that went on past
+                # slot 0 took it as clean)
+                r_ch = torch.where(chainy, res.chain_nodes, torch.zeros_like(res.chain_nodes))
+                ended3 = chainy & res.cut_short
+                last = torch.clamp(res.n_cross - 1, 0, CH - 1)
+                rare_last = (torch.abs(res.kc[torch.arange(L, device=dev), last]) > 1.0).any(dim=1)
+                pend = ended3 & (res.n_cross >= cap) & ~rare_last
+                rare_term = ended3 & ~pend
+                exit3 = chainy & (r_ch >= 1) & ~res.cut_short
+                rr = torch.where(chainy, rare_term & (r_ch == 0), rr)
+                chain_g[vw, vj] = chainy
+                chain_end[vw, vj] = exit3 | (rare_term & (r_ch >= 1))
+                chain_exit[vw, vj] = exit3
+                chain_kids[vw, vj] = r_ch + pend.to(torch.int64)
+                chain_nodes[vw, vj] = r_ch
+                # node A ended at crossing 0 where the chain restarted
+                mid = r_ch >= 1
+                traj_l, mom_l = traj_l.clone(), mom_l.clone()
+                traj_l[mid, 1:] = res.xc[mid, 0][:, None]
+                mom_l[mid, 1:] = res.kc[mid, 0][:, None]
+                ferg_l = torch.where(mid, res.dwc[:, 0] * erg_l, ferg_l)
+                ftime_l = torch.where(mid, torch.log(torch.clamp(res.tc[:, 0], min=1e-300)),
+                                      ftime_l)
             has_x[vw, vj] = hx
             rare[vw, vj] = rr
             ok_l = hx & ~rr
@@ -426,12 +497,12 @@ def forward_tree(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
                                            cfg.compute_dtype)[0]
             # record propagation results on the processed nodes
             pl.status[ve, slot] = 2
-            pl.fpos[ve, slot] = res.traj[:, -1]
-            pl.fmom[ve, slot] = res.mom[:, -1]
-            pl.ferg[ve, slot] = res.erg[:, -1]
-            pl.ftime[ve, slot] = res.final_lnt
-            pl.traj[ve, slot] = res.traj
-            pl.mom[ve, slot] = res.mom
+            pl.fpos[ve, slot] = traj_l[:, -1]
+            pl.fmom[ve, slot] = mom_l[:, -1]
+            pl.ferg[ve, slot] = ferg_l
+            pl.ftime[ve, slot] = ftime_l
+            pl.traj[ve, slot] = traj_l
+            pl.mom[ve, slot] = mom_l
             pl.times[ve, slot] = res.times
             pl.has_cross[ve, slot] = ok_l
             pl.order[ve, slot] = count_now[vw, vj]
@@ -449,23 +520,35 @@ def forward_tree(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
 
         cross_ok = has_x & ~rare
         no_cross = valid & ~has_x
-        tot_prob_w = row(tot_prob) + torch.where(no_cross | rare, w_node,
+        weight_out, final_out = no_cross | rare, no_cross
+        if chain_launch:
+            # a chain's last node ended without a crossing or at a rare one
+            # (tree.py:775-790 of the reference)
+            weight_out, final_out = weight_out | chain_end, final_out | chain_exit
+        tot_prob_w = row(tot_prob) + torch.where(weight_out, w_node,
                                                  torch.zeros_like(w_node)).sum(dim=1)
-        count_main_w = row(count_main) + no_cross.sum(dim=1)
+        count_main_w = row(count_main) + final_out.sum(dim=1)
         dw_bad = valid & ((dw_node > -0.5) | (dw_node < -2.0))
-        dw_anom = put(dw_anom, row(dw_anom) + dw_bad.sum(dim=1))
+        dw_anom_w = row(dw_anom) + dw_bad.sum(dim=1)
+        if chain_launch:   # the children processed in the kernel, one dw each
+            bad = ((torch.arange(CH, device=dev)[None, :] < r_ch[:, None])
+                   & ((res.dwc > -0.5) | (res.dwc < -2.0)))
+            dw_anom_w = dw_anom_w.index_add(0, vw, bad.sum(dim=1))
+        dw_anom = put(dw_anom, dw_anom_w)
 
         # spawn children (MainRunner.jl:278-305); the MC draw folds the
         # per-event node index into the event key
         pcx = torch.zeros((Ew, K), dtype=dtype, device=dev)
         convert = torch.zeros_like(cross_ok)
+        spawn = cross_ok
+        if chain_launch:   # chain lanes spawn through _chain_children
+            spawn = cross_ok & ~chain_g
         if L:
             pcx[vw, vj] = pcx_lane
-            ci = cross_ok.nonzero(as_tuple=True)
+            ci = spawn.nonzero(as_tuple=True)
             if ci[0].numel():
                 sub = rng.fold_in(keys[aw[ci[0]]], count_now[ci])
                 convert[ci] = rng.uniform(sub, dtype=dtype) < pcx[ci]
-        spawn = cross_ok
         mc_mode = count_now > tcfg.mc_nodes
         new_species = ~is_ph
         a_species = torch.where(mc_mode, torch.where(convert, new_species, is_ph),
@@ -474,6 +557,8 @@ def forward_tree(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
         a_weight = torch.where(mc_mode, w_node, pcx * w_node)
         a_pc0 = torch.where(mc_mode, torch.where(convert, pcx, prob_conv_parent), pcx)
         n_child = torch.where(spawn, torch.where(mc_mode, 1, 2), 0).to(torch.int64)
+        if chain_launch:
+            n_child = torch.where(chain_g, chain_kids, n_child)
         n_alloc_w = row(n_alloc)
         base = n_alloc_w[:, None] + torch.cumsum(n_child, dim=1) - n_child
         write_a = spawn & (base < P)
@@ -500,8 +585,15 @@ def forward_tree(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
             pl.prob_conv[ev, s] = pcx[we, wj]
             pl.prob_conv0[ev, s] = pc0[we, wj]
             pl.status[ev, s] = 1
-        n_alloc = put(n_alloc, n_alloc_w + write_a.sum(dim=1) + write_b.sum(dim=1))
+        n_alloc_w = n_alloc_w + write_a.sum(dim=1) + write_b.sum(dim=1)
+        if chain_launch:
+            n_alloc_w = _chain_children(pl, res, chainy, cap, uni, vw, vj, ve, base, count_now,
+                                        is_ph, w_node, prob_conv_parent, erg_l, r_ch, pend,
+                                        rare_term, exit3, n_alloc_w, sc, P, CH)
+        n_alloc = put(n_alloc, n_alloc_w)
         count_w = count_w + valid.sum(dim=1)
+        if chain_launch:
+            count_w = count_w + chain_nodes.sum(dim=1)
 
         # cutoffs (MainRunner.jl:324-339), checked once per iteration
         info_w = row(info)
@@ -537,6 +629,83 @@ def forward_tree(key, xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
                       tot_prob=tot_prob, n_alloc=n_alloc, dw_anomalies=dw_anom,
                       n_iters=torch.full((E,), it, dtype=torch.int64, device=dev),
                       done_it=torch.where(done_it > 0, done_it, it))
+
+
+def _chain_children(pl, res, chainy, cap, uni, vw, vj, ve, base, count_now, is_ph, w_node,
+                    prob_conv_parent, erg_l, r_ch, pend, rare_term, exit3, n_alloc_w, sc, P,
+                    CH):
+    """The chain lanes' children (tree.py:866-945 of the reference): the
+    records the host engine writes one iteration at a time, from the kernel's
+    crossing slots.  Child C_(j+1) is born at slot j; the r_ch processed ones
+    end at slot j + 1 or, the last, at the launch's end; a child left at a
+    budget stop is pending.  Species and probabilities replay the kernel's
+    draws from the same uniforms and pcx.  Writes the pools in place;
+    returns n_alloc_w with the children allocated."""
+    ci = chainy.nonzero().squeeze(1)
+    cw, cj, ce = vw[ci], vj[ci], ve[ci]
+    base_c, rc, pc = base[cw, cj], r_ch[ci], pend[ci]
+    ncl, rt, ex = res.n_cross[ci], rare_term[ci], exit3[ci]
+    xcs, kcs, tcs, dwcs, pcs = res.xc[ci], res.kc[ci], res.tc[ci], res.dwc[ci], res.pcx[ci]
+    erg_c, w_c = erg_l[ci], w_node[cw, cj]
+    conv_all = uni[ci] < pcs
+    sp = is_ph[cw, cj]
+    end_pos, end_mom = res.traj[ci, -1], res.mom[ci, -1]
+    end_ferg, end_ftime = res.erg[ci, -1], res.final_lnt[ci]
+    final_end = torch.linalg.norm(end_pos, dim=-1) > sc.r_ns * 1.1
+    NS = pl.traj.shape[2]
+    added = torch.zeros_like(ci)
+    for j in range(CH):
+        is_proc = j < rc
+        room = base_c + j < P
+        wr = (is_proc | ((j == rc) & pc)) & room
+        conv = conv_all[:, j]
+        sp_child = torch.where(conv, ~sp, sp)
+        p_j = pcs[:, j]
+        pc0_parent = pcs[:, j - 1] if j >= 1 else prob_conv_parent[cw, cj]
+        wi = wr.nonzero().squeeze(1)
+        ev, s = ce[wi], base_c[wi] + j
+        pl.pos[ev, s] = xcs[wi, j]
+        pl.k[ev, s] = kcs[wi, j]
+        pl.t[ev, s] = tcs[wi, j]
+        pl.dw[ev, s] = dwcs[wi, j]
+        pl.is_photon[ev, s] = sp_child[wi]
+        pl.prob[ev, s] = torch.where(conv, p_j, 1.0 - p_j)[wi]
+        pl.weight[ev, s] = w_c[wi]
+        pl.parent_weight[ev, s] = w_c[wi]
+        pl.prob_conv[ev, s] = p_j[wi]
+        pl.prob_conv0[ev, s] = torch.where(conv, p_j, pc0_parent)[wi]
+        pl.status[ev, s] = torch.where(is_proc, 2, 1)[wi]
+        # a processed child's endpoint, crossing and order records
+        nj = min(j + 1, CH - 1)
+        at_slot = is_proc & (j + 1 < ncl)
+        f_pos = torch.where(at_slot[:, None], xcs[:, nj], end_pos)
+        f_mom = torch.where(at_slot[:, None], kcs[:, nj], end_mom)
+        f_erg = torch.where(at_slot, dwcs[:, nj] * erg_c, end_ferg)
+        f_time = torch.where(at_slot, torch.log(torch.clamp(tcs[:, nj], min=1e-300)), end_ftime)
+        hasx = at_slot & ~(rt & (j + 1 == ncl - 1))
+        pi = (is_proc & room).nonzero().squeeze(1)
+        ev, s = ce[pi], base_c[pi] + j
+        pl.order[ev, s] = count_now[cw, cj][pi] + j + 1
+        pl.fpos[ev, s] = f_pos[pi]
+        pl.fmom[ev, s] = f_mom[pi]
+        pl.ferg[ev, s] = f_erg[pi]
+        pl.ftime[ev, s] = f_time[pi]
+        pl.traj[ev, s] = torch.cat([xcs[pi, j][:, None], f_pos[pi][:, None].expand(-1, NS - 1, -1)],
+                                   dim=1)
+        pl.mom[ev, s] = torch.cat([kcs[pi, j][:, None], f_mom[pi][:, None].expand(-1, NS - 1, -1)],
+                                  dim=1)
+        pl.has_cross[ev, s] = hasx[pi]
+        pl.is_final[ev, s] = (ex & (j + 1 == rc) & final_end)[pi]
+        xi = (hasx & room).nonzero().squeeze(1)
+        ev, s = ce[xi], base_c[xi] + j
+        pl.xc[ev, s] = xcs[xi, nj]
+        pl.kc[ev, s] = kcs[xi, nj]
+        pl.tcx[ev, s] = tcs[xi, nj]
+        pl.dwcx[ev, s] = dwcs[xi, nj]
+        pl.pcx[ev, s] = pcs[xi, nj]
+        added = added + wr.to(added.dtype)
+        sp = sp_child
+    return n_alloc_w.index_add(0, cw, added)
 
 
 def compact_finals_global(pools: TreePools, cap: int, out_dtype=None,

@@ -57,12 +57,16 @@ from adiabatic_raytracer_tpu_torch.ops.megakernel import (
     MegaParams,
     _condition,
     _hermite,
-    _metric,
     _prob_nd,
     _rhs,
     can_prob,
     check_supported,
+    child_birth,
     mega_params,
+    rare_crossing,
+)
+from adiabatic_raytracer_tpu_torch.ops.megakernel import (
+    sph_point as _cart,   # a segment's start point, as the kernels compute it
 )
 from adiabatic_raytracer_tpu_torch.ops.propagate import lapse_interior, launch_state
 from adiabatic_raytracer_tpu_torch.utils import rng
@@ -165,12 +169,6 @@ def _f(P, u, lnt, erg, is_ph):
 
 def _g(P, u, lnt):
     return _condition(P, u.unbind(1), lnt)
-
-
-def _cart(u):
-    st, ct = torch.sin(u[:, 1]), torch.cos(u[:, 1])
-    return torch.stack([u[:, 0] * st * torch.cos(u[:, 2]), u[:, 0] * st * torch.sin(u[:, 2]),
-                        u[:, 0] * ct], dim=1)
 
 
 def _flipped(a, b):
@@ -507,8 +505,7 @@ def _segment_end(P, T: TreeParams, S, ends, crossed, u_root, lnt_root, p_root, l
     rare = torch.zeros_like(ends)
     ci = crossed.nonzero().squeeze(1)
     if ci.numel():   # rare-fail guard (MainRunner.jl:213-224)
-        v = celerity_to_cart_vel(u_root[ci, 0:3], u_root[ci, 3:6] * erg[ci, None], mass_eff)
-        rare[ci] = (torch.abs(v) > 1.0).any(dim=1)
+        rare[ci] = rare_crossing(u_root[ci], erg[ci], mass_eff)
     exit_ = ends & ~crossed
     w = S["w"]
     S["totp"] = S["totp"] + torch.where(exit_ | rare, w, torch.zeros_like(w))
@@ -531,15 +528,7 @@ def _segment_end(P, T: TreeParams, S, ends, crossed, u_root, lnt_root, p_root, l
         in_rng = (ix >= 0) & (ix < T.uu)
         u_draw = torch.where(in_rng, uni[si, ix.clamp(0, T.uu - 1)], torch.zeros_like(ord_))
         p = p_root[si]
-        conv = u_draw < p
-        us = u_root[si]
-        r_s = torch.clamp(us[:, 0], min=P.r_ns)
-        g_tt, g_rr, g_thth, g_pp = _metric(P, r_s, torch.sin(us[:, 1]), rs0=P.rs0_full)
-        wsq = g_rr * us[:, 3] ** 2 + g_thth * us[:, 4] ** 2 + g_pp * us[:, 5] ** 2
-        et = erg[si] / P.mass_a
-        nrm = torch.sqrt(torch.clamp((-g_tt * et * et - 1.0) / (et * et * wsq), min=0.0))
-        uc = torch.cat([us[:, 0:3], us[:, 3:6] * nrm[:, None], us[:, 6:7]], dim=1)
-        dw_child = us[:, 6] / erg[si]
+        conv, uc, dw_child = child_birth(P, u_root[si], erg[si], u_draw, p)
         is_ph = S["is_ph"][si]
         flip = 1.0 - is_ph
         w_s, pconv = w[si], S["pconv"][si]

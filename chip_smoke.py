@@ -8,7 +8,8 @@ and an isotropic scene, its saveMode 3 text and tree dumps, checkpoint and
 resume, the forward tree's streaming window, pipeline depth 2, two processes
 in one group, the mesh (in one process and over a group of processes),
 engine pool_compact, the diagnostics and
-analysis, and --precision f32 / --computeDtype, and checks the output.
+analysis, --precision f32 / --computeDtype, and the in-kernel MC chain on
+the queue tree (mc_chain), and checks the output.
 
     python3 chip_smoke.py            # needs one CUDA device
 
@@ -183,11 +184,32 @@ non-zero):
      (zone_counts, whose few reductions per launch run inside the timed
      run); the kernel and refill paths must show both; the rows check
      lets a weight be 0 at scene B where the survival weight is 0
+ 25. the in-kernel MC chain (mc_chain, K2's chain instantiation
+     mega_chain_kernel; phase_chain): (a) K2's chain against its plain
+     version (plain_pool, four chunks) on 256 chain lanes of a production
+     queue tree's MC tail (chain_capture, cutoffs 50/10/100, gate 0, two
+     batches of 2048), each at cap 8
+     with its own uniforms, dense scan: restarts, codes, crossing counts
+     and final species identical on >= 99% of the lanes, on those the
+     endpoints' and crossing states' median relative error < 1e-8 and the
+     pcx over rtol 1e-8 on at most 1% of the slots, the gated kernel's
+     counts on >= 99%; its time, bound (FLOP_* with FLOP_PROB per crossing
+     and FLOP_BIRTH plus an axion RHS per restart) and work; (b) driver.run
+     on the queue path (the CLI's auto window), 2048 events, at the default
+     and the production cutoffs, mc_chain 0 and 1 (gate 4) in turns, two
+     runs each, counters reset just before each: the chained rows against
+     the unchained at phase 6's bars (events agreeing in rows, species,
+     node count and stop code >= 99%, per-record median < 1e-8, p99 <
+     1e-6, worst < 1e-5), the chain instantiation launched in every
+     chained run and in no other; tree iterations, K2 launches and
+     events/s with their spread; (c) saveMode 3 with mc_chain 1, one batch
+     (dumps under build/chip_smoke_chain3/): the chain instantiation
+     launched, K3 not, a tree file per event
  14. the kernels' JSON line: each kernel's launches on its path (K1's
      grid kernel, a check only, 0 on the main path; P1's through its entry
      point), and its time,
      plain time, error and bound from its comparison with its plain version
-     (phases 3, 5, 6, 9 and 10, each on one input; K4's plain time is phase
+     (phases 3, 5, 6, 9, 10 and 25a, each on one input; K4's plain time is phase
      6's plain run, whose output K4 is held against, and its row says so in
      "plain_of"); the nvidia-smi line, the
      result line.  Every phase logs its wall time.
@@ -200,7 +222,8 @@ Operations are counted from the sources (FLOP_* below: + - * / sqrt and
 each transcendental as one) times the work this run's data needed: K1's
 fused kernel the scan's points and 51 condition evaluations per bisected
 root (the bisection's 50 and the filter), K2's
-steps, dense passes and crossings from its diagnostics, K3's per-event work
+steps, dense passes and crossings from its diagnostics (its chain
+instantiation also its restarts), K3's per-event work
 counters (photon and axion steps, accepted steps, dense passes, bisected
 roots, recorded crossings), the same for K4.
 
@@ -242,6 +265,10 @@ FLOP_COND = 70             # art::condition
 FLOP_HERMITE = 71          # one interpolant point, 7 components
 FLOP_STEP_FIXED = 520      # stage sums, 5th-order update, error norm, controller
 FLOP_PROB = 250            # prob_nd at a recorded crossing
+# K2's chain restart (phase 25): child_birth, the rare guard, the initial
+# step, the start point and the condition at the birth state (its RHS is
+# counted apart, at the axion's cost)
+FLOP_BIRTH = 210
 
 
 def flop_step(species):
@@ -529,7 +556,9 @@ def phase_build():
     log(2, f"mega_kernel registers, stack, spill stores/loads {k2}; expected {K2_PTXAS}; "
            f"same {k2 == K2_PTXAS}; its other dispersion variants: "
            + ", ".join(f"<{v}> {ptxas_figures(summary.get(f'mega_kernel<{v}>', ''))}"
-                       for v in (1, 2, 3)))
+                       for v in (1, 2, 3))
+           + f"; its chain instantiation mega_chain_kernel "
+             f"{ptxas_figures(summary.get('mega_chain_kernel', ''))}")
     if k2 != K2_PTXAS:
         raise AssertionError(f"K2's ptxas figures changed: {k2}, expected {K2_PTXAS}")
 
@@ -542,8 +571,8 @@ def ptxas_figures(text):
             grab(r"(\d+) bytes spill stores"), grab(r"(\d+) bytes spill loads"))
 
 
-KERNEL_NAMES = ("line_scan_kernel", "line_roots_kernel", "mega_kernel", "probe_kernel", "tree_kernel",
-                "tree_refill_kernel", "refill_probe_kernel")
+KERNEL_NAMES = ("line_scan_kernel", "line_roots_kernel", "mega_kernel", "mega_chain_kernel",
+                "probe_kernel", "tree_kernel", "tree_refill_kernel", "refill_probe_kernel")
 
 
 def source_names(symbol):
@@ -3140,6 +3169,242 @@ def phase_rns(device):
         timed("24d", phase_rns_cli, device, name, 4096, 2048, "24d")
 
 
+# the in-kernel MC chain (phase 25): K2's chain lanes, their cap, and the
+# chain gate the queue-path runs take (NumericsConfig's defaults)
+CHAIN_LANES = 256
+CHAIN_CAP = 8
+CHAIN_GATE = 4
+
+
+def chain_capture(device, sc, cfg, tcfg, n_events, batch, n_lanes):
+    """driver.run on the queue path with mc_chain 1 (cfg's gate; phase 25
+    gives gate 0), n_events production events in batches of `batch`, with
+    integrate_mega wrapped to keep the
+    inputs of the first n_lanes chain lanes (cap > 1) of its chain
+    launches: the MC tail of a production tree.  Returns (u0, lnt0, lnt1,
+    erg, x0, is_photon, uniforms) on the card and the run's wall time."""
+    import torch
+
+    from adiabatic_raytracer_tpu_torch import driver
+    from adiabatic_raytracer_tpu_torch.ops import megakernel as mk
+
+    kept, real = [], mk.integrate_mega
+
+    def keep(u0, lnt0, lnt1, erg, x0, sc_, cfg_, **kw):
+        cap = kw.get("chain_cap")
+        if cap is not None and sum(k[0].shape[0] for k in kept) < n_lanes:
+            i = (cap > 1.5).nonzero().squeeze(1)
+            kept.append(tuple(a[i].clone() for a in (u0, lnt0, lnt1, erg, x0,
+                                                     kw["is_photon"], kw["uniforms"])))
+        return real(u0, lnt0, lnt1, erg, x0, sc_, cfg_, **kw)
+
+    mk.integrate_mega = keep
+    try:
+        t0 = time.time()
+        driver.run(sc, cfg, tcfg, n_events + 1, seed=1769, save_mode=1,
+                   event_batch=batch, verbose=False, device=device,
+                   dir_tag=os.path.join(OUT, "chain"), file_tag="capture")
+        wall = time.time() - t0
+    finally:
+        mk.integrate_mega = real
+    lanes = tuple(torch.cat(c)[:n_lanes] for c in zip(*kept))
+    if lanes[0].shape[0] < n_lanes:
+        raise AssertionError(f"phase 25: {lanes[0].shape[0]} chain lanes, want {n_lanes}")
+    return lanes, wall
+
+
+def chain_rows_agreement(a, b):
+    """Rows of a chained and an unchained driver.run (the same events):
+    the share of events whose rows agree in number, species, node count
+    and stop code, and over those events' rows the per-record relative
+    error, the worst over the tree's columns (the final's angles relative
+    to max(|value|, 1 rad)); returns (share, median, p99, worst)."""
+    import numpy as np
+
+    ev = np.union1d(a[:, 0], b[:, 0])
+    ok = []
+    for e in ev:
+        ra, rb = a[a[:, 0] == e], b[b[:, 0] == e]
+        ok.append(ra.shape == rb.shape
+                  and all(np.array_equal(ra[:, c], rb[:, c]) for c in (1, 20, 21)))
+    ok = np.array(ok)
+    keep = np.isin(a[:, 0], ev[ok]) if ok.any() else np.zeros(len(a), bool)
+    keep_b = np.isin(b[:, 0], ev[ok]) if ok.any() else np.zeros(len(b), bool)
+    cols = [2, 3, 4, 5, 6, 8, 12, 13, 22, 23, 24]
+    x, y = a[keep][:, cols], b[keep_b][:, cols]
+    scale = np.abs(y)
+    scale[:, :4] = np.maximum(scale[:, :4], 1.0)
+    rel = (np.abs(x - y) / np.maximum(scale, 1e-300)).max(axis=1) if len(x) else np.zeros(1)
+    return (float(ok.mean()), float(np.median(rel)), float(np.quantile(rel, 0.99)),
+            float(rel.max()))
+
+
+def phase_chain(device, n_events, n_lanes):
+    """Phase 25: the in-kernel MC chain (mc_chain=1).  (a) K2's chain
+    instantiation against its plain version on n_lanes chain lanes of a
+    production queue tree's MC tail (chain_capture at the production
+    cutoffs, gate 0, on two batches of n_events: one batch of 2048 gave 197
+    chain lanes), each at cap CHAIN_CAP with its own uniforms: the plain version
+    in plain_pool's processes, four chunks, while the card runs (b); with
+    the dense scan, restarts, codes, crossing counts and final species
+    identical on >= 99% of the lanes, and on those the endpoints' and the
+    recorded crossing states' median relative error < 1e-8, the pcx over
+    rtol 1e-8 at most 1% of the slots; with the main path's gate, the same
+    counts on >= 99%; its time, bound and work.  (b) driver.run on the
+    queue path (the CLI's auto window), n_events events, at the default and the
+    production cutoffs, mc_chain 0 and 1 (gate CHAIN_GATE) in turns, two
+    runs each, counters reset just before each: the chained rows against the
+    unchained at phase 6's bars (events whose rows agree in number,
+    species, node count and stop code >= 99%, their per-record error median
+    < 1e-8, p99 < 1e-6, worst < 1e-5); K2's chain instantiation launched in
+    every chained run and never in the others; tree iterations, K2
+    launches and events/s with their spread (findings; nothing is claimed).
+    (c) driver.run at saveMode 3 with mc_chain 1 and tree_engine kernel
+    (saveMode 3 runs the queue tree), one batch: the chain instantiation
+    launched, K3 not, one tree file per event, the rows finite.
+    Returns the chain kernel's JSON fields and its launches in the first
+    chained run at the default cutoffs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from adiabatic_raytracer_tpu_torch import driver
+    from adiabatic_raytracer_tpu_torch.cli import TREE_WINDOW
+    from adiabatic_raytracer_tpu_torch.ops import cuda_lib
+    from adiabatic_raytracer_tpu_torch.ops import megakernel as mk
+
+    sc, cfg, tcfg, _, _ = scene_setup(device)
+    cfg = dataclasses.replace(cfg, tree_engine="queue", tree_window=TREE_WINDOW,
+                              mc_chain_gate=CHAIN_GATE)
+    prod = dataclasses.replace(tcfg, **PRODUCTION_CUTOFFS)
+    lanes, cap_wall = chain_capture(device, sc, dataclasses.replace(cfg, mc_chain=1,
+                                                                    mc_chain_gate=0),
+                                    prod, 2 * n_events, n_events, n_lanes)
+    u0, lnt0, lnt1, e, x, is_ph, uni = lanes
+    B, S = u0.shape[0], CHAIN_CAP
+    uni = uni[:, :S].contiguous()
+    cap = torch.full((B,), float(S), dtype=torch.float64, device=device)
+    dense = dataclasses.replace(cfg, interp_coarse=0)
+    kw = dict(max_crossings=S, is_photon=is_ph, species="mixed", with_prob=True,
+              chain_cap=cap, uniforms=uni)
+    step = -(-B // PLAIN_WORKERS)
+    chunks = [slice(i, i + step) for i in range(0, B, step)]
+    jobs = [submit_plain("k2", u0[c], lnt0[c], lnt1[c], e[c], x[c], sc, dense,
+                         **{**kw, "is_photon": is_ph[c], "chain_cap": cap[c], "uniforms": uni[c]})
+            for c in chunks]
+    log(25, f"(a) {B} chain lanes captured from a production queue tree (cutoffs 50/10/100, "
+            f"gate 0, 2 x {n_events} events) in {cap_wall:.2f} s; their plain version submitted in "
+            f"{len(chunks)} chunks")
+
+    # (b) the queue path, mc_chain 0 and 1 in turns
+    runs = {}
+    chain_launches = None
+    for name, tc in (("default", tcfg), ("production", prod)):
+        for chain in (0, 1, 1, 0):
+            c = dataclasses.replace(cfg, mc_chain=chain)
+            cuda_lib.reset_launch_counts()
+            t0 = time.time()
+            rows, _, st = driver.run(sc, c, tc, n_events + 1, seed=1769, save_mode=1,
+                                     event_batch=n_events, verbose=False, device=device,
+                                     dir_tag=os.path.join(OUT, "chain"),
+                                     file_tag=f"{name}_{chain}")
+            wall = time.time() - t0
+            launches = dict(cuda_lib.LAUNCHES)
+            if chain and chain_launches is None:
+                chain_launches = launches["megakernel_chain"]
+            if bool(launches["megakernel_chain"]) != bool(chain):
+                raise AssertionError(f"phase 25: mc_chain {chain} launched {launches}")
+            if not rows_ok(rows):
+                raise AssertionError("phase 25: rows not finite or weights not positive")
+            runs.setdefault((name, chain), []).append((rows, st, wall, launches))
+    ok = True
+    for name in ("default", "production"):
+        r0, r1 = runs[(name, 0)], runs[(name, 1)]
+        share, med, p99, worst = chain_rows_agreement(r1[0][0], r0[0][0])
+        same0 = np.array_equal(r0[0][0], r0[1][0])
+        same1 = np.array_equal(r1[0][0], r1[1][0])
+        ok = ok and share >= 0.99 and med < 1e-8 and p99 < REC_P99 and worst < REC_WORST
+        for chain, rr in ((0, r0), (1, r1)):
+            eps = [st.events / wall for _, st, wall, _ in rr]
+            m, sp = spread(eps)
+            log(25, f"(b) {name} cutoffs, mc_chain {chain}: events/s {', '.join(f'{v:.1f}' for v in eps)} "
+                    f"(median {m:.1f}, spread {sp:.1f}); tree iterations "
+                    f"{[st.tree_iters for _, st, _, _ in rr]}; K2 launches "
+                    f"{[l['megakernel'] for *_, l in rr]} + chain {[l['megakernel_chain'] for *_, l in rr]}; "
+                    f"rows {rr[0][0].shape[0]}; finals {rr[0][1].finals}, nodes {rr[0][1].tot_nodes}, "
+                    f"info {rr[0][1].info_hist}")
+        log(25, f"(b) {name} cutoffs: chained vs unchained rows: events agreeing {share:.4f} "
+                f"(bar 0.99), per-record rel err median {med:.3g} p99 {p99:.3g} worst {worst:.3g} "
+                f"(bars 1e-8, {REC_P99:g}, {REC_WORST:g}); runs of one setting bitwise: "
+                f"unchained {same0}, chained {same1}")
+
+    # (c) saveMode 3 with the chain: tree_engine kernel, which saveMode 3
+    # turns into the queue tree, on one batch
+    c3 = dataclasses.replace(cfg, tree_engine="kernel", mc_chain=1)
+    dump = os.path.join(ROOT, "build", "chip_smoke_chain3")
+    cuda_lib.reset_launch_counts()
+    t0 = time.time()
+    rows3, _, st3 = driver.run(sc, c3, tcfg, n_events + 1, seed=1769, save_mode=3,
+                               event_batch=n_events, verbose=False, device=device,
+                               dir_tag=dump, file_tag="chain3")
+    wall3 = time.time() - t0
+    launches3 = dict(cuda_lib.LAUNCHES)
+    trees = len(os.listdir(os.path.join(dump, "tree")))
+    log(25, f"(c) saveMode 3, mc_chain 1, {n_events} events: {wall3:.2f} s, text "
+            f"{st3.t_text:.2f} s, {trees} tree files, rows {rows3.shape[0]}; launches {launches3}")
+    ok = (ok and launches3["megakernel_chain"] > 0 and not launches3["treekernel"]
+          and trees >= n_events and rows_ok(rows3))
+
+    # (a) the kernel on the captured lanes
+    out_k = mk.integrate_mega(u0, lnt0, lnt1, e, x, sc, dense, **kw)
+    out_g = mk.integrate_mega(u0, lnt0, lnt1, e, x, sc, cfg, **kw)
+    ms = cuda_ms(lambda: mk.integrate_mega(u0, lnt0, lnt1, e, x, sc, cfg, **kw), 3)
+    ms_dense = cuda_ms(lambda: mk.integrate_mega(u0, lnt0, lnt1, e, x, sc, dense, **kw), 3)
+    parts = [plain_result(j, device) for j in jobs]
+    out_p = tuple(torch.cat([p[0][i] for p in parts]) for i in range(12))
+    plain_s = sum(p[1] for p in parts)
+    same = ((out_k[9] == out_p[9]) & (out_k[3] == out_p[3]) & (out_k[4] == out_p[4])
+            & (out_k[10] == out_p[10]))
+    frac = same.double().mean().item()
+    for i in (~same).nonzero().squeeze(1).tolist()[:10]:
+        log(25, f"  lane {i}: kernel restarts/code/crossings/species {int(out_k[9][i])}/"
+                f"{int(out_k[3][i])}/{int(out_k[4][i])}/{int(out_k[10][i])}, plain "
+                f"{int(out_p[9][i])}/{int(out_p[3][i])}/{int(out_p[4][i])}/{int(out_p[10][i])}")
+    rel = (torch.abs(out_k[0] - out_p[0]) / (torch.abs(out_p[0]) + 1e-30)).amax(dim=1)
+    med = rel[same].median().item()
+    max_abs = torch.abs(out_k[0] - out_p[0])[same].max().item()
+    used = (torch.arange(S, device=device)[None, :] < out_p[4][:, None]) & same[:, None]
+    st_rel = (torch.abs(out_k[5] - out_p[5])
+              / torch.abs(out_p[5]).clamp(min=1e-300)).amax(dim=2)[used]
+    pcx_rel = (torch.abs(out_k[8] - out_p[8]) / out_p[8].abs().clamp(min=1e-300))[used]
+    pcx_bad = int((pcx_rel > 1e-8).sum())
+    gate_same = ((out_g[9] == out_p[9]) & (out_g[4] == out_p[4])).double().mean().item()
+    restarts = int(out_g[9].sum().item())
+    nflop = (out_g[2].sum().item() * (flop_step("axion") + flop_gate(cfg.interp_coarse))
+             + out_g[11].sum().item() * flop_dense(cfg.interp_points)
+             + out_g[4].sum().item() * (flop_bisect(cfg.bisect_iters) + FLOP_PROB)
+             + restarts * (FLOP_BIRTH + FLOP_RHS["axion"]))
+    b_ms, b_by = bound(8 * B * (7 + 8 + S + 7 + 1 + 4 + 7 * S + S + 7 + S + 2), nflop,
+                       F64_PER_S)
+    log(25, f"(a) K2 chain {B} lanes (cap {S}, species mixed, in-kernel prob): dense kernel vs "
+            f"plain: restarts, codes, crossings and species identical {frac:.4f} (bar 0.99); on "
+            f"those, endpoint median rel err {med:.3g} (bar 1e-8), crossing-state median rel err "
+            f"{st_rel.median().item():.3g} (bar 1e-8), pcx over rtol 1e-8: {pcx_bad}/"
+            f"{int(used.sum())}; gated kernel (coarse {cfg.interp_coarse}) vs plain: restarts and "
+            f"crossings identical {gate_same:.4f}; restarts in the kernel {restarts} (plain "
+            f"{int(out_p[9].sum().item())}), crossings {int(out_g[4].sum().item())}, steps "
+            f"{int(out_g[2].sum().item())} (slowest lane {int(out_g[2].max().item())}); kernel "
+            f"{ms:.3f} ms gated / {ms_dense:.3f} ms dense, plain {plain_s:.1f} s on one CPU "
+            f"thread summed over its chunks (plain_pool); bound {b_ms:.4f} ms ({b_by})")
+    if not (frac >= 0.99 and med < 1e-8 and st_rel.median().item() < 1e-8
+            and pcx_bad <= 0.01 * int(used.sum()) and gate_same >= 0.99 and restarts > 0
+            and chain_launches and ok):
+        raise AssertionError("phase 25: the in-kernel MC chain disagrees")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_s * 1e3, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}, chain_launches
+
+
 def phase_slice(device, n_events, batch, tree_engine, phase, cold_run=True, extra=(),
                 uses_tree_kernel=None, zero_weight_ok=False):
     """The main path through the CLI: a cold run when asked (one CLI
@@ -3283,6 +3548,7 @@ def main():
     timed(22, phase_diagnostics, device, 4096, rows_kernel)
     timed(23, phase_precision, device, 2048, 2048)
     timed(24, phase_rns, device)
+    k2_chain, chain_launches = timed(25, phase_chain, device, 2048, CHAIN_LANES)
     log(14, f"chip_smoke wall {time.time() - t_start:.1f} s")
     kernels = [
         {"name": "line_roots", "route": "cuda",
@@ -3297,6 +3563,10 @@ def main():
          "source": "adiabatic_raytracer_tpu_torch/csrc/megakernel.cu",
          "replaces": "adiabatic_raytracer_tpu/ops/megakernel.py:1436",
          "launches": launches["megakernel"], **k2},
+        {"name": "megakernel_chain", "route": "cuda",
+         "source": "adiabatic_raytracer_tpu_torch/csrc/megakernel.cu",
+         "replaces": "adiabatic_raytracer_tpu/ops/megakernel.py:862",
+         "variant": "with_chain", "launches": chain_launches, **k2_chain},
         {"name": "treekernel", "route": "cuda",
          "source": "adiabatic_raytracer_tpu_torch/csrc/treekernel.cu",
          "replaces": "adiabatic_raytracer_tpu/ops/treekernel.py:775",

@@ -75,7 +75,6 @@ def test_port_never_imports_jax():
 
 @pytest.mark.parametrize("kw", [
     dict(cfg=dict(backtrace_chunk=64)),
-    dict(cfg=dict(mc_chain=1)),
 ], ids=lambda kw: str(kw))
 def test_unported_options_raise(kw):
     cfg = tcfg.NumericsConfig(**kw.pop("cfg", {}))
@@ -94,11 +93,13 @@ def test_unported_options_raise(kw):
     dict(mesh_devices=2, processes=1),
     dict(mesh_devices=1, processes=2),
     dict(mesh_devices=2, processes=2),
+    dict(cfg=dict(mc_chain=1)),
 ], ids=lambda kw: str(kw))
 def test_ported_options_pass(kw):
     """The streaming window, saveMode 2/3, checkpoint/resume, pool_compact,
-    a mesh, pipeline depth 2, processes each running their own shard and a
-    mesh over the process group are ported: check_ported lets them pass."""
+    a mesh, pipeline depth 2, processes each running their own shard, a
+    mesh over the process group and the in-kernel MC chain are ported:
+    check_ported lets them pass."""
     check_ported(tcfg.NumericsConfig(**kw.pop("cfg", {})), **kw)
 
 
