@@ -103,6 +103,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tree_kernel_chunk", type=int, default=64,
                    help="K3 steps per event per launch before a staged relaunch; "
                         "0 = one launch runs every tree to its end")
+    p.add_argument("--backtrace_chunk", type=int, default=0,
+                   help="engine mega: K2's backtrace relaunched in chunks of this many "
+                        "steps per ray with staged compaction (NumericsConfig."
+                        "backtrace_chunk); 0 = one launch.  K2's other branches take the "
+                        "reference's environment overrides MEGA_COND=canonical, "
+                        "MEGA_GATE_TRIG=native, MEGA_RHS=vjp")
     p.add_argument("--scan_gate_check", type=int, default=-1,
                    help="events for the per-scene gated-scan census check; "
                         "-1 = config default (256), 0 disables")
@@ -175,6 +181,7 @@ def run_from_args(argv=None):
     cfg = NumericsConfig(atol=1e-6, rtol=1e-7, compute_dtype=compute_dtype,
                          engine=engine, tree_window=tree_window,
                          tree_engine=args.tree_engine, tree_kernel_chunk=args.tree_kernel_chunk,
+                         backtrace_chunk=args.backtrace_chunk,
                          **({"scan_gate_check": args.scan_gate_check}
                             if args.scan_gate_check >= 0 else {}))
     if args.tree_engine == "auto":

@@ -227,7 +227,188 @@ static __device__ void grad_h_hand(const MegaParams& P, double x1, double x2, do
                             gx, gk, gt);
 }
 
-// Hamilton's equations in log time; g^rr at the ray's own r (pool semantics).
+#if ART_RHS_VJP
+// The reference's rhs_mode "vjp" (megakernel.py:771-800 there: one
+// reverse-mode pass over _hamiltonian_nd): the gradient of the
+// nondimensionalized Hamiltonian by automatic differentiation, not by the
+// hand adjoint.  hamiltonian_nd is written once over its scalar type T and
+// instantiated on Dual<7>, a forward-mode dual number whose 7 tangents are
+// d/d(x1, x2, x3, k~1, k~2, k~3, t): one evaluation gives the whole
+// gradient.  It shares no code with grad_h_hand; it follows the port's
+// metric (the interior branch below r_metric, as the hand adjoint and the
+// pool do).  An oracle of the hand adjoint: 8 doubles a value, so its
+// registers spill.
+template <int N>
+struct Dual {
+  double v;
+  double d[N];
+  __device__ Dual() {}
+  __device__ Dual(double x) : v(x) {  // a constant: zero tangents
+    for (int k = 0; k < N; ++k) d[k] = 0.0;
+  }
+  static __device__ Dual var(double x, int k) {
+    Dual r(x);
+    r.d[k] = 1.0;
+    return r;
+  }
+  // value and tangents of f(a) from f(a.v) and f'(a.v)
+  __device__ Dual chain(double f, double df) const {
+    Dual r;
+    r.v = f;
+    for (int k = 0; k < N; ++k) r.d[k] = df * d[k];
+    return r;
+  }
+  friend __device__ Dual operator+(const Dual& a, const Dual& b) {
+    Dual r;
+    r.v = a.v + b.v;
+    for (int k = 0; k < N; ++k) r.d[k] = a.d[k] + b.d[k];
+    return r;
+  }
+  friend __device__ Dual operator-(const Dual& a, const Dual& b) {
+    Dual r;
+    r.v = a.v - b.v;
+    for (int k = 0; k < N; ++k) r.d[k] = a.d[k] - b.d[k];
+    return r;
+  }
+  friend __device__ Dual operator-(const Dual& a) { return a.chain(-a.v, -1.0); }
+  friend __device__ Dual operator*(const Dual& a, const Dual& b) {
+    Dual r;
+    r.v = a.v * b.v;
+    for (int k = 0; k < N; ++k) r.d[k] = a.d[k] * b.v + a.v * b.d[k];
+    return r;
+  }
+  friend __device__ Dual operator/(const Dual& a, const Dual& b) {
+    Dual r;
+    r.v = a.v / b.v;
+    for (int k = 0; k < N; ++k) r.d[k] = (a.d[k] - r.v * b.d[k]) / b.v;
+    return r;
+  }
+  friend __device__ bool operator<=(const Dual& a, const Dual& b) { return a.v <= b.v; }
+  friend __device__ bool operator>(const Dual& a, const Dual& b) { return a.v > b.v; }
+};
+
+// sqrt, |x| and sin/cos of a dual number (dsqrt as metric<T> calls it);
+// the double overloads make photon_terms a template over either scalar.
+template <int N>
+__device__ __forceinline__ Dual<N> dsqrt(Dual<N> x) {
+  const double s = sqrt(x.v);
+  return x.chain(s, s > 0.0 ? 0.5 / s : 0.0);
+}
+template <int N>
+__device__ __forceinline__ Dual<N> ad_abs(Dual<N> x) {
+  return x.chain(fabs(x.v), x.v > 0.0 ? 1.0 : (x.v < 0.0 ? -1.0 : 0.0));
+}
+__device__ __forceinline__ double ad_abs(double x) { return fabs(x); }
+template <int N>
+__device__ __forceinline__ void ad_sincos(Dual<N> x, Dual<N>* s, Dual<N>* c) {
+  double sv, cv;
+  sincos(x.v, &sv, &cv);
+  *s = x.chain(sv, cv);
+  *c = x.chain(cv, -sv);
+}
+__device__ __forceinline__ void ad_sincos(double x, double* s, double* c) { sincos(x, s, c); }
+__device__ __forceinline__ double ad_val(double x) { return x; }
+template <int N>
+__device__ __forceinline__ double ad_val(const Dual<N>& x) { return x.v; }
+
+// The terms of the nondimensionalized photon Hamiltonian at r = max(x1,
+// r_ns): x = (x1, x2, x3, k~1, k~2, k~3, t), k~ = k / mass_a, ergt = e~, B
+// in units of |b0|; *ksqr, *wp2t = (wp / mass_a)^2 and *mel, the Melrose
+// factor (e2 - kp^2) / e2 (1 isotropic).  Written once over the scalar T.
+template <int V, typename T>
+__device__ __forceinline__ void photon_terms(const MegaParams& P, const T* x, double ergt,
+                                             T* ksqr, T* wp2t, T* mel) {
+  const T r = ad_val(x[0]) > P.r_ns ? x[0] : T(P.r_ns);
+  T s_th, c_th, s_ph, c_ph, swt, cwt;
+  ad_sincos(x[1], &s_th, &c_th);
+  ad_sincos(x[2], &s_ph, &c_ph);
+  ad_sincos(T(P.omega) * x[6], &swt, &cwt);
+  const Metric<T> g = metric<T>(r, s_th, T(P.rs0), T(P.r_metric));
+  T br, bth, bph;
+  dipole_unit<T>(T(P.cm), T(P.sm), T(P.b0_sign), T(P.r_ns), r, c_th, s_th, c_ph, s_ph, swt,
+                 cwt, &br, &bth, &bph);
+  const T bz = br * c_th - bth * s_th;
+  *wp2t = ad_val(r) <= P.r_ns ? T(0.0) : T(P.wp2_scale) * ad_abs(bz);
+  const T e2n = T(ergt * ergt);
+  *ksqr = g.tt * e2n + g.rr * x[3] * x[3] + g.thth * x[4] * x[4] + g.pp * x[5] * x[5];
+  if constexpr (disp_iso(V)) {
+    *mel = T(1.0);
+  } else {
+    const T bl_r = br / dsqrt(g.rr), bl_t = bth / dsqrt(g.thth), bl_p = bph / dsqrt(g.pp);
+    const T bmag = dsqrt(g.rr * bl_r * bl_r + g.thth * bl_t * bl_t + g.pp * bl_p * bl_p);
+    const T kp = (g.rr * x[3] * bl_r + g.thth * x[4] * bl_t + g.pp * x[5] * bl_p) / bmag;
+    const T e2 = e2n / g.rr;
+    *mel = (e2 - kp * kp) / e2;
+  }
+}
+
+// The Melrose (or isotropic) photon Hamiltonian H / mass_a^2, 0.5 (ksqr +
+// wp2t mel) (the reference's _hamiltonian_nd, megakernel.py:333 there).
+template <int V, typename T>
+__device__ __forceinline__ T hamiltonian_nd(const MegaParams& P, const T* x, double ergt) {
+  T ksqr, wp2t, mel;
+  photon_terms<V, T>(P, x, ergt, &ksqr, &wp2t, &mel);
+  return T(0.5) * (ksqr + wp2t * mel);
+}
+
+// Its boundary-layer excess 0.5 (2 wp~ bt + bt^2) mel (_ham_bndry_diff_nd
+// there).  Only its time derivative enters the RHS (the reference's quirk,
+// RayTracer.jl:84-88), and bt does not depend on time.
+template <int V, typename T>
+__device__ __forceinline__ T ham_bndry_diff_nd(const MegaParams& P, const T* x, double ergt) {
+  T ksqr, wp2t, mel;
+  photon_terms<V, T>(P, x, ergt, &ksqr, &wp2t, &mel);
+  const double r = ad_val(x[0]) > P.r_ns ? ad_val(x[0]) : P.r_ns;
+  const T bt = T(r > P.r_ns ? bndry_term(r, P.r_ns, P.bndry_pole_t, P.bndry_rmax, P.bndry_lyr)
+                            : 0.0);
+  return T(0.5) * (T(2.0) * dsqrt(wp2t) * bt + bt * bt) * mel;
+}
+
+// The axion Hamiltonian in the same units (_ham_axion_nd there), at x1.
+template <typename T>
+__device__ __forceinline__ T ham_axion_nd(const MegaParams& P, const T* x, double ergt) {
+  T s_th, c_th;
+  ad_sincos(x[1], &s_th, &c_th);
+  const Metric<T> g = metric<T>(x[0], s_th, T(P.rs0), T(P.r_metric));
+  return T(0.5) * (g.tt * T(ergt * ergt) + g.rr * x[3] * x[3] + g.thth * x[4] * x[4] +
+                   g.pp * x[5] * x[5]);
+}
+
+// grad_h_hand's outputs by automatic differentiation: (dH~/dx, dH~/dk~,
+// dH~/dt) of the photon (hamiltonian_nd) or the axion (ham_axion_nd)
+// Hamiltonian, as the ray's species picks; with the boundary layer the
+// photon's dH~/dt gains the excess's (one more evaluation, on Dual<1>).
+template <int V>
+static __device__ void grad_h_vjp(const MegaParams& P, double x1, double x2, double x3,
+                                  double kt1, double kt2, double kt3, double time,
+                                  double ergt_ph, double ergt_ax, bool photon, double gx[3],
+                                  double gk[3], double* gt) {
+  using D = Dual<7>;
+  const double xv[7] = {x1, x2, x3, kt1, kt2, kt3, time};
+  D x[7];
+  for (int k = 0; k < 7; ++k) x[k] = D::var(xv[k], k);
+  const bool axion = P.species == 1 || (P.species == 2 && !photon);
+  const D h = axion ? ham_axion_nd<D>(P, x, ergt_ax) : hamiltonian_nd<V, D>(P, x, ergt_ph);
+  for (int k = 0; k < 3; ++k) {
+    gx[k] = h.d[k];
+    gk[k] = h.d[3 + k];
+  }
+  *gt = h.d[6];
+  if constexpr (disp_bndry(V)) {
+    if (!axion) {
+      using D1 = Dual<1>;
+      D1 y[7];
+      for (int k = 0; k < 6; ++k) y[k] = D1(xv[k]);
+      y[6] = D1::var(time, 0);
+      *gt += ham_bndry_diff_nd<V, D1>(P, y, ergt_ph).d[0];
+    }
+  }
+}
+#endif
+
+// Hamilton's equations in log time; g^rr at the ray's own r (pool
+// semantics).  The gradient of H~: grad_h_hand, or in a library built with
+// ART_RHS_VJP grad_h_vjp.
 template <int V = kMelrose>
 static __device__ void rhs(const MegaParams& P, const double* u, double lnt, double erg, bool photon,
                     double* du) {
@@ -238,8 +419,13 @@ static __device__ void rhs(const MegaParams& P, const double* u, double lnt, dou
   sincos(u[1], &s_th, &c_th);
   const double g_rr = metric<double>(u[0], s_th, P.rs0, P.r_metric).rr;
   double gx[3], gk[3], gt;
+#if ART_RHS_VJP
+  grad_h_vjp<V>(P, u[0], u[1], u[2], u[3] * ek, u[4] * ek, u[5] * ek, t, -u[6] * inv_ma,
+                erg * inv_ma, photon, gx, gk, &gt);
+#else
   grad_h_hand<V>(P, u[0], u[1], u[2], u[3] * ek, u[4] * ek, u[5] * ek, t, -u[6] * inv_ma,
               erg * inv_ma, photon, s_th, c_th, gx, gk, &gt);
+#endif
   const double ma2 = P.mass_a * P.mass_a;
   const double denom = photon ? -u[6] : erg;
   const double fac = C_KM * t * g_rr / denom;

@@ -48,7 +48,31 @@
 // plain version): on each accepted step the Hermite interpolant is scanned at
 // `interp` points and up to `max_roots` sign changes are bisected, in order.
 // The device functions live in mega_device.cuh, the step in tree_warp.cuh.
+//
+// The resumable instantiation (the reference's it_cap / resume /
+// return_resume, megakernel.py:1436-1490 there, for integrate_mega_chunked)
+// is mega_resume_kernel: a launch runs each ray at most it_cap steps, from
+// the state a previous launch left (res rows: the FSAL derivative, the
+// controller's dt and memory, g0, the stall reference, the absolute step,
+// crossing and dense-pass counts, the original save-grid midpoint, done),
+// writes only the crossing slots it records, and leaves the state for the
+// next launch.  Everything a step reads is carried, so a chunked run is
+// bitwise one launch.  It and the mode branches (physics.cuh) are compiled
+// only into variant libraries (ops/cuda_lib.py): such a library is built
+// with ART_DISP, the one dispersion variant it holds, ART_RESUME, and the
+// mode macros; the default library holds every dispersion and none of them.
 #include "tree_warp.cuh"
+
+#ifndef ART_RESUME
+#define ART_RESUME 0
+#endif
+#ifdef ART_DISP
+#define ART_HAS_DISP(v) ((v) == ART_DISP)
+#define ART_HAS_CHAIN (ART_DISP == 0 && ART_PROFILE == 0 && !ART_RESUME)
+#else
+#define ART_HAS_DISP(v) true
+#define ART_HAS_CHAIN 1
+#endif
 
 using art::MegaParams;
 using art::Metric;
@@ -60,6 +84,12 @@ using namespace art;
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxSlots = 16;
+// The resume rows of a ray (ops/megakernel.py RES_ROWS names them): the FSAL
+// derivative f0 (7), then these.
+enum ResRow : int {
+  kResDt = 7, kResG0, kResErrold, kResLntCk, kResSteps, kResNCross, kResNFine, kResLntMid,
+  kResDone, kResRows
+};
 
 // v[k] for a lane-dependent k < N, without indexing a register array by a
 // runtime value.
@@ -89,7 +119,14 @@ __device__ __forceinline__ double pick(const double* v, int k) {
 // recorded.  A ray with c = 0 runs the multi-crossing semantics of the
 // other instantiations.  chain_out gets the in-kernel restarts and the
 // final species; diag's steps count every segment's.
-template <int V, bool Chain>
+//
+// Resume (mega_resume_kernel): res_in [B, kResRows] is the ray's state
+// (resume rows, see kResRows); a ray with done set returns at once, leaving
+// its outputs unwritten; a ray with dt 0 starts fresh, as in mega_kernel;
+// any other continues from its rows with aux's lnt0 as its current log
+// time.  The launch takes at most it_cap steps of the ray, records into the
+// slots from its n_cross on without zeroing the others, and writes res_out.
+template <int V, bool Chain, bool Resume = false>
 __device__ __forceinline__ void run_ray(const double* __restrict__ u_in,
                                         const double* __restrict__ aux,
                                         const double* __restrict__ uni, int i,
@@ -98,7 +135,10 @@ __device__ __forceinline__ void run_ray(const double* __restrict__ u_in,
                                         double* __restrict__ cru, double* __restrict__ crlnt,
                                         double* __restrict__ save_out,
                                         double* __restrict__ pcx,
-                                        double* __restrict__ chain_out, int lane) {
+                                        double* __restrict__ chain_out, int lane,
+                                        const double* __restrict__ res_in = nullptr,
+                                        double* __restrict__ res_out = nullptr,
+                                        int it_cap = 0) {
   const int S = P.max_crossings;
   Ray R;
   for (int c = 0; c < 7; ++c) R.u[c] = u_in[(size_t)i * 7 + c];
@@ -106,28 +146,71 @@ __device__ __forceinline__ void run_ray(const double* __restrict__ u_in,
   const double lnt0 = a[0], lnt1 = a[1], erg = a[2];
   double x0c[3] = {a[3], a[4], a[5]};
   bool photon = a[6] > 0.5;
-  for (int c = lane; c < S * 7; c += 32) cru[(size_t)i * S * 7 + c] = 0.0;
-  for (int s = lane; s < S; s += 32) {
-    crlnt[(size_t)i * S + s] = 0.0;
-    pcx[(size_t)i * S + s] = 0.0;
+  const double* rs = Resume ? res_in + (size_t)i * kResRows : nullptr;
+  if constexpr (Resume) {
+    if (rs[kResDone] > 0.5) return;
+  } else {
+    for (int c = lane; c < S * 7; c += 32) cru[(size_t)i * S * 7 + c] = 0.0;
+    for (int s = lane; s < S; s += 32) {
+      crlnt[(size_t)i * S + s] = 0.0;
+      pcx[(size_t)i * S + s] = 0.0;
+    }
+    __syncwarp();  // the zeros land before any lane writes a record over them
   }
-  __syncwarp();  // the zeros land before any lane writes a record over them
 
   R.lnt = lnt0;
-  rhs<V>(P, R.u, R.lnt, erg, photon, R.f0);
-  R.g0 = condition<V>(P, R.u, R.lnt);
-  const double span = lnt1 - lnt0;
-  bool done = span <= 0.0;
-  R.dt = initial_dt(P, R.u, R.f0, span);
-  const double lnt_mid = lnt0 + span * 0.5;
+  bool done;
+  double lnt_mid;
   double save_mid[7] = {0, 0, 0, 0, 0, 0, 0};
-  R.steps = 0;
-  R.n_cross = 0;
-  R.nfine = 0;
-  R.nbisect = 0;
-  R.lnt_ck = lnt0;
-  R.errold = 1e-4;
+  if constexpr (Resume) {
+    const double span = lnt1 - lnt0;
+    done = span <= 0.0;
+    R.nbisect = 0;
+    if (rs[kResDt] > 0.0) {  // resumed from its rows
+      for (int c = 0; c < 7; ++c) R.f0[c] = rs[c];
+      R.dt = rs[kResDt];
+      R.g0 = rs[kResG0];
+      R.errold = rs[kResErrold];
+      R.lnt_ck = rs[kResLntCk];
+      R.steps = (int)rs[kResSteps];
+      R.n_cross = (int)rs[kResNCross];
+      R.nfine = (int)rs[kResNFine];
+      lnt_mid = rs[kResLntMid];
+    } else {  // fresh, as below
+      rhs<V>(P, R.u, R.lnt, erg, photon, R.f0);
+#if ART_PROFILE == 3
+      R.g0 = 0.0;
+#else
+      R.g0 = condition<V>(P, R.u, R.lnt);
+#endif
+      R.dt = initial_dt(P, R.u, R.f0, span);
+      lnt_mid = lnt0 + span * 0.5;
+      R.steps = 0;
+      R.n_cross = 0;
+      R.nfine = 0;
+      R.lnt_ck = lnt0;
+      R.errold = 1e-4;
+    }
+  } else {
+    rhs<V>(P, R.u, R.lnt, erg, photon, R.f0);
+#if ART_PROFILE == 3
+    R.g0 = 0.0;
+#else
+    R.g0 = condition<V>(P, R.u, R.lnt);
+#endif
+    const double span = lnt1 - lnt0;
+    done = span <= 0.0;
+    R.dt = initial_dt(P, R.u, R.f0, span);
+    lnt_mid = lnt0 + span * 0.5;
+    R.steps = 0;
+    R.n_cross = 0;
+    R.nfine = 0;
+    R.nbisect = 0;
+    R.lnt_ck = lnt0;
+    R.errold = 1e-4;
+  }
   int code = 0;
+  int it = 0;
   // the chain's cap and counters, and the last recorded crossing
   int cap = 0, nodes = 0, steps_done = 0;
   double ustar[7], p_star = 0.0;
@@ -152,6 +235,10 @@ __device__ __forceinline__ void run_ray(const double* __restrict__ u_in,
     }
   };
   while (!done) {
+    if constexpr (Resume) {
+      if (it >= it_cap) break;
+      ++it;
+    }
     code = dp5_step_warp<V, Chain>(P, R, lnt1, erg, photon, x0c, lnt_mid, save_mid, lane,
                                    record);
     if constexpr (Chain) {
@@ -200,6 +287,13 @@ __device__ __forceinline__ void run_ray(const double* __restrict__ u_in,
   } else if (Chain && lane < 21) {
     chain_out[(size_t)i * 2 + lane - 19] = lane == 19 ? (double)nodes : (photon ? 1.0 : 0.0);
   }
+  if constexpr (Resume) {
+    const double out[kResRows] = {R.f0[0], R.f0[1], R.f0[2], R.f0[3], R.f0[4], R.f0[5],
+                                  R.f0[6], R.dt, R.g0, R.errold, R.lnt_ck, (double)R.steps,
+                                  (double)R.n_cross, (double)R.nfine, lnt_mid,
+                                  code != 0 ? 1.0 : 0.0};
+    if (lane < kResRows) res_out[(size_t)i * kResRows + lane] = pick<kResRows>(out, lane);
+  }
 }
 
 // Warps w < warps pull rays from *head until B is reached.  One
@@ -223,6 +317,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+#if ART_HAS_CHAIN
 // K2's chain instantiation: mega_kernel's ray queue over run_ray<kMelrose,
 // true>, with the uniforms [B, S] and chain_out [B, 2] (in-kernel restarts,
 // final species).  The in-kernel probability, which the chain draws
@@ -246,6 +341,33 @@ __global__ void __launch_bounds__(kThreads)
                             chain_out, lane);
   }
 }
+#endif
+
+#if ART_RESUME
+// K2's resumable instantiation: mega_kernel's ray queue over run_ray<V,
+// false, true>, with the resume rows res_in / res_out [B, kResRows] and the
+// launch's step cap.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+    mega_resume_kernel(const double* __restrict__ u_in, const double* __restrict__ aux, int B,
+                       int warps, int* __restrict__ head, MegaParams P, double* __restrict__ uf,
+                       double* __restrict__ lntf, double* __restrict__ diag,
+                       double* __restrict__ cru, double* __restrict__ crlnt,
+                       double* __restrict__ save_out, double* __restrict__ pcx,
+                       const double* __restrict__ res_in, double* __restrict__ res_out,
+                       int it_cap) {
+  const int lane = threadIdx.x & 31;
+  if ((int)(blockIdx.x * kWarps + threadIdx.x / 32) >= warps) return;
+  for (;;) {
+    int i = 0;
+    if (lane == 0) i = atomicAdd(head, 1);
+    i = __shfl_sync(kFullMask, i, 0);
+    if (i >= B) return;
+    run_ray<V, false, true>(u_in, aux, nullptr, i, P, uf, lntf, diag, cru, crlnt, save_out, pcx,
+                            nullptr, lane, res_in, res_out, it_cap);
+  }
+}
+#endif
 
 // One device function at a time on [B] states (for the card-side checks of
 // the torch twins): which = 0 metric, 1 dipole, 2 omega_p, 3 condition,
@@ -304,38 +426,74 @@ __global__ void probe_kernel(int which, const double* __restrict__ u,
 
 using MegaKernel = void (*)(const double*, const double*, int, int, int*, MegaParams, double*,
                            double*, double*, double*, double*, double*, double*);
-// indexed by art::Disp
-const MegaKernel kMegaKernels[4] = {mega_kernel<kMelrose>, mega_kernel<kMelroseBndry>,
-                                    mega_kernel<kIso>, mega_kernel<kIsoBndry>};
 using ProbeKernel = void (*)(int, const double*, const double*, const double*, const double*,
                              double*, int, double, MegaParams);
-const ProbeKernel kProbeKernels[4] = {probe_kernel<kMelrose>, probe_kernel<kMelroseBndry>,
-                                      probe_kernel<kIso>, probe_kernel<kIsoBndry>};
+using ResumeKernel = void (*)(const double*, const double*, int, int, int*, MegaParams,
+                              double*, double*, double*, double*, double*, double*, double*,
+                              const double*, double*, int);
+// The instantiations of dispersion variant V the library holds (nullptr:
+// none; a variant library holds one variant, and mega_kernel or the
+// resumable kernel, not both).
+template <int V>
+MegaKernel mega_of() {
+  if constexpr (ART_HAS_DISP(V) && !ART_RESUME) return mega_kernel<V>;
+  else return nullptr;
+}
+template <int V>
+ProbeKernel probe_of() {
+  if constexpr (ART_HAS_DISP(V)) return probe_kernel<V>;
+  else return nullptr;
+}
+template <int V>
+ResumeKernel resume_of() {
+#if ART_RESUME
+  if constexpr (ART_HAS_DISP(V)) return mega_resume_kernel<V>;
+#endif
+  return nullptr;
+}
+// indexed by art::Disp
+const MegaKernel kMegaKernels[4] = {mega_of<kMelrose>(), mega_of<kMelroseBndry>(),
+                                    mega_of<kIso>(), mega_of<kIsoBndry>()};
+const ProbeKernel kProbeKernels[4] = {probe_of<kMelrose>(), probe_of<kMelroseBndry>(),
+                                      probe_of<kIso>(), probe_of<kIsoBndry>()};
+const ResumeKernel kResumeKernels[4] = {resume_of<kMelrose>(), resume_of<kMelroseBndry>(),
+                                        resume_of<kIso>(), resume_of<kIsoBndry>()};
 
 
-// The warps the scene's instantiation (chain: the chain instantiation) keeps
-// resident at once on the current device: active blocks per SM (occupancy
-// at its registers) x SMs x 4, asked once per device and instantiation.
-int resident_warps(const MegaParams& P, bool chain, int* out) {
+// The warps the scene's instantiation (kind 1: the chain instantiation, 2:
+// the resumable one) keeps resident at once on the current device: active
+// blocks per SM (occupancy at its registers) x SMs x 4, asked once per
+// device and instantiation.
+int resident_warps(const MegaParams& P, int kind, int* out) {
   constexpr int kDevices = 64;
-  static int cache[kDevices][5] = {};
+  static int cache[kDevices][6] = {};
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  const int v = chain ? 4 : disp_of(P);
+  const int v = kind == 1 ? 4 : kind == 2 ? 5 : disp_of(P);
   if (dev < kDevices && cache[dev][v] > 0) {
     *out = cache[dev][v];
     return 0;
   }
+  const void* fn = kind == 2 ? (const void*)kResumeKernels[disp_of(P)]
+                             : (const void*)kMegaKernels[disp_of(P)];
+#if ART_HAS_CHAIN
+  if (kind == 1) fn = (const void*)mega_chain_kernel;
+#endif
+  if (fn == nullptr) return (int)cudaErrorInvalidDeviceFunction;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = chain ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mega_chain_kernel,
-                                                                kThreads, 0)
-                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kMegaKernels[v],
-                                                                kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, 0);
   *out = per_sm * sms * kWarps;
   if (err == cudaSuccess && dev < kDevices) cache[dev][v] = *out;
   return (int)err;
+}
+
+int warps_for(const MegaParams& P, int kind, int B, int* warps) {
+  int resident = 0;
+  const int err = resident_warps(P, kind, &resident);
+  *warps = resident < 1 ? 1 : (resident < B ? resident : B);
+  return err;
 }
 
 }  // namespace
@@ -353,15 +511,45 @@ extern "C" int art_megakernel(const double* u_in, const double* aux, int B, Mega
                               void* stream) {
   if (B <= 0) return 0;
   if (P.max_crossings < 1 || P.max_crossings > kMaxSlots) return (int)cudaErrorInvalidValue;
-  int resident = 0;
-  const int err = resident_warps(P, false, &resident);
+  const MegaKernel kernel = kMegaKernels[disp_of(P)];
+  if (kernel == nullptr) return (int)cudaErrorInvalidDeviceFunction;
+  int warps = 0;
+  const int err = warps_for(P, 0, B, &warps);
   if (err != 0) return err;
-  const int warps = resident < 1 ? 1 : (resident < B ? resident : B);
   const int blocks = (warps + kWarps - 1) / kWarps;
-  kMegaKernels[disp_of(P)]<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      u_in, aux, B, warps, head, P, uf, lntf, diag, cru, crlnt, save_mid, pcx);
+  kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(u_in, aux, B, warps, head, P, uf, lntf,
+                                                        diag, cru, crlnt, save_mid, pcx);
   return (int)cudaGetLastError();
 }
+
+#if ART_RESUME
+// art_megakernel's resumable instantiation (a variant library built with
+// ART_RESUME): aux column 0 holds each ray's current log time, res_in /
+// res_out [B, kResRows] its resume rows (fresh where dt is 0; done rays are
+// skipped and their outputs left unwritten), it_cap the steps a ray may take
+// in this launch.  Records go only into the slots recorded in this launch;
+// the others are left as the caller allocated them.  Returns
+// cudaGetLastError().
+extern "C" int art_megakernel_resume(const double* u_in, const double* aux, int B, MegaParams P,
+                                     double* uf, double* lntf, double* diag, double* cru,
+                                     double* crlnt, double* save_mid, double* pcx,
+                                     const double* res_in, double* res_out, int it_cap,
+                                     int* head, void* stream) {
+  if (B <= 0) return 0;
+  if (P.max_crossings < 1 || P.max_crossings > kMaxSlots || it_cap < 1)
+    return (int)cudaErrorInvalidValue;
+  const ResumeKernel kernel = kResumeKernels[disp_of(P)];
+  if (kernel == nullptr) return (int)cudaErrorInvalidDeviceFunction;
+  int warps = 0;
+  const int err = warps_for(P, 2, B, &warps);
+  if (err != 0) return err;
+  const int blocks = (warps + kWarps - 1) / kWarps;
+  kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(u_in, aux, B, warps, head, P, uf, lntf,
+                                                        diag, cru, crlnt, save_mid, pcx, res_in,
+                                                        res_out, it_cap);
+  return (int)cudaGetLastError();
+}
+#endif
 
 // art_megakernel's chain instantiation: aux column 7 holds each ray's chain
 // cap (0: the multi-crossing semantics; c > 0: the chain, at most S
@@ -369,6 +557,7 @@ extern "C" int art_megakernel(const double* u_in, const double* aux, int B, Mega
 // chain_out [B, 2] gets the in-kernel restarts and the final species
 // (1 photon).  The scene must be one megakernel.can_prob covers, with
 // P.with_prob set.  Returns cudaGetLastError().
+#if ART_HAS_CHAIN
 extern "C" int art_megakernel_chain(const double* u_in, const double* aux, const double* uni,
                                     int B, MegaParams P, double* uf, double* lntf,
                                     double* diag, double* cru, double* crlnt,
@@ -378,28 +567,30 @@ extern "C" int art_megakernel_chain(const double* u_in, const double* aux, const
   if (P.max_crossings < 1 || P.max_crossings > kMaxSlots || disp_of(P) != kMelrose ||
       !P.with_prob)
     return (int)cudaErrorInvalidValue;
-  int resident = 0;
-  const int err = resident_warps(P, true, &resident);
+  int warps = 0;
+  const int err = warps_for(P, 1, B, &warps);
   if (err != 0) return err;
-  const int warps = resident < 1 ? 1 : (resident < B ? resident : B);
   const int blocks = (warps + kWarps - 1) / kWarps;
   mega_chain_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       u_in, aux, uni, B, warps, head, P, uf, lntf, diag, cru, crlnt, save_mid, pcx, chain_out);
   return (int)cudaGetLastError();
 }
+#endif
 
 // The warps art_megakernel launches at most for P's scene (its
 // instantiation's resident warps on the current device).
 extern "C" int art_megakernel_resident_warps(MegaParams P, int* out) {
-  return resident_warps(P, false, out);
+  return resident_warps(P, ART_RESUME ? 2 : 0, out);
 }
 
 extern "C" int art_probe(int which, const double* u, const double* lnt, const double* erg,
                          const double* is_ph, double* out, int B, double b0_abs, MegaParams P,
                          void* stream) {
   if (B <= 0) return 0;
+  const ProbeKernel kernel = kProbeKernels[disp_of(P)];
+  if (kernel == nullptr) return (int)cudaErrorInvalidDeviceFunction;
   const int blocks = (B + kThreads - 1) / kThreads;
-  kProbeKernels[disp_of(P)]<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      which, u, lnt, erg, is_ph, out, B, b0_abs, P);
+  kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(which, u, lnt, erg, is_ph, out, B,
+                                                        b0_abs, P);
   return (int)cudaGetLastError();
 }

@@ -16,6 +16,28 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+// The branches of K2 (and, where they share the step, K3 and K4) that a
+// variant library compiles in (ops/cuda_lib.py builds one at the first
+// launch of a non-default combination, with these macros; the default
+// library is compiled without any of them, so its code is the code without
+// the branches): ART_COND_CANONICAL the canonical condition
+// (condition_canonical), ART_GATE_NATIVE the coarse gate's condition samples
+// on the card's fast f32 sin/cos/exp, ART_RHS_VJP the RHS by forward-mode
+// automatic differentiation of hamiltonian_nd (mega_device.cuh), ART_PROFILE
+// K2's bench-only step profiles (1 scan, 2 coarse, 3 rhs; tree_warp.cuh).
+#ifndef ART_COND_CANONICAL
+#define ART_COND_CANONICAL 0
+#endif
+#ifndef ART_GATE_NATIVE
+#define ART_GATE_NATIVE 0
+#endif
+#ifndef ART_RHS_VJP
+#define ART_RHS_VJP 0
+#endif
+#ifndef ART_PROFILE
+#define ART_PROFILE 0
+#endif
+
 namespace art {
 
 constexpr double C_KM = 2.99792e5;            // speed of light [km/s]
@@ -123,15 +145,38 @@ __device__ __forceinline__ T omega_p(T omega, T bz) {
   return dsqrt(T(4) * T(PI) * nelec / T(INV_ALPHA) / T(M_E_EV));
 }
 
+// The condition's sin/cos and exp: libdevice's f64 functions, or, for the
+// coarse gate's samples of a variant library built with ART_GATE_NATIVE
+// (Gate true), the card's fast f32 intrinsics on the f32-cast argument (the
+// reference's gate_trig "native", megakernel.py:118-145 there: its
+// gate-precision sincos and exp, here the card's own).
+template <bool Gate>
+__device__ __forceinline__ void cond_sincos(double x, double* s, double* c) {
+  if constexpr (Gate && ART_GATE_NATIVE) {
+    float sf, cf;
+    __sincosf((float)x, &sf, &cf);
+    *s = sf;
+    *c = cf;
+  } else {
+    sincos(x, s, c);
+  }
+}
+template <bool Gate>
+__device__ __forceinline__ double cond_exp(double x) {
+  if constexpr (Gate && ART_GATE_NATIVE) return (double)__expf((float)x);
+  else return exp(x);
+}
+
 // K2's boundary-layer plasma addition to omega_p in mass_a units, before
 // its support r > r_ns is applied (models/magnetosphere._bndry_lyr_term,
 // RayTracer.jl:1155-1162): pole_t (r_ns / r)^1.5 exp(-(r - rmax lyr) /
 // (0.1 rmax)), pole_t = omega_p at the pole / mass_a, rmax the aligned
-// dipole's conversion radius.
+// dipole's conversion radius; Gate: a coarse gate sample (cond_exp).
+template <bool Gate = false>
 __device__ __forceinline__ double bndry_term(double r, double r_ns, double pole_t, double rmax,
                                              double lyr) {
   const double q = r_ns / r;
-  return pole_t * (q * sqrt(q)) * exp(-(r - rmax * lyr) / (0.1 * rmax));
+  return pole_t * (q * sqrt(q)) * cond_exp<Gate>(-(r - rmax * lyr) / (0.1 * rmax));
 }
 
 // K1: the dipole (b0 times the unit field: *br, *bth, *bph [Gauss]) and
@@ -243,19 +288,69 @@ __device__ __forceinline__ bool line_accept(T px, T py, T pz, T erg, const LineS
   return rr > S.r_ns && erg / dsqrt(g.rr) > wp;
 }
 
-// K2: strength-reduced crossing condition on the integration state
-// u = (r, theta, phi, w_r, w_th, w_ph, e7) at log-time lnt (the reference's
-// cond_mode "fast"): 0.5 ma^2 (wp2t mel - 1) / e7^2 with mel = 1 - kp^2/e2
-// (Melrose) or 1 (isotropic), and wp2t = (sqrt(wp2t) + bt)^2 with the
-// boundary layer.
+#if ART_COND_CANONICAL
+// K2: the canonical crossing condition (the reference's cond_mode
+// "canonical", _condition_canonical at megakernel.py:398 there; the literal
+// transcription of the pool's crossing_condition): the momenta renormalized
+// onto the axion shell, then the Melrose photon Hamiltonian over e7^2,
+// 0.5 (ksqr + wp^2 (e2 - kp^2) / e2) / e7^2.  B enters kp only through its
+// direction and wp through (wp / ma)^2 = wp2_scale |b_z| on the unit dipole,
+// so the unit dipole carries both (|b0| cancels in kp; wp = ma sqrt(wp2t),
+// plus ma bt with the boundary layer).  The oracle of the fast form: equal
+// up to rounding away from its roots.
 template <int V = kMelrose>
-__device__ __forceinline__ double condition(const MegaParams& P, const double* u, double lnt) {
+__device__ __forceinline__ double condition_canonical(const MegaParams& P, const double* u,
+                                                      double lnt) {
   const double t = exp(lnt);
   const double r = u[0];
   double s_th, c_th, s_ph, c_ph, swt, cwt;
   sincos(u[1], &s_th, &c_th);
+  const Metric<double> g = metric<double>(r, s_th, P.rs0, P.r_metric);
+  const double e72 = u[6] * u[6];
+  const double wsq = g.rr * u[3] * u[3] + g.thth * u[4] * u[4] + g.pp * u[5] * u[5];
+  const double nrm = sqrt((-e72 * g.tt - P.mass_a * P.mass_a) / wsq);
+  const double ww1 = u[3] * nrm, ww2 = u[4] * nrm, ww3 = u[5] * nrm;
   sincos(u[2], &s_ph, &c_ph);
   sincos(P.omega * t, &swt, &cwt);
+  double br, bth, bph;
+  dipole_unit<double>(P.cm, P.sm, P.b0_sign, P.r_ns, r, c_th, s_th, c_ph, s_ph, swt, cwt,
+                      &br, &bth, &bph);
+  const double bz = br * c_th - bth * s_th;
+  double wp = r <= P.r_ns ? 0.0 : P.mass_a * sqrt(P.wp2_scale * fabs(bz));
+  if constexpr (disp_bndry(V)) {
+    if (r > P.r_ns)
+      wp += P.mass_a * bndry_term(r, P.r_ns, P.bndry_pole_t, P.bndry_rmax, P.bndry_lyr);
+  }
+  double kp = 0.0;
+  if constexpr (!disp_iso(V)) {
+    const double bl_r = br / sqrt(g.rr), bl_t = bth / sqrt(g.thth), bl_p = bph / sqrt(g.pp);
+    const double bmag = sqrt(g.rr * bl_r * bl_r + g.thth * bl_t * bl_t + g.pp * bl_p * bl_p);
+    kp = (g.rr * ww1 * bl_r + g.thth * ww2 * bl_t + g.pp * ww3 * bl_p) / bmag;
+  }
+  const double ksqr = g.tt * e72 + g.rr * ww1 * ww1 + g.thth * ww2 * ww2 + g.pp * ww3 * ww3;
+  const double e2 = e72 / g.rr;
+  return 0.5 * (ksqr + wp * wp * (e2 - kp * kp) / e2) / e72;
+}
+#endif
+
+// K2: strength-reduced crossing condition on the integration state
+// u = (r, theta, phi, w_r, w_th, w_ph, e7) at log-time lnt (the reference's
+// cond_mode "fast"): 0.5 ma^2 (wp2t mel - 1) / e7^2 with mel = 1 - kp^2/e2
+// (Melrose) or 1 (isotropic), and wp2t = (sqrt(wp2t) + bt)^2 with the
+// boundary layer.  Gate: a coarse gate sample (cond_sincos, cond_exp).  A
+// library built with ART_COND_CANONICAL evaluates condition_canonical
+// instead, the gate's samples too, as the reference does.
+template <int V = kMelrose, bool Gate = false>
+__device__ __forceinline__ double condition(const MegaParams& P, const double* u, double lnt) {
+#if ART_COND_CANONICAL
+  return condition_canonical<V>(P, u, lnt);
+#else
+  const double t = cond_exp<Gate>(lnt);
+  const double r = u[0];
+  double s_th, c_th, s_ph, c_ph, swt, cwt;
+  cond_sincos<Gate>(u[1], &s_th, &c_th);
+  cond_sincos<Gate>(u[2], &s_ph, &c_ph);
+  cond_sincos<Gate>(P.omega * t, &swt, &cwt);
   const Metric<double> g = metric<double>(r, s_th, P.rs0, P.r_metric);
   double br, bth, bph;
   dipole_unit<double>(P.cm, P.sm, P.b0_sign, P.r_ns, r, c_th, s_th, c_ph, s_ph, swt, cwt,
@@ -264,7 +359,7 @@ __device__ __forceinline__ double condition(const MegaParams& P, const double* u
   double wp2t = r <= P.r_ns ? 0.0 : P.wp2_scale * fabs(bz);
   if constexpr (disp_bndry(V)) {
     const double bt =
-        r > P.r_ns ? bndry_term(r, P.r_ns, P.bndry_pole_t, P.bndry_rmax, P.bndry_lyr)
+        r > P.r_ns ? bndry_term<Gate>(r, P.r_ns, P.bndry_pole_t, P.bndry_rmax, P.bndry_lyr)
                    : 0.0;
     const double wpt = sqrt(wp2t) + bt;
     wp2t = wpt * wpt;
@@ -282,6 +377,7 @@ __device__ __forceinline__ double condition(const MegaParams& P, const double* u
     mel = 1.0 - nrm2 * n_w * n_w * g.rr * inv_e72 / bm2;
   }
   return (0.5 * P.mass_a * P.mass_a) * (wp2t * mel - 1.0) * inv_e72;
+#endif
 }
 
 }  // namespace art

@@ -85,8 +85,10 @@ __device__ __forceinline__ void bisect_warp(const MegaParams& P, const double* u
 // One round of a scan pass of K points over the accepted step [lnt0, lnt0 +
 // h]: lane l's point j = base + l + 1 (g_end where j == K), g(j - 1) in *gp
 // (lane 0: carry), the lanes whose pair (g(j - 1), g(j)) changed sign as a
-// ballot; carry becomes the round's last value.
-template <int V>
+// ballot; carry becomes the round's last value.  Gate: the coarse pass's
+// samples (condition<V, true>: the native gate trig where the library has
+// it).
+template <int V, bool Gate = false>
 __device__ __forceinline__ unsigned scan_round(const MegaParams& P, const double* u0,
                                                const double* u1, const double* f0,
                                                const double* f1, double h, double lnt0,
@@ -98,7 +100,7 @@ __device__ __forceinline__ unsigned scan_round(const MegaParams& P, const double
     const double tau = (double)j / K;
     double uj[7];
     hermite(u0, u1, f0, f1, h, tau, uj);
-    g = condition<V>(P, uj, lnt0 + tau * h);
+    g = condition<V, Gate>(P, uj, lnt0 + tau * h);
   }
   double left = __shfl_up_sync(kFullMask, g, 1);
   if (lane == 0) left = carry;
@@ -126,6 +128,12 @@ __device__ __forceinline__ unsigned scan_round(const MegaParams& P, const double
 // start-point rejection applies to the crossing in slot R.seg0, the first of
 // the current segment, and the crossing cap is R.stop_n instead of
 // P.max_crossings; without it the step is the code every other kernel runs.
+// A library built with ART_PROFILE (K2's bench-only step profiles, the
+// reference's MEGA_PROFILE, megakernel.py:925-928 and :1098-1146 there)
+// runs no event block: 1 "scan" the gated scan (R.nfine counts the dense
+// passes, the roots found end it as they end the production pass), 2
+// "coarse" the coarse pass alone (R.nfine counts the steps whose gate would
+// run the dense pass), 3 "rhs" no condition at all (g_new = 0).
 template <int V = kMelrose, bool Chain = false, class Record>
 __device__ __forceinline__ int dp5_step_warp(const MegaParams& P, Ray& R, double lnt1, double erg,
                                              bool photon, const double x0c[3], double lnt_mid,
@@ -175,7 +183,11 @@ __device__ __forceinline__ int dp5_step_warp(const MegaParams& P, Ray& R, double
   const double t1 = R.lnt + h;
   if (save_mid != nullptr && accept && lnt_mid > R.lnt && lnt_mid <= t1)
     hermite(R.u, u_new, k[0], k[6], h, (lnt_mid - R.lnt) / h, save_mid);
+#if ART_PROFILE == 3
+  const double g_new = 0.0;
+#else
   const double g_new = condition<V>(P, u_new, t1);
+#endif
 
   // commit (the pool's order: the event scan below uses the step's start)
   double u_prev[7];
@@ -192,22 +204,31 @@ __device__ __forceinline__ int dp5_step_warp(const MegaParams& P, Ray& R, double
 
   int code = 0;
   bool done = false;
+#if ART_PROFILE != 3
   if (accept) {
     // gate: the coarse pass, then the dense pass only if this step needs it
     const int K = P.interp;
+#if ART_PROFILE == 2
+    const int Kc = P.interp_coarse > 0 ? P.interp_coarse : 4;
+#else
     const int Kc = P.interp_coarse;
+#endif
     bool dense = true;
     if (Kc > 0) {
       bool flip_c = false;
       bool low = fabs(g_prev) < P.gate_theta;
       double carry = g_prev, gj, gp;
       for (int base = 0; base < Kc; base += 32) {
-        flip_c = scan_round<V>(P, u_prev, u_new, k[0], k[6], h, lnt_prev, g_new, Kc, base, lane,
-                            carry, &gj, &gp) != 0u || flip_c;
+        flip_c = scan_round<V, true>(P, u_prev, u_new, k[0], k[6], h, lnt_prev, g_new, Kc, base,
+                                     lane, carry, &gj, &gp) != 0u || flip_c;
         low = __any_sync(kFullMask, base + lane + 1 <= Kc && fabs(gj) < P.gate_theta) || low;
       }
       dense = flip_c || low;
     }
+#if ART_PROFILE == 2
+    R.nfine += dense ? 1 : 0;
+    dense = false;
+#endif
     if (dense) {
       R.nfine += 1;
       int roots = 0;
@@ -216,6 +237,10 @@ __device__ __forceinline__ int dp5_step_warp(const MegaParams& P, Ray& R, double
         double gj, gp;
         unsigned flips = scan_round<V>(P, u_prev, u_new, k[0], k[6], h, lnt_prev, g_new, K, base,
                                     lane, carry, &gj, &gp);
+#if ART_PROFILE == 1
+        roots += __popc(flips);
+        flips = 0u;
+#endif
         while (flips != 0u && roots < P.max_roots && !done) {
           const int l = __ffs(flips) - 1;
           flips &= flips - 1u;
@@ -253,6 +278,7 @@ __device__ __forceinline__ int dp5_step_warp(const MegaParams& P, Ray& R, double
       }
     }
   }
+#endif
 
   if (accept)  // FSAL: the accepted step's last stage starts the next step
     for (int c = 0; c < 7; ++c) R.f0[c] = k[6][c];

@@ -48,6 +48,7 @@ from adiabatic_raytracer_tpu_torch.ops import sampler, tree
 from adiabatic_raytracer_tpu_torch.ops.conversion import dwp_ds, g_det, jacobian_fv
 from adiabatic_raytracer_tpu_torch.ops.dispersion import k_norm_cart, k_sphere
 from adiabatic_raytracer_tpu_torch.ops.geometry import cart_to_sph
+from adiabatic_raytracer_tpu_torch.ops.megakernel import mega_modes
 from adiabatic_raytracer_tpu_torch.ops.propagate import physics_dtype, to_physics
 from adiabatic_raytracer_tpu_torch.utils import rng
 from adiabatic_raytracer_tpu_torch.utils.npyio import save_npy, tree_filename
@@ -82,24 +83,23 @@ class RunStats:
 def check_ported(cfg: NumericsConfig, *, save_mode: int = 0, mesh_devices: int = 0,
                  pipeline_depth: int = 0, checkpoint: bool = False,
                  resume: bool = False, processes: int = 1):
-    """Raise NotImplementedError on options the port does not run, naming
-    the ROADMAP item; none of them quietly runs something else.  Every run
-    option comes through here, so one that is not ported fails before
-    anything runs.  A tree_engine='kernel' configuration K3 does not cover
-    raises in tree.forward_tree.  `processes`, the size of the process
-    group: a mesh over a group takes one device per process, so a mesh
-    larger than the group raises ValueError, naming the missing device."""
-    todo = [
-        (cfg.engine not in ("pool", "mega", "pool_compact"), f"engine={cfg.engine!r}"),
-        (cfg.backtrace_chunk > 0, "backtrace_chunk > 0, K2's chunked relaunch, not ported yet "
-         "(ROADMAP Queue 2a, K2's branches still to port)"),
-        (cfg.rhs_mode != "hand" or cfg.cond_mode != "fast" or cfg.gate_trig != "precise",
-         "rhs_mode='vjp' / cond_mode='canonical' / gate_trig='native', not ported yet "
-         "(ROADMAP Queue 2a, K2's branches still to port)"),
-    ]
-    for bad, what in todo:
-        if bad:
-            raise NotImplementedError(f"not ported: {what}")
+    """Raise before anything runs on a run option the port does not take:
+    NotImplementedError on an engine the reference does not run either,
+    ValueError on a negative backtrace_chunk or an unknown K2 mode
+    (megakernel.mega_modes: cond_mode, gate_trig, rhs_mode and their
+    MEGA_* overrides); none of them quietly runs something else.  Every run
+    option of the reference runs in the port, K2's branches included.  A
+    tree_engine='kernel' configuration K3 does not cover raises in
+    tree.forward_tree, naming the ROADMAP item.  `processes`, the size of
+    the process group: a mesh over a group takes one device per process, so
+    a mesh larger than the group raises ValueError, naming the missing
+    device."""
+    if cfg.engine not in ("pool", "mega", "pool_compact"):
+        raise NotImplementedError(f"not ported: engine={cfg.engine!r}, an engine the "
+                                  "reference does not run either")
+    if cfg.backtrace_chunk < 0:
+        raise ValueError(f"backtrace_chunk must be >= 0, got {cfg.backtrace_chunk}")
+    mega_modes(cfg)
     if processes > 1 and mesh_devices > processes:
         raise ValueError(f"a mesh of {mesh_devices} devices over a group of {processes} "
                          f"processes, one device each: process {processes}'s device is "

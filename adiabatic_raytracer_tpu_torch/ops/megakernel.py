@@ -33,12 +33,25 @@ ray's own `interp_coarse`-point pass flipped sign or dipped below
 `scan_gate_theta`; interp_coarse=0 always runs the dense pass, which is
 then the pool's algorithm exactly.
 
+K2's other branches (the reference's SceneConsts modes, megakernel.py:
+222-270 there) run from a variant library (ops/cuda_lib.py), built at
+their first launch: cond_mode "canonical" (_condition_canonical), gate_trig
+"native" (the coarse gate's samples on the card's f32 sin/cos/exp),
+rhs_mode "vjp" (the RHS by automatic differentiation of the
+nondimensionalized Hamiltonian), the bench-only MEGA_PROFILE step profiles
+("scan", "coarse", "rhs": no event block), and the resumable instantiation
+behind integrate_mega's it_cap / resume / return_resume, which
+integrate_mega_chunked relaunches (`backtrace_chunk`).  mega_params reads
+the modes, with the reference's MEGA_RHS / MEGA_COND / MEGA_GATE_TRIG /
+MEGA_PROFILE overrides, into P.modes; the twins and the launch both pick
+from it.
+
 This module also holds the torch twins of the device functions K2, K3 and
 K4 share (_metric, _dipole_unit, _omega_p, _bndry_t, _condition,
-_grad_h_hand, _rhs, _prob_nd, _hermite; csrc/physics.cuh,
-csrc/mega_device.cuh), written on tuples of [B] tensors against the same
-MegaParams struct the kernels receive; the card checks each one through
-`probe`.
+_condition_canonical, _grad_h_hand, _grad_h_vjp, _rhs, _prob_nd, _hermite;
+csrc/physics.cuh, csrc/mega_device.cuh), written on tuples of [B] tensors
+against the same MegaParams struct the kernels receive; the card checks
+each one through `probe`.
 """
 
 from __future__ import annotations
@@ -46,6 +59,8 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
+import os
+from typing import NamedTuple
 
 import torch
 
@@ -61,7 +76,7 @@ from adiabatic_raytracer_tpu_torch.constants import (
 )
 from adiabatic_raytracer_tpu_torch.ops import cuda_lib
 from adiabatic_raytracer_tpu_torch.ops.geometry import celerity_to_cart_vel, sph_to_cart
-from adiabatic_raytracer_tpu_torch.ops.integrator import integrate_pool
+from adiabatic_raytracer_tpu_torch.ops.integrator import PoolState, integrate_pool
 from adiabatic_raytracer_tpu_torch.ops.propagate import (
     PropagateResult,
     crossing_condition,
@@ -104,16 +119,48 @@ def can_prob(sc: Scene) -> bool:
             and not bool(sc.flat) and float(sc.bndry_lyr) <= 0)
 
 
+class Modes(NamedTuple):
+    """K2's branches (the reference's SceneConsts.cond_mode, gate_trig,
+    rhs_mode and profile)."""
+    cond: str = "fast"
+    gate: str = "precise"
+    rhs: str = "hand"
+    profile: str = "full"
+
+
+MODE_CHOICES = Modes(cond=("fast", "canonical"), gate=("precise", "native"),
+                     rhs=("hand", "vjp"), profile=cuda_lib.PROFILES)
+
+
+def mega_modes(cfg: NumericsConfig) -> Modes:
+    """cfg's modes, each overridden by its environment variable as the
+    reference's SceneConsts reads them (megakernel.py:266-270 there):
+    MEGA_COND, MEGA_GATE_TRIG, MEGA_RHS, and MEGA_PROFILE ("full" unless
+    set; bench-only)."""
+    env = os.environ
+    m = Modes(cond=env.get("MEGA_COND", str(cfg.cond_mode)),
+              gate=env.get("MEGA_GATE_TRIG", str(cfg.gate_trig)),
+              rhs=env.get("MEGA_RHS", str(cfg.rhs_mode)),
+              profile=env.get("MEGA_PROFILE", "full"))
+    for name, value, choices in zip(Modes._fields, m, MODE_CHOICES):
+        if value not in choices:
+            raise ValueError(f"megakernel: {name} mode {value!r}, expected one of {choices}")
+    return m
+
+
+def variant_of(P, resume: bool = False) -> cuda_lib.Variant:
+    """The library of a K2 launch with params P (cuda_lib.Variant)."""
+    disp = (2 if P.isotropic else 0) + (1 if P.bndry_lyr > 0 else 0)
+    return cuda_lib.Variant(disp, *P.modes, resume=bool(resume))
+
+
 def check_supported(sc: Scene, cfg: NumericsConfig, max_crossings: int):
     """Raise on what the kernel does not cover, naming the ROADMAP item."""
     if not sc.isotropic and not sc.melrose:
         raise NotImplementedError("megakernel: the non-Melrose anisotropic dispersion "
                                   "has no kernel branch, in the reference either "
                                   "(ROADMAP Queue 1, \"Left unported on purpose\")")
-    if cfg.rhs_mode != "hand" or cfg.cond_mode != "fast":
-        raise NotImplementedError("megakernel: rhs_mode='vjp' / cond_mode="
-                                  "'canonical' are not ported yet (ROADMAP Queue 2a, "
-                                  "K2's branches still to port)")
+    mega_modes(cfg)
     if not 1 <= max_crossings <= MAX_SLOTS:
         raise ValueError(f"max_crossings must be in 1..{MAX_SLOTS}")
 
@@ -148,7 +195,7 @@ def mega_params(sc: Scene, cfg: NumericsConfig, *, max_crossings: int = 1,
                   / (mass_a * C_KM * HBAR))
     kc = int(cfg.interp_coarse)
     beta = float(cfg.pi_beta)
-    return MegaParams(
+    P = MegaParams(
         cm=math.cos(float(sc.theta_m)), sm=math.sin(float(sc.theta_m)),
         omega=omega, b0_sign=1.0 if b0 >= 0 else -1.0, r_ns=float(sc.r_ns),
         r_metric=METRIC_R_NS,
@@ -166,6 +213,8 @@ def mega_params(sc: Scene, cfg: NumericsConfig, *, max_crossings: int = 1,
         species=SPECIES[species], with_prob=int(bool(with_prob) and can_prob(sc)),
         bndry_lyr=lyr, bndry_pole_t=pole_t, bndry_rmax=rmax,
         isotropic=int(bool(sc.isotropic)))
+    P.modes = mega_modes(cfg)   # not in the C struct: picks the library
+    return P
 
 
 # ---------------------------------------------------------------------------
@@ -208,9 +257,10 @@ def _dmetric_dr(P, r, sin_th, rs0=None):
     return d_tt, d_rr, -2.0 / r**3, -2.0 / (r**3 * sin_th**2)
 
 
-def _dipole_unit(P, r, cz, sin_th, cphi, sphi, time):
-    """GJ dipole in units of |b0|, rotated by omega*time."""
-    swt, cwt = torch.sin(P.omega * time), torch.cos(P.omega * time)
+def _dipole_unit(P, r, cz, sin_th, cphi, sphi, time, trig=(torch.sin, torch.cos)):
+    """GJ dipole in units of |b0|, rotated by omega*time (trig: the sin
+    and cos of omega*time)."""
+    swt, cwt = trig[0](P.omega * time), trig[1](P.omega * time)
     cp = cphi * cwt + sphi * swt
     sp = sphi * cwt - cphi * swt
     bnorm = P.b0_sign * (P.r_ns / r) ** 3 * 0.5
@@ -228,32 +278,47 @@ def _omega_p(P, br, btheta, cz, sin_th, r, b0_abs):
     return torch.where(r <= P.r_ns, torch.zeros_like(wp), wp)
 
 
-def _bndry_t(P, r):
+def _bndry_t(P, r, exp=torch.exp):
     """Boundary-layer omega_p addition in mass_a units where r > r_NS
     (megakernel.py:312 of the reference; models/magnetosphere._bndry_lyr_term,
     whose support r >= r_NS is cut to r > r_NS by the zeroed interior)."""
     q = P.r_ns / r
-    term = P.bndry_pole_t * (q * torch.sqrt(q)) * torch.exp(
+    term = P.bndry_pole_t * (q * torch.sqrt(q)) * exp(
         -(r - P.bndry_rmax * P.bndry_lyr) / (0.1 * P.bndry_rmax))
     return torch.where(r > P.r_ns, term, torch.zeros_like(term))
 
 
-def _condition(P, u, lnt):
+def _f32(fn):
+    """fn evaluated in f32 on the f32-cast argument, returned in f64: the
+    twin of the native gate's sin/cos/exp (the card's __sincosf, __expf)."""
+    return lambda x: fn(x.float()).double()
+
+
+def _condition(P, u, lnt, gate=False):
     """Strength-reduced crossing condition (the reference's cond_mode
     "fast", megakernel.py:433): after the axion-shell renormalization the
     condition is 0.5 ma^2 (wp2t mel - 1) / e7^2, mel = 1 - kp^2/e2 (Melrose)
-    or 1 (isotropic); the boundary layer adds bt to sqrt(wp2t)."""
+    or 1 (isotropic); the boundary layer adds bt to sqrt(wp2t).  At cond
+    mode "canonical" _condition_canonical.  gate: a coarse gate sample,
+    whose sin/cos/exp are f32 at gate trig "native" (the reference's
+    approx=True, megakernel.py:1071 there)."""
+    modes = P.modes
+    if modes.cond == "canonical":
+        return _condition_canonical(P, u, lnt)
+    native = gate and modes.gate == "native"
+    sin, cos, exp = (_f32(torch.sin), _f32(torch.cos), _f32(torch.exp)) if native else (
+        torch.sin, torch.cos, torch.exp)
     x1, x2, x3, w1, w2, w3, e7 = u
-    t = torch.exp(lnt)
+    t = exp(lnt)
     r = x1
-    s_th, c_th = torch.sin(x2), torch.cos(x2)
-    s_ph, c_ph = torch.sin(x3), torch.cos(x3)
+    s_th, c_th = sin(x2), cos(x2)
+    s_ph, c_ph = sin(x3), cos(x3)
     g_tt, g_rr, g_thth, g_pp = _metric(P, r, s_th)
-    br, bth, bph = _dipole_unit(P, r, c_th, s_th, c_ph, s_ph, t)
+    br, bth, bph = _dipole_unit(P, r, c_th, s_th, c_ph, s_ph, t, trig=(sin, cos))
     bz = br * c_th - bth * s_th
     wp2t = torch.where(r <= P.r_ns, torch.zeros_like(bz), P.wp2_scale * torch.abs(bz))
     if P.bndry_lyr > 0:
-        wp2t = (torch.sqrt(wp2t) + _bndry_t(P, r)) ** 2
+        wp2t = (torch.sqrt(wp2t) + _bndry_t(P, r, exp=exp)) ** 2
     e72 = e7 * e7
     inv_e72 = 1.0 / e72
     if P.isotropic:
@@ -266,6 +331,41 @@ def _condition(P, u, lnt):
     bm2 = br * br + bth * bth + bph * bph
     mel = 1.0 - nrm2 * n_w * n_w * g_rr * inv_e72 / bm2
     return (0.5 * P.mass_a**2) * (wp2t * mel - 1.0) * inv_e72
+
+
+def _condition_canonical(P, u, lnt):
+    """The canonical crossing condition (the reference's cond_mode
+    "canonical", _condition_canonical at megakernel.py:398; the literal
+    form of the pool's crossing_condition, RayTracer.jl:262-296): the
+    momenta renormalized onto the axion shell, then the Melrose photon
+    Hamiltonian over e7^2.  |b0| cancels in kp and wp = ma sqrt(wp2t) (plus
+    ma bt with the boundary layer), so the unit dipole carries B (the twin
+    of art::condition_canonical)."""
+    x1, x2, x3, w1, w2, w3, e7 = u
+    t = torch.exp(lnt)
+    r = x1
+    s_th, c_th = torch.sin(x2), torch.cos(x2)
+    g_tt, g_rr, g_thth, g_pp = _metric(P, r, s_th)
+    e72 = e7 * e7
+    wsq = g_rr * w1 * w1 + g_thth * w2 * w2 + g_pp * w3 * w3
+    nrm = torch.sqrt((-e72 * g_tt - P.mass_a * P.mass_a) / wsq)
+    ww1, ww2, ww3 = w1 * nrm, w2 * nrm, w3 * nrm
+    s_ph, c_ph = torch.sin(x3), torch.cos(x3)
+    br, bth, bph = _dipole_unit(P, r, c_th, s_th, c_ph, s_ph, t)
+    bz = br * c_th - bth * s_th
+    wp = torch.where(r <= P.r_ns, torch.zeros_like(bz),
+                     P.mass_a * torch.sqrt(P.wp2_scale * torch.abs(bz)))
+    if P.bndry_lyr > 0:
+        wp = wp + P.mass_a * _bndry_t(P, r)
+    if P.isotropic:
+        kp = torch.zeros_like(wp)
+    else:
+        bl_r, bl_t, bl_p = br / torch.sqrt(g_rr), bth / torch.sqrt(g_thth), bph / torch.sqrt(g_pp)
+        bmag = torch.sqrt(g_rr * bl_r * bl_r + g_thth * bl_t * bl_t + g_pp * bl_p * bl_p)
+        kp = (g_rr * ww1 * bl_r + g_thth * ww2 * bl_t + g_pp * ww3 * bl_p) / bmag
+    ksqr = g_tt * e72 + g_rr * ww1 * ww1 + g_thth * ww2 * ww2 + g_pp * ww3 * ww3
+    e2 = e72 / g_rr
+    return 0.5 * (ksqr + wp * wp * (e2 - kp * kp) / e2) / e72
 
 
 def _grad_h_hand(P, x1, x2, x3, kt1, kt2, kt3, time, ergt_ph, ergt_ax, photon):
@@ -433,19 +533,90 @@ def _photon_or_axion(P, x1, photon, ph_x, ph_k, ph_t, ax):
             tuple(w(photon, p, a) for p, a in zip(ph_k, ax_k)), w(photon, ph_t, z))
 
 
+def _photon_terms(P, x1, x2, x3, kt1, kt2, kt3, time, ergt):
+    """(ksqr, wp2t, mel) of the nondimensionalized photon Hamiltonian at r =
+    max(x1, r_NS): k~ = k / mass_a, B in units of |b0|, wp2t = (wp /
+    mass_a)^2, mel the Melrose factor (e2 - kp^2) / e2 (1 isotropic); on
+    the port's metric (the twin of art::photon_terms)."""
+    r = torch.clamp(x1, min=P.r_ns)
+    s_th, c_th = torch.sin(x2), torch.cos(x2)
+    s_ph, c_ph = torch.sin(x3), torch.cos(x3)
+    g_tt, g_rr, g_thth, g_pp = _metric(P, r, s_th)
+    br, bth, bph = _dipole_unit(P, r, c_th, s_th, c_ph, s_ph, time)
+    bz = br * c_th - bth * s_th
+    wp2t = torch.where(r <= P.r_ns, torch.zeros_like(bz), P.wp2_scale * torch.abs(bz))
+    ksqr = g_tt * ergt**2 + g_rr * kt1**2 + g_thth * kt2**2 + g_pp * kt3**2
+    if P.isotropic:
+        return ksqr, wp2t, torch.ones_like(ksqr)
+    bl_r, bl_t, bl_p = br / torch.sqrt(g_rr), bth / torch.sqrt(g_thth), bph / torch.sqrt(g_pp)
+    bmag = torch.sqrt(g_rr * bl_r**2 + g_thth * bl_t**2 + g_pp * bl_p**2)
+    kp = (g_rr * kt1 * bl_r + g_thth * kt2 * bl_t + g_pp * kt3 * bl_p) / bmag
+    e2 = ergt**2 / g_rr
+    return ksqr, wp2t, (e2 - kp**2) / e2
+
+
+def _hamiltonian_nd(P, *x, ergt):
+    """The nondimensionalized Melrose (isotropic) photon Hamiltonian
+    H / mass_a^2, 0.5 (ksqr + wp2t mel) (megakernel.py:333 of the
+    reference); x = (x1, x2, x3, k~1, k~2, k~3, t)."""
+    ksqr, wp2t, mel = _photon_terms(P, *x, ergt)
+    return 0.5 * (ksqr + wp2t * mel)
+
+
+def _ham_bndry_diff_nd(P, *x, ergt):
+    """The photon Hamiltonian's boundary-layer excess, 0.5 (2 wp~ bt +
+    bt^2) mel (megakernel.py:373 of the reference)."""
+    _, wp2t, mel = _photon_terms(P, *x, ergt)
+    bt = _bndry_t(P, torch.clamp(x[0], min=P.r_ns))
+    return 0.5 * (2.0 * torch.sqrt(wp2t) * bt + bt * bt) * mel
+
+
+def _ham_axion_nd(P, x1, x2, x3, kt1, kt2, kt3, time, ergt):
+    """The axion Hamiltonian in _hamiltonian_nd's units, at x1."""
+    g_tt, g_rr, g_thth, g_pp = _metric(P, x1, torch.sin(x2))
+    return 0.5 * (g_tt * ergt**2 + g_rr * kt1**2 + g_thth * kt2**2 + g_pp * kt3**2)
+
+
+def _grad_h_vjp(P, x1, x2, x3, kt1, kt2, kt3, time, ergt_ph, ergt_ax, photon):
+    """_grad_h_hand's outputs by automatic differentiation (the reference's
+    rhs_mode "vjp", megakernel.py:791-800; the twin of art::grad_h_vjp):
+    torch.func.grad of the photon or the axion Hamiltonian, per ray as
+    `photon` picks, over (x1, x2, x3, k~1, k~2, k~3, t); with the boundary
+    layer the photon's dH~/dt gains the excess's."""
+    from torch.func import grad
+
+    args = (x1, x2, x3, kt1, kt2, kt3, time)
+    ax = P.species == SPECIES["axion"]
+    ph = P.species == SPECIES["photon"]
+
+    def h(*a):
+        hp = None if ax else _hamiltonian_nd(P, *a, ergt=ergt_ph)
+        ha = None if ph else _ham_axion_nd(P, *a, ergt_ax)
+        hh = ha if ax else hp if ph else torch.where(photon, hp, ha)
+        return hh.sum()
+
+    g = grad(h, argnums=tuple(range(7)))(*args)
+    gt = g[6]
+    if P.bndry_lyr > 0 and not ax:
+        hd = lambda t: _ham_bndry_diff_nd(P, *args[:6], t, ergt=ergt_ph).sum()
+        gt = gt + grad(hd)(time)
+    return g[0:3], g[3:6], gt
+
+
 def _rhs(P, u, lnt, erg, is_ph):
     """Hamilton's equations from the hand adjoint (megakernel.py:771 of the
-    reference).  The lapse factor g^rr is taken at the ray's own r, as the
-    pool engine (and the Julia reference) does; the TPU kernel took it at
-    max(r, r_NS), which differs for axions inside the star (ROADMAP Queue 3)."""
+    reference), or at rhs mode "vjp" from _grad_h_vjp.  The lapse factor
+    g^rr is taken at the ray's own r, as the pool engine (and the Julia
+    reference) does; the TPU kernel took it at max(r, r_NS), which differs
+    for axions inside the star (ROADMAP Queue 3)."""
     x1, x2, x3, w1, w2, w3, e7 = u
     t = torch.exp(lnt)
     inv_ma = 1.0 / P.mass_a
     kt1, kt2, kt3 = w1 * (erg * inv_ma), w2 * (erg * inv_ma), w3 * (erg * inv_ma)
     g_rr = _metric(P, x1, torch.sin(x2))[1]
     photon = is_ph > 0.5
-    gx, gk, gt = _grad_h_hand(P, x1, x2, x3, kt1, kt2, kt3, t, -e7 * inv_ma,
-                              erg * inv_ma, photon)
+    grad_h = _grad_h_vjp if P.modes.rhs == "vjp" else _grad_h_hand
+    gx, gk, gt = grad_h(P, x1, x2, x3, kt1, kt2, kt3, t, -e7 * inv_ma, erg * inv_ma, photon)
     ma2 = P.mass_a * P.mass_a
     denom = torch.where(photon, -e7, erg)
     fac = C_KM * t * g_rr / denom
@@ -622,7 +793,8 @@ def probe(P, which: str, u, lnt, erg, is_ph, b0_abs):
     art_probe) at [B] states; CPU tensors run the torch twin."""
     if u.device.type == "cpu":
         return probe_plain(P, which, u, lnt, erg, is_ph, b0_abs)
-    lib = cuda_lib.lib()
+    variant = variant_of(P)
+    lib = cuda_lib.lib(variant)
     B = u.shape[0]
     width = 30 if which == "hermite" else 7
     f64 = torch.float64
@@ -634,23 +806,24 @@ def probe(P, which: str, u, lnt, erg, is_ph, b0_abs):
                          erg.data_ptr(), is_ph.data_ptr(), out.data_ptr(), B,
                          float(b0_abs), P, cuda_lib.stream_ptr(u))
     cuda_lib.check(code, f"probe {which} launch")
-    cuda_lib.LAUNCHES["probe"] += 1
+    cuda_lib.count_launch("probe", variant)
     return out
 
 
 def bind(lib):
-    p = ctypes.c_void_p
-    lib.art_probe.argtypes = [ctypes.c_int, p, p, p, p, p, ctypes.c_int,
-                              ctypes.c_double, MegaParams, p]
-    lib.art_probe.restype = ctypes.c_int
-    lib.art_megakernel.argtypes = [p, p, ctypes.c_int, MegaParams,
-                                   p, p, p, p, p, p, p, p, p]
-    lib.art_megakernel.restype = ctypes.c_int
-    lib.art_megakernel_chain.argtypes = [p, p, p, ctypes.c_int, MegaParams,
-                                         p, p, p, p, p, p, p, p, p, p]
-    lib.art_megakernel_chain.restype = ctypes.c_int
-    lib.art_megakernel_resident_warps.argtypes = [MegaParams, ctypes.POINTER(ctypes.c_int)]
-    lib.art_megakernel_resident_warps.restype = ctypes.c_int
+    """Argument types of the library's K2 entry points (a variant library
+    holds some of them: cuda_lib.Variant)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    sigs = {"art_probe": [i, p, p, p, p, p, i, ctypes.c_double, MegaParams, p],
+            "art_megakernel": [p, p, i, MegaParams, p, p, p, p, p, p, p, p, p],
+            "art_megakernel_chain": [p, p, p, i, MegaParams, p, p, p, p, p, p, p, p, p, p],
+            "art_megakernel_resume": [p, p, i, MegaParams, p, p, p, p, p, p, p, p, p, i, p, p],
+            "art_megakernel_resident_warps": [MegaParams, ctypes.POINTER(i)]}
+    for name, argtypes in sigs.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = i
 
 
 def resident_warps(P: MegaParams, device: torch.device) -> int:
@@ -681,11 +854,11 @@ def _codes(res, lnt1):
     return code
 
 
-def _outputs_from_pool(res, lnt0, lnt1, erg, P, S, with_prob):
-    """integrate_mega's output tuple from a pool run."""
+def _outputs_from_pool(res, lnt_mid, lnt1, erg, P, S, with_prob):
+    """integrate_mega's output tuple from a pool run (lnt_mid: the save
+    grid's midpoint)."""
     B = res.u.shape[0]
     code = _codes(res, lnt1)
-    lnt_mid = 0.5 * (lnt0 + lnt1)
     save_mid = torch.where((lnt_mid <= res.lnt)[:, None], res.save_u[:, 1],
                            torch.zeros_like(res.save_u[:, 1]))
     cru = res.cross_u[:, :S]
@@ -709,10 +882,13 @@ def save_grid(lnt0, lnt1):
 
 
 def pool_run(u0, lnt0, lnt1, erg, x0_cart, sc: Scene, cfg: NumericsConfig, *,
-             max_crossings: int, is_photon, species: str, save_lnt=None):
+             max_crossings: int, is_photon, species: str, save_lnt=None,
+             detect_events: bool = True, **resume_kw):
     """The pool engine on K2's inputs (save grid: start, midpoint, end, or
     `save_lnt`); returns its PoolResult, which also counts each ray's
-    bisected roots."""
+    bisected roots.  detect_events=False: no event scan (the plain version
+    of a MEGA_PROFILE step profile); resume_kw: integrate_pool's
+    init_state / iter_budget / return_state."""
     B = u0.shape[0]
     if save_lnt is None:
         save_lnt = save_grid(lnt0, lnt1)
@@ -723,7 +899,8 @@ def pool_run(u0, lnt0, lnt1, erg, x0_cart, sc: Scene, cfg: NumericsConfig, *,
         lambda u, l: crossing_condition(u, l, sc, mass_eff), u0, lnt0, lnt1,
         {"erg": erg, "is_photon": is_photon}, pool_cfg, save_lnt=save_lnt,
         kill_at_surface=is_photon, r_ns=sc.r_ns, x0_cart=x0_cart,
-        max_crossings=torch.full((B,), max_crossings, dtype=torch.int64, device=u0.device))
+        max_crossings=torch.full((B,), max_crossings, dtype=torch.int64, device=u0.device),
+        detect_events=detect_events, **resume_kw)
 
 
 def _in_dtype(out, dtype):
@@ -731,10 +908,32 @@ def _in_dtype(out, dtype):
     return tuple(None if t is None else t.to(dtype) for t in out)
 
 
+# The resume dict of integrate_mega (its resume / return_resume), per ray:
+# the FSAL derivative f0 [B, 7], then the columns of the kernel's resume rows
+# (csrc/megakernel.cu ResRow).  The reference's dict also carries the
+# float-float low words of the state and log time; the port's state is f64,
+# so they do not exist here.
+RES_ROWS = ("dt", "g0", "errold", "lnt_ck", "steps", "n_cross", "nfine", "lnt_mid", "done")
+
+
+def _resume_launch(resume, it_cap, return_resume):
+    """Whether integrate_mega runs the resumable instantiation."""
+    return it_cap is not None or resume is not None or bool(return_resume)
+
+
+def check_profile(P, with_prob: bool, chain: bool):
+    """The MEGA_PROFILE step profiles are bench-only: no probability, no
+    chain (as the reference asserts, megakernel.py:925-928 there)."""
+    if P.modes.profile != "full" and (with_prob or chain):
+        raise ValueError(f"MEGA_PROFILE={P.modes.profile!r} is bench-only: it runs no "
+                         "event block, so no in-kernel probability and no MC chain")
+
+
 def integrate_mega_plain(u0, lnt0, lnt1, erg, x0_cart, sc: Scene, cfg: NumericsConfig,
                          *, max_crossings: int = 1, is_photon=None,
                          species: str = "photon", with_prob: bool = False,
-                         chain_cap=None, uniforms=None):
+                         chain_cap=None, uniforms=None, it_cap=None, resume=None,
+                         return_resume: bool = False):
     """K2's plain version: the pool engine (same DP5 tableau, controller and
     event semantics; dense scan on every step) followed by the torch twin of
     _prob_nd at the recorded crossings.  Same output tuple as
@@ -742,7 +941,11 @@ def integrate_mega_plain(u0, lnt0, lnt1, erg, x0_cart, sc: Scene, cfg: NumericsC
     dtype (compute_dtype does not apply: the kernel has one precision), the
     outputs in u0's dtype.  n_fine counts every step, since the pool always
     scans densely.  With chain_cap, the chain instantiation's plain version
-    (_chain_plain)."""
+    (_chain_plain).  The condition, gate and RHS modes do not change it (the
+    pool evaluates the canonical condition and differentiates the
+    Hamiltonian); a MEGA_PROFILE profile runs it without the event scan.
+    it_cap / resume / return_resume: the pool in the resumable
+    instantiation's contract (_plain_resumable)."""
     B = u0.shape[0]
     S = int(max_crossings)
     if is_photon is None:
@@ -750,16 +953,78 @@ def integrate_mega_plain(u0, lnt0, lnt1, erg, x0_cart, sc: Scene, cfg: NumericsC
     f64 = torch.float64
     u0_, lnt0, lnt1, erg, x0_cart = (a.to(f64) for a in (u0, lnt0, lnt1, erg, x0_cart))
     if chain_cap is not None:
+        if _resume_launch(resume, it_cap, return_resume):
+            raise ValueError("in-kernel chains cannot resume across launches")
         check_chain(sc, species)
         P = mega_params(sc, cfg, max_crossings=S, species=species, with_prob=True)
+        check_profile(P, True, True)
         out = _chain_plain(P, u0_, lnt0, lnt1, erg, x0_cart, sc, cfg, S, is_photon, species,
                            chain_cap.to(f64), uniforms.to(f64))
         return _in_dtype(out, u0.dtype)
     P = mega_params(sc, cfg, max_crossings=S, species=species, with_prob=with_prob)
+    check_profile(P, bool(P.with_prob), False)
+    events = P.modes.profile == "full"
+    if _resume_launch(resume, it_cap, return_resume):
+        out, res_out = _plain_resumable(P, u0_, lnt0, lnt1, erg, x0_cart, sc, cfg, S,
+                                        is_photon, species, events, it_cap, resume)
+        out = _in_dtype(out[:10] + (is_photon.to(f64),) + out[11:], u0.dtype)
+        return out + (res_out,) if return_resume else out
+    grid = save_grid(lnt0, lnt1)
     res = pool_run(u0_, lnt0, lnt1, erg, x0_cart, sc, cfg, max_crossings=S,
-                   is_photon=is_photon, species=species)
-    out = _outputs_from_pool(res, lnt0, lnt1, erg, P, S, bool(P.with_prob))
+                   is_photon=is_photon, species=species, save_lnt=grid, detect_events=events)
+    out = _outputs_from_pool(res, grid[:, 1], lnt1, erg, P, S, bool(P.with_prob))
     return _in_dtype(out[:10] + (is_photon.to(f64),) + out[11:], u0.dtype)
+
+
+def _plain_resumable(P, u0, lnt0, lnt1, erg, x0_cart, sc, cfg, S, is_photon, species, events,
+                     it_cap, resume):
+    """The pool in the resumable instantiation's contract, f64: from the
+    resume dict (no dict: every ray fresh), each ray with dt 0 starting
+    fresh on its own and each ray done in the dict skipped (its outputs
+    zero, its resume rows those it came with, as the kernel leaves them),
+    at most it_cap steps (default max_steps), the pool's state carried
+    whole (init_state, iter_budget, return_state), only this launch's
+    crossing slots filled.
+    Returns (integrate_mega's output tuple, the resume dict)."""
+    B, dev, f64 = u0.shape[0], u0.device, torch.float64
+    z = lambda *shape: torch.zeros(shape, dtype=f64, device=dev)
+    lnt_mid = save_grid(lnt0, lnt1)[:, 1]
+    state = None
+    if resume is not None:
+        r = {k: v.to(f64) for k, v in resume.items()}
+        new = r["dt"] <= 0
+        lnt_mid = torch.where(new, lnt_mid, r["lnt_mid"])
+    grid = torch.stack([lnt0, lnt_mid, lnt1], dim=1)
+    if resume is not None:
+        no = torch.zeros(B, dtype=torch.bool, device=dev)
+        carried = PoolState(
+            u=u0, lnt=lnt0, dt=r["dt"], f0=r["f0"], g0=r["g0"], done=no,
+            ns_hit=no, cut_short=no.clone(), maxed=no.clone(), stalled=no.clone(),
+            n_cross=r["n_cross"].long(), n_bisect=torch.zeros_like(r["n_cross"]).long(),
+            cross_u=z(B, S, 7), cross_lnt=z(B, S), save_u=z(B, 3, 7), steps=r["steps"].long(),
+            lnt_ck=r["lnt_ck"], errold=r["errold"])
+        _, fresh = pool_run(u0, lnt0, lnt1, erg, x0_cart, sc, cfg, max_crossings=S,
+                            is_photon=is_photon, species=species, save_lnt=grid,
+                            detect_events=events, iter_budget=0, return_state=True)
+        state = PoolState(*(torch.where(new.view(-1, *(1,) * (f.dim() - 1)), f, c)
+                            for f, c in zip(fresh, carried)))
+        state = state._replace(done=state.done | (r["done"] > 0.5))
+    res, st = pool_run(u0, lnt0, lnt1, erg, x0_cart, sc, cfg, max_crossings=S,
+                       is_photon=is_photon, species=species, save_lnt=grid,
+                       detect_events=events, init_state=state,
+                       iter_budget=int(cfg.max_steps if it_cap is None else it_cap),
+                       return_state=True)
+    out = _outputs_from_pool(res, lnt_mid, lnt1, erg, P, S, bool(P.with_prob))
+    res_out = {"f0": st.f0, "dt": st.dt, "g0": st.g0, "errold": st.errold,
+               "lnt_ck": st.lnt_ck, "steps": st.steps.to(f64), "n_cross": st.n_cross.to(f64),
+               "nfine": st.steps.to(f64), "lnt_mid": lnt_mid, "done": st.done.to(f64)}
+    if resume is not None:
+        skip = r["done"] > 0.5
+        rows = lambda t: skip.view(-1, *(1,) * (t.dim() - 1))
+        out = tuple(None if t is None else torch.where(rows(t), torch.zeros_like(t), t)
+                    for t in out)
+        res_out = {k: torch.where(rows(v), r[k], v) for k, v in res_out.items()}
+    return out, res_out
 
 
 def check_chain(sc: Scene, species: str):
@@ -797,8 +1062,9 @@ def _chain_plain(P, u0, lnt0, lnt1, erg, x0_cart, sc, cfg, S, is_photon, species
     multi = (cap < 0.5).nonzero().squeeze(1)
     if multi.numel():
         res = pool_run(u0[multi], lnt0[multi], lnt1[multi], erg[multi], x0_cart[multi], sc,
-                       cfg, max_crossings=S, is_photon=is_photon[multi], species=species)
-        out = _outputs_from_pool(res, lnt0[multi], lnt1[multi], erg[multi], P, S, True)
+                       cfg, max_crossings=S, is_photon=is_photon[multi], species=species,
+                       save_lnt=grid[multi])
+        out = _outputs_from_pool(res, grid[multi, 1], lnt1[multi], erg[multi], P, S, True)
         for dst, src in zip((uf, lntf, steps, code, n_cross, cru, crlnt, save_mid, pcx),
                             out[:9]):
             dst[multi] = src
@@ -835,14 +1101,14 @@ def _chain_plain(P, u0, lnt0, lnt1, erg, x0_cart, sc, cfg, S, is_photon, species
         u, lnt, x0 = uc, res.lnt[gi], sph_point(uc)
         ph = torch.where(conv, ~ph[gi], ph[gi])
         lanes = lg
-    save_mid = torch.where((0.5 * (lnt0 + lnt1) <= lntf)[:, None], save_mid,
-                           torch.zeros_like(save_mid))
+    save_mid = torch.where((grid[:, 1] <= lntf)[:, None], save_mid, torch.zeros_like(save_mid))
     return (uf, lntf, steps, code, n_cross, cru, crlnt, save_mid, pcx, nodes, is_ph, steps)
 
 
 def integrate_mega(u0, lnt0, lnt1, erg, x0_cart, sc: Scene, cfg: NumericsConfig, *,
                    max_crossings: int = 1, is_photon=None, species: str = "photon",
-                   with_prob: bool = False, chain_cap=None, uniforms=None):
+                   with_prob: bool = False, chain_cap=None, uniforms=None, it_cap=None,
+                   resume=None, return_resume: bool = False):
     """Run K2 over a [B, 7] state batch, min(B, resident warps) warps
     pulling rays from a queue.  Returns (u_final [B,7],
     lnt_final [B], steps [B], code [B] (1 end, 2 NS, 3 crossing cap,
@@ -850,7 +1116,8 @@ def integrate_mega(u0, lnt0, lnt1, erg, x0_cart, sc: Scene, cfg: NumericsConfig,
     save_mid [B,7] (0 where the midpoint was never spanned), pcx [B,S],
     chain_nodes [B], is_ph [B], n_fine [B]), in u0's dtype: the
     inputs go up to f64 and the kernel runs in f64 whatever the caller's
-    dtype (--precision f32 gives f32 in and out).
+    dtype (--precision f32 gives f32 in and out).  The library is the one
+    of P.modes (variant_of): the default one, or a variant library.
 
     chain_cap [B] (0 = off) with uniforms [B, S] runs K2's chain
     instantiation (the reference's with_chain; csrc/megakernel.cu run_ray):
@@ -859,19 +1126,36 @@ def integrate_mega(u0, lnt0, lnt1, erg, x0_cart, sc: Scene, cfg: NumericsConfig,
     chain_nodes counts its in-kernel restarts and is_ph is its final
     species.  It implies with_prob, needs species "mixed" and a scene
     can_prob covers.  Without it chain_nodes is 0 and is_ph the input
-    species.  CPU tensors run integrate_mega_plain."""
+    species.
+
+    it_cap / resume / return_resume run the resumable instantiation
+    (integrate_mega_chunked's launches; the reference's, megakernel.py:1451
+    there): at most it_cap steps per ray in this launch (codes key off the
+    absolute step count; default max_steps), from `resume`, the dict a
+    previous return_resume=True call returned (RES_ROWS and f0; u0 and lnt0
+    are then the rays' current state and log time, x0_cart and lnt1 the
+    original ones); rays whose done is set are skipped, their outputs zero,
+    and only the crossing slots recorded in this launch are filled.  With
+    return_resume the dict comes last in the tuple.  The port carries the
+    controller, the FSAL derivative, g0 and the stall reference, so a chunked
+    run is bitwise one launch (the reference resets its stall reference and
+    recomputes f0 and g0 at each launch).  Chain mode cannot resume.  CPU
+    tensors run integrate_mega_plain."""
     if u0.device.type == "cpu":
         return integrate_mega_plain(u0, lnt0, lnt1, erg, x0_cart, sc, cfg,
                                     max_crossings=max_crossings, is_photon=is_photon,
                                     species=species, with_prob=with_prob,
-                                    chain_cap=chain_cap, uniforms=uniforms)
+                                    chain_cap=chain_cap, uniforms=uniforms, it_cap=it_cap,
+                                    resume=resume, return_resume=return_resume)
     S = int(max_crossings)
     check_supported(sc, cfg, S)
     chain = chain_cap is not None
+    resumable = _resume_launch(resume, it_cap, return_resume)
     if chain:
+        if resumable:
+            raise ValueError("in-kernel chains cannot resume across launches")
         check_chain(sc, species)
         with_prob = True
-    lib = cuda_lib.lib()
     B = u0.shape[0]
     dev = u0.device
     f64 = torch.float64
@@ -885,14 +1169,19 @@ def integrate_mega(u0, lnt0, lnt1, erg, x0_cart, sc: Scene, cfg: NumericsConfig,
     cuda_lib.require(u_in, "u0", f64, (B, 7))
     cuda_lib.require(aux, "aux", f64, (B, 8))
     P = mega_params(sc, cfg, max_crossings=S, species=species, with_prob=with_prob)
-    uf = torch.empty((B, 7), dtype=f64, device=dev)
-    lntf = torch.empty(B, dtype=f64, device=dev)
-    diag = torch.empty((B, 4), dtype=f64, device=dev)
-    cru = torch.empty((B, S, 7), dtype=f64, device=dev)
-    crlnt = torch.empty((B, S), dtype=f64, device=dev)
-    save_mid = torch.empty((B, 7), dtype=f64, device=dev)
-    pcx = torch.empty((B, S), dtype=f64, device=dev)
+    check_profile(P, bool(P.with_prob), chain)
+    variant = variant_of(P, resume=resumable)
+    lib = cuda_lib.lib(variant)
+    new = torch.zeros if resumable else torch.empty   # a skipped ray's outputs: zero
+    uf = new((B, 7), dtype=f64, device=dev)
+    lntf = new(B, dtype=f64, device=dev)
+    diag = new((B, 4), dtype=f64, device=dev)
+    cru = new((B, S, 7), dtype=f64, device=dev)
+    crlnt = new((B, S), dtype=f64, device=dev)
+    save_mid = new((B, 7), dtype=f64, device=dev)
+    pcx = new((B, S), dtype=f64, device=dev)
     head = torch.zeros(1, dtype=torch.int32, device=dev)   # the ray queue's head
+    nodes, is_ph_out = torch.zeros_like(lntf), is_photon.to(f64)
     if chain:
         uni = uniforms.to(f64).contiguous()
         cuda_lib.require(uni, "uniforms", f64, (B, S))
@@ -903,39 +1192,175 @@ def integrate_mega(u0, lnt0, lnt1, erg, x0_cart, sc: Scene, cfg: NumericsConfig,
             save_mid.data_ptr(), pcx.data_ptr(), chain_out.data_ptr(), head.data_ptr(),
             cuda_lib.stream_ptr(u_in))
         cuda_lib.check(code, "megakernel chain launch")
-        cuda_lib.LAUNCHES["megakernel_chain"] += 1
+        cuda_lib.count_launch("megakernel_chain", variant)
         nodes, is_ph_out = chain_out[:, 0], chain_out[:, 1]
+    elif resumable:
+        res_in = _pack_resume(resume, lnt0, lnt1, B, dev)
+        res_out = res_in.clone()   # a skipped ray's rows echo its inputs
+        cap = int(cfg.max_steps if it_cap is None else it_cap)
+        code = lib.art_megakernel_resume(
+            u_in.data_ptr(), aux.data_ptr(), B, P, uf.data_ptr(), lntf.data_ptr(),
+            diag.data_ptr(), cru.data_ptr(), crlnt.data_ptr(), save_mid.data_ptr(),
+            pcx.data_ptr(), res_in.data_ptr(), res_out.data_ptr(), cap, head.data_ptr(),
+            cuda_lib.stream_ptr(u_in))
+        cuda_lib.check(code, "megakernel resume launch")
+        cuda_lib.count_launch("megakernel_resume", variant._replace(resume=False))
     else:
         code = lib.art_megakernel(
             u_in.data_ptr(), aux.data_ptr(), B, P, uf.data_ptr(), lntf.data_ptr(),
             diag.data_ptr(), cru.data_ptr(), crlnt.data_ptr(), save_mid.data_ptr(),
             pcx.data_ptr(), head.data_ptr(), cuda_lib.stream_ptr(u_in))
         cuda_lib.check(code, "megakernel launch")
-        cuda_lib.LAUNCHES["megakernel"] += 1
-        nodes, is_ph_out = torch.zeros_like(lntf), is_photon.to(f64)
-    return _in_dtype((uf, lntf, diag[:, 0], diag[:, 1], diag[:, 2], cru, crlnt, save_mid, pcx,
-                      nodes, is_ph_out, diag[:, 3]), u0.dtype)
+        cuda_lib.count_launch("megakernel", variant)
+    out = _in_dtype((uf, lntf, diag[:, 0], diag[:, 1], diag[:, 2], cru, crlnt, save_mid, pcx,
+                     nodes, is_ph_out, diag[:, 3]), u0.dtype)
+    if return_resume:
+        out = out + (_unpack_resume(res_out),)
+    return out
+
+
+def _pack_resume(resume, lnt0, lnt1, B, dev):
+    """The resumable kernel's rows [B, 16] (f0, then RES_ROWS) from a resume
+    dict; without one, fresh rows (dt 0)."""
+    f64 = torch.float64
+    rows = torch.zeros((B, 7 + len(RES_ROWS)), dtype=f64, device=dev)
+    if resume is not None:
+        rows[:, :7] = resume["f0"]
+        for c, k in enumerate(RES_ROWS):
+            rows[:, 7 + c] = resume[k]
+    return rows.contiguous()
+
+
+def _unpack_resume(rows):
+    out = {"f0": rows[:, :7]}
+    out.update({k: rows[:, 7 + c] for c, k in enumerate(RES_ROWS)})
+    return out
+
+
+# host reads (synchronizing device-to-host copies) integrate_mega_chunked made
+CHUNKED_READS = {"alive": 0}
+
+
+def integrate_mega_chunked(u0, lnt0, lnt1, erg, x0_cart, sc: Scene, cfg: NumericsConfig, *,
+                           chunk_iters: int = 64, max_crossings: int = 1, is_photon=None,
+                           species: str = "photon", with_prob: bool = False,
+                           stage_shrink: int = 4, stage_floor: int = 2048,
+                           stage_chunk_growth: int = 4):
+    """K2 relaunched in chunk_iters-step slices with staged straggler
+    compaction (the reference's integrate_mega_chunked, megakernel.py:1555
+    there): each stage relaunches the resumable instantiation over its
+    buffer until its live rays fit the next stage's size, flushes every row
+    into pool-order accumulators, then keeps the live rays first (a stable
+    partition) and cuts the buffer to that size; the per-launch cap grows by
+    stage_chunk_growth a stage, up to max_steps.  Stage sizes follow the
+    reference's plan: B -> B / shrink in multiples of 128, down to
+    stage_floor.  On the card one warp runs one ray and warps pull rays from
+    a queue, so no ray waits for another and the compaction saves only the
+    skipped rays' warps; this runs for parity (`backtrace_chunk`).
+    The state between launches is integrate_mega's resume dict; every row a
+    step reads is carried, so the result is bitwise one launch.  The host
+    reads one live count per launch (CHUNKED_READS).  CPU tensors run the
+    same pyramid over the pool (integrate_mega_plain's resumable contract).
+    Same return tuple as integrate_mega; chain mode is not supported."""
+    B = u0.shape[0]
+    S = int(max_crossings)
+    dev, f64 = u0.device, torch.float64
+    if is_photon is None:
+        is_photon = torch.ones(B, dtype=torch.bool, device=dev)
+    u0_, lnt0_, lnt1_, erg_, x0_ = (a.to(f64) for a in (u0, lnt0, lnt1, erg, x0_cart))
+    z = lambda *shape: torch.zeros(shape, dtype=f64, device=dev)
+    st = {"idx": torch.arange(B, device=dev), "u": u0_.clone(), "lnt": lnt0_.clone(),
+          "lnt1": lnt1_, "erg": erg_, "x0": x0_, "is_ph": is_photon,
+          "steps": z(B), "code": z(B), "ncr": z(B), "cru": z(B, S, 7), "crlnt": z(B, S),
+          "pcx": z(B, S), "save": z(B, 7), "nfine": z(B), "res": None,
+          "done": (lnt1_ <= lnt0_).to(f64)}
+    acc = {k: v.clone() for k, v in st.items() if k not in ("idx", "res")}
+
+    def launch(st, cap):
+        act = st["done"] < 0.5
+        (uf, lntf, steps, code, ncr, cru, crlnt, save_mid, pcx, _nodes, _isph, nfine,
+         res) = integrate_mega(st["u"], st["lnt"], st["lnt1"], st["erg"], st["x0"], sc, cfg,
+                               max_crossings=S, is_photon=st["is_ph"], species=species,
+                               with_prob=with_prob, it_cap=cap, resume=st["res"],
+                               return_resume=True)
+        res = {k: v.to(f64) for k, v in res.items()}
+        m1 = lambda new, old: torch.where(act, new.to(f64), old)
+        m2 = lambda new, old: torch.where(act[:, None], new.to(f64), old)
+        slots = torch.arange(S, dtype=f64, device=dev)[None, :]
+        took = act[:, None] & (slots >= st["ncr"][:, None]) & (slots < ncr.to(f64)[:, None])
+        new = dict(st)
+        new.update(
+            u=m2(uf, st["u"]), lnt=m1(lntf, st["lnt"]), steps=m1(steps, st["steps"]),
+            code=m1(code, st["code"]), ncr=m1(ncr, st["ncr"]), nfine=m1(nfine, st["nfine"]),
+            cru=torch.where(took[:, :, None], cru.to(f64), st["cru"]),
+            crlnt=torch.where(took, crlnt.to(f64), st["crlnt"]),
+            pcx=torch.where(took, pcx.to(f64), st["pcx"]),
+            save=torch.where((act & (save_mid[:, 0] != 0))[:, None], save_mid.to(f64),
+                             st["save"]),
+            done=m1(res["done"], st["done"]))
+        old_res = st["res"] or {k: torch.zeros_like(v) for k, v in res.items()}
+        new["res"] = {k: (m2 if v.dim() == 2 else m1)(v, old_res[k]) for k, v in res.items()}
+        new["res"]["done"] = new["done"]
+        return new
+
+    def alive(st):
+        CHUNKED_READS["alive"] += 1
+        return int((st["done"] < 0.5).sum())
+
+    def flush(st):
+        for k in acc:
+            acc[k][st["idx"]] = st[k]
+
+    floor = max(min(int(stage_floor), B), 128)
+    sizes, n = [], B
+    while n > floor:
+        n = max(((n // int(stage_shrink)) // 128) * 128, floor)
+        sizes.append(n)
+    chunk = int(chunk_iters)
+    n_alive = alive(st)
+    for target in sizes:
+        while n_alive > 0 and n_alive > target:
+            st = launch(st, chunk)
+            n_alive = alive(st)
+        flush(st)
+        order = torch.argsort((st["done"] > 0.5).to(torch.int8), stable=True)[:target]
+        st = {k: (None if v is None else {kk: vv[order] for kk, vv in v.items()})
+              if k == "res" else v[order] for k, v in st.items()}
+        chunk = min(chunk * max(int(stage_chunk_growth), 1), int(cfg.max_steps))
+    while n_alive > 0:
+        st = launch(st, chunk)
+        n_alive = alive(st)
+    flush(st)
+    out = (acc["u"], acc["lnt"], acc["steps"], acc["code"], acc["ncr"], acc["cru"],
+           acc["crlnt"], acc["save"], acc["pcx"], z(B), is_photon.to(f64), acc["nfine"])
+    return _in_dtype(out, u0.dtype)
 
 
 def propagate_mega(x0_cart, k0_cart, sc: Scene, cfg: NumericsConfig, *, erg, delta_w,
                    lnt0, lnt1, is_photon, max_crossings: int = 1,
                    species: str = "mixed", with_prob: bool = False, chain_cap=None,
-                   uniforms=None) -> PropagateResult:
+                   uniforms=None, chunk_iters=None) -> PropagateResult:
     """PropagateResult around integrate_mega (the reference's propagate_mega);
     the ntimes=3 trajectory is (launch point, midpoint, endpoint).
     chain_cap and uniforms run the in-kernel MC chain where can_prob covers
     the scene (elsewhere they are ignored, as in the reference); the result
-    then carries chain_nodes and final_is_ph."""
+    then carries chain_nodes and final_is_ph.  chunk_iters > 0:
+    integrate_mega_chunked at that per-launch cap (`backtrace_chunk`), except
+    for chain lanes, which never chunk."""
     mass_eff = sc.mass_ns_eff
     u0 = launch_state(x0_cart, k0_cart, sc, erg, delta_w)
     chain = chain_cap is not None and can_prob(sc)
     with_prob = (bool(with_prob) and can_prob(sc)) or chain
-    (uf, lntf, steps, code, n_cross, cru, crlnt, save_mid, pcx, nodes, is_ph_out,
-     _nfine) = integrate_mega(u0, lnt0, lnt1, erg, x0_cart, sc, cfg,
-                              max_crossings=max_crossings, is_photon=is_photon,
-                              species=species, with_prob=with_prob,
-                              chain_cap=chain_cap if chain else None,
-                              uniforms=uniforms if chain else None)
+    kw = dict(max_crossings=max_crossings, is_photon=is_photon, species=species,
+              with_prob=with_prob)
+    if chunk_iters and not chain:
+        out = integrate_mega_chunked(u0, lnt0, lnt1, erg, x0_cart, sc, cfg,
+                                     chunk_iters=int(chunk_iters), **kw)
+    else:
+        out = integrate_mega(u0, lnt0, lnt1, erg, x0_cart, sc, cfg,
+                             chain_cap=chain_cap if chain else None,
+                             uniforms=uniforms if chain else None, **kw)
+    (uf, lntf, steps, code, n_cross, cru, crlnt, save_mid, pcx, nodes, is_ph_out, _nfine) = out
 
     def state_to_cart(uu):
         x_sph = uu[:, 0:3]

@@ -78,7 +78,9 @@ def backtrace(xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
               tcfg: TreeConfig, *, lnt_end) -> BacktraceResult:
     """Backtrace the sampled axion to every level crossing it met
     (get_tree with -B0, -k, MainRunner.jl:581-589): through K2 at engine
-    mega, the pool otherwise, in compacted chunks at pool_compact."""
+    mega (relaunched in chunks of cfg.backtrace_chunk steps with staged
+    compaction when it is > 0), the pool otherwise, in compacted chunks at
+    pool_compact."""
     E = xpos.shape[0]
     dev, dt = xpos.device, xpos.dtype
     sc_b = _negate_b(sc)
@@ -91,7 +93,8 @@ def backtrace(xpos, k_init, erg_inf, sc: Scene, cfg: NumericsConfig,
         from adiabatic_raytracer_tpu_torch.ops.megakernel import propagate_mega
 
         res = propagate_mega(xpos, k_back, sc_b, cfg, max_crossings=cfg.max_crossings,
-                             with_prob=bool(cfg.in_kernel_prob), **kw)
+                             with_prob=bool(cfg.in_kernel_prob),
+                             chunk_iters=int(cfg.backtrace_chunk) or None, **kw)
     elif cfg.engine == "pool_compact":
         # the pool in chunks, compacting the rays still running between them
         # (driver.py:315-393 of the reference); the tree runs the pool

@@ -64,6 +64,7 @@ from adiabatic_raytracer_tpu_torch.ops.megakernel import (
     child_birth,
     mega_params,
     rare_crossing,
+    variant_of,
 )
 from adiabatic_raytracer_tpu_torch.ops.megakernel import (
     sph_point as _cart,   # a segment's start point, as the kernels compute it
@@ -175,14 +176,16 @@ def _flipped(a, b):
     return torch.sign(a) * torch.sign(b) < 0
 
 
-def _g_interp(P, u0, u1, f0, f1, h, lnt0):
+def _g_interp(P, u0, u1, f0, f1, h, lnt0, gate=False):
     """g_tau(rows, tau): the condition on the Hermite interpolant of the
     steps `rows` (of u0 .. lnt0, [m, 7] and [m]) at tau, rows and tau
-    broadcast against each other."""
+    broadcast against each other; gate: the coarse gate's samples
+    (_condition's gate)."""
     def g_tau(rows, tau):
         c = lambda t: tuple(t[rows, i] for i in range(7))
         hr = h[rows]
-        return _condition(P, _hermite(c(u0), c(u1), c(f0), c(f1), hr, tau), lnt0[rows] + tau * hr)
+        return _condition(P, _hermite(c(u0), c(u1), c(f0), c(f1), hr, tau), lnt0[rows] + tau * hr,
+                          gate=gate)
     return g_tau
 
 
@@ -222,12 +225,13 @@ def _scan_roots(P, x0, u0, u1, f0, f1, h, lnt0, g0, g1, g_tau=None, free=None):
     (_g_interp by default)."""
     m = u0.shape[0]
     dev, dt = u0.device, u0.dtype
+    g_gate = g_tau or _g_interp(P, u0, u1, f0, f1, h, lnt0, gate=True)
     g_tau = g_tau or _g_interp(P, u0, u1, f0, f1, h, lnt0)
     rows = torch.arange(m, device=dev)[:, None]
     free = torch.ones(m, dtype=torch.int64, device=dev) if free is None else free
 
-    def g_at(taus):   # [m, T] condition values at the interpolant's taus [T]
-        return g_tau(rows, taus[None, :])
+    def g_at(taus, g=g_tau):   # [m, T] condition values at the interpolant's taus [T]
+        return g(rows, taus[None, :])
 
     n_rec = torch.zeros(m, dtype=torch.int64, device=dev)
     u_s = torch.zeros((m, P.max_roots, 7), dtype=dt, device=dev)
@@ -236,7 +240,7 @@ def _scan_roots(P, x0, u0, u1, f0, f1, h, lnt0, g0, g1, g_tau=None, free=None):
     dense = torch.ones(m, dtype=torch.bool, device=dev)
     if Kc > 0:
         taus_c = torch.arange(1, Kc, dtype=dt, device=dev) / Kc
-        seq = torch.cat([g0[:, None], g_at(taus_c), g1[:, None]], dim=1)
+        seq = torch.cat([g0[:, None], g_at(taus_c, g_gate), g1[:, None]], dim=1)
         flip_c = _flipped(seq[:, :-1], seq[:, 1:]).any(dim=1)
         dense = flip_c | (torch.abs(seq).amin(dim=1) < P.gate_theta)
     n_root = torch.zeros(m, dtype=dt, device=dev)
@@ -711,19 +715,28 @@ def tree_kernel_launch(uin, aux, uni, qin, sc: Scene, cfg: NumericsConfig, tcfg:
     if uin.device.type == "cpu":
         return tree_kernel_launch_plain(uin, aux, uni, qin, sc, cfg, tcfg, nf=nf, qd=qd,
                                         it_cap=it_cap)
-    lib = cuda_lib.lib()
+    P = kernel_params(sc, cfg)
+    variant = tree_variant(P)
+    lib = cuda_lib.lib(variant)
     B = uin.shape[0]
     uu = uni.shape[1]
     _require_blocks(uin, aux, uni, qin, qd)
     uout, auxout, qout = uin.clone(), aux.clone(), qin.clone()
     fin = torch.zeros((B, nf * ROWS), dtype=torch.float64, device=uin.device)
     code = lib.art_treekernel(uout.data_ptr(), auxout.data_ptr(), uni.data_ptr(),
-                              qout.data_ptr(), fin.data_ptr(), B, kernel_params(sc, cfg),
+                              qout.data_ptr(), fin.data_ptr(), B, P,
                               tree_params(tcfg, nf=nf, qd=qd, uu=uu, it_cap=it_cap),
                               cuda_lib.stream_ptr(uin))
     cuda_lib.check(code, "treekernel launch")
-    cuda_lib.LAUNCHES["treekernel"] += 1
+    cuda_lib.count_launch("treekernel", variant)
     return uout, auxout, qout, fin
+
+
+def tree_variant(P) -> cuda_lib.Variant:
+    """The library of a K3 or K4 launch: the condition, gate and RHS modes
+    of P (a variant library at a non-default one); K3 and K4 have no step
+    profile and no resumable instantiation."""
+    return variant_of(P)._replace(profile="full", resume=False)
 
 
 def _require_blocks(uin, aux, uni, qin, qd):
@@ -741,21 +754,21 @@ def _check_refill(epart, refill_k, it_cap, lanes):
 
 
 @functools.lru_cache(maxsize=None)
-def resident_warps(device_index: int) -> int:
-    """The warps K4 keeps resident at once on a card: blocks per SM at its
-    registers (CUDA occupancy) x SMs x 4."""
+def resident_warps(device_index: int, variant: cuda_lib.Variant = None) -> int:
+    """The warps K4 (of `variant`'s library) keeps resident at once on a
+    card: blocks per SM at its registers (CUDA occupancy) x SMs x 4."""
     out = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        cuda_lib.check(cuda_lib.lib().art_treerefill_resident_warps(ctypes.byref(out)),
+        cuda_lib.check(cuda_lib.lib(variant).art_treerefill_resident_warps(ctypes.byref(out)),
                        "treerefill occupancy")
     return out.value
 
 
-def refill_warps(E: int, epart: int, device: torch.device) -> int:
+def refill_warps(E: int, epart: int, device: torch.device, variant=None) -> int:
     """K4's default warps per partition: the card's resident warps shared
     by the ceil(E / epart) partitions, at least 1."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    return max(1, resident_warps(index) // max(-(-E // epart), 1))
+    return max(1, resident_warps(index, variant) // max(-(-E // epart), 1))
 
 
 def tree_refill_launch_plain(uin, aux, uni, qin, sc: Scene, cfg: NumericsConfig,
@@ -847,19 +860,21 @@ def tree_refill_launch(uin, aux, uni, qin, sc: Scene, cfg: NumericsConfig, tcfg:
                                         epart=epart, refill_k=refill_k, it_cap=it_cap)
     _check_refill(epart, refill_k, it_cap, 1 if warps is None else warps)
     E = uin.shape[0]
-    warps = refill_warps(E, epart, uin.device) if warps is None else warps
-    lib = cuda_lib.lib()
+    P = kernel_params(sc, cfg)
+    variant = tree_variant(P)
+    warps = refill_warps(E, epart, uin.device, variant) if warps is None else warps
+    lib = cuda_lib.lib(variant)
     _require_blocks(uin, aux, uni, qin, qd)
     uout, auxout, qout = uin.clone(), aux.clone(), qin.clone()
     fin = torch.zeros((E, nf * ROWS), dtype=torch.float64, device=uin.device)
     heads = torch.zeros(-(-E // epart), dtype=torch.int32, device=uin.device)
     code = lib.art_treerefill(uout.data_ptr(), auxout.data_ptr(), uni.data_ptr(),
                               qout.data_ptr(), fin.data_ptr(), heads.data_ptr(), E, epart,
-                              warps, refill_k, it_cap, kernel_params(sc, cfg),
+                              warps, refill_k, it_cap, P,
                               tree_params(tcfg, nf=nf, qd=qd, uu=uni.shape[1], it_cap=it_cap),
                               cuda_lib.stream_ptr(uin))
     cuda_lib.check(code, "treerefill launch")
-    cuda_lib.LAUNCHES["treerefill"] += 1
+    cuda_lib.count_launch("treerefill", variant)
     return uout, auxout, qout, fin
 
 

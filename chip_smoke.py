@@ -8,8 +8,10 @@ and an isotropic scene, its saveMode 3 text and tree dumps, checkpoint and
 resume, the forward tree's streaming window, pipeline depth 2, two processes
 in one group, the mesh (in one process and over a group of processes),
 engine pool_compact, the diagnostics and
-analysis, --precision f32 / --computeDtype, and the in-kernel MC chain on
-the queue tree (mc_chain), and checks the output.
+analysis, --precision f32 / --computeDtype, the in-kernel MC chain on
+the queue tree (mc_chain), and K2's last branches (the chunked backtrace,
+the canonical condition, the native gate, the vjp RHS, the step profiles),
+and checks the output.
 
     python3 chip_smoke.py            # needs one CUDA device
 
@@ -41,7 +43,9 @@ non-zero):
      slowest ray's steps, dense passes, bisected roots (plain version) and
      microseconds per step, the warps launched and resident
   6. K3 vs tree_kernel_launch_plain on 512 production events (one launch,
-     default cutoffs): counters identical on >= 99% of events; on those, the
+     default cutoffs; the plain version in plain_pool's CPU processes, a
+     quarter of the events each, while the card runs the rest of the
+     phase): counters identical on >= 99% of events; on those, the
      steps, photon steps, accepted steps, dense passes and recorded
      crossings identical on >= 99% of those, orders identical, and the
      per-record relative error of their finals (compare_records) has median
@@ -205,13 +209,36 @@ non-zero):
      events/s with their spread; (c) saveMode 3 with mc_chain 1, one batch
      (dumps under build/chip_smoke_chain3/): the chain instantiation
      launched, K3 not, a tree file per event
+ 26. K2's last branches, each from its variant library (cuda_lib.Variant;
+     the seven built here with every nvcc process started together, their
+     ptxas figures printed): (a) the chunked relaunch
+     (integrate_mega_chunked, chunk 64, shrink 2, floor 128) against one
+     launch on phase 5's 2048-ray backtrace: bitwise on every ray; its
+     launches, host reads and host-clock ms beside one launch's; (b) the
+     canonical condition, the native gate trig and the vjp RHS on the same
+     rays against phase 5's plain output at phase 5's bars, and against
+     the default K2; (c) the probe at the canonical condition and the vjp
+     RHS against their twins (phase 4's bar); (d) K3 and K4 at the three
+     modes against the default K3 and K4 on phase 6's 512 events at phase
+     6's bars; (e) the MEGA_PROFILE step profiles (scan, coarse, rhs) on
+     phase 5's rays against the pool without events on the first
+     PROFILE_RAYS of them (plain_pool): steps identical on >= 99%, endpoint
+     median < 1e-8, no crossing; each profile's microseconds per step of the
+     slowest ray; (f) the CLI's kernel path at phase 7's flags, warm, with
+     --backtrace_chunk 64 (rows bitwise phase 7's; the resumable K2
+     launched, mega_kernel not) and with each mode's environment override
+     (MEGA_COND, MEGA_GATE_TRIG, MEGA_RHS: its K2 and K3 launched, the
+     default ones not), and driver.run on the refill path at each mode (its
+     K4 launched)
  14. the kernels' JSON line: each kernel's launches on its path (K1's
      grid kernel, a check only, 0 on the main path; P1's through its entry
      point), and its time,
      plain time, error and bound from its comparison with its plain version
-     (phases 3, 5, 6, 9, 10 and 25a, each on one input; K4's plain time is phase
-     6's plain run, whose output K4 is held against, and its row says so in
-     "plain_of"); the nvidia-smi line, the
+     (phases 3, 5, 6, 9, 10, 25a and 26, each on one input; K4's plain time is
+     phase 6's plain run, whose output K4 is held against, and its row says
+     so in "plain_of", as do phase 26's rows; a variant's launches are those
+     of phase 26f's run at its option, a profile's phase 26e's own); the
+     nvidia-smi line, the
      result line.  Every phase logs its wall time.
 
 Bounds: the least time the card could take for a kernel's work, the larger
@@ -225,7 +252,10 @@ root (the bisection's 50 and the filter), K2's
 steps, dense passes and crossings from its diagnostics (its chain
 instantiation also its restarts), K3's per-event work
 counters (photon and axion steps, accepted steps, dense passes, bisected
-roots, recorded crossings), the same for K4.
+roots, recorded crossings), the same for K4.  Phase 26's mode variants
+compute the default's function and take its counts (the native gate's
+condition samples at the f32 rate); a MEGA_PROFILE run is charged only the
+work it runs (k2_work_bound).
 
 Writes its npy output, the build log and the profiler table under
 chiprun_out/chip_smoke/.
@@ -271,15 +301,24 @@ FLOP_PROB = 250            # prob_nd at a recorded crossing
 FLOP_BIRTH = 210
 
 
+# K2's branches (phase 26) are bounded at the function's own count: the vjp
+# RHS computes the hand adjoint's gradient and the canonical condition the
+# fast form's value, so they take FLOP_RHS and FLOP_COND; the native gate's
+# condition samples run their transcendentals in f32, so the gate's FLOP_COND
+# is charged at the f32 rate there (flop_gate(native=True)).
+
+
 def flop_step(species):
     """Every attempted DP5 step: 6 new RHS (FSAL), the condition at the new
     point."""
     return 6 * FLOP_RHS[species] + FLOP_STEP_FIXED + FLOP_COND
 
 
-def flop_gate(interp_coarse):
-    """The coarse gate's interior points, on every accepted step."""
-    return max(interp_coarse - 1, 0) * (FLOP_HERMITE + FLOP_COND)
+def flop_gate(interp_coarse, native=False):
+    """The coarse gate's interior points, on every accepted step, in f64
+    operations (at the native gate the condition's count at the f32 rate)."""
+    cond = FLOP_COND * F64_PER_S / F32_PER_S if native else FLOP_COND
+    return max(interp_coarse - 1, 0) * (FLOP_HERMITE + cond)
 
 
 def flop_dense(interp):
@@ -438,7 +477,7 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-# The plain versions of K2 and K3 behind phases 13c-d and 24b-c run in a pool
+# The plain versions of K2 and K3 behind phases 6, 13c-d and 24b-c run in a pool
 # of CPU processes while this process runs the kernels on the card: they are
 # eager torch, set by per-op host overhead (a DP5 step of a 512-ray batch
 # took ~80 ms on one CPU thread, ~200 ms on the card), and four run at once.
@@ -473,15 +512,17 @@ def _plain_worker_init():
 
 
 def _plain_job(blob):
-    """In a plain_pool process: K2's (kind "k2") or K3's ("k3") plain version
-    on the pickled CPU inputs; returns the pickled (outputs, seconds)."""
+    """In a plain_pool process: K2's (kind "k2") or K3's ("k3") plain version,
+    or the pool engine on K2's inputs ("pool", megakernel.pool_run), on the
+    pickled CPU inputs; returns the pickled (outputs, seconds)."""
     import pickle
 
     from adiabatic_raytracer_tpu_torch.ops import megakernel as mk
     from adiabatic_raytracer_tpu_torch.ops import treekernel as tk
 
     kind, args, kwargs = pickle.loads(blob)
-    fn = {"k2": mk.integrate_mega_plain, "k3": tk.tree_kernel_launch_plain}[kind]
+    fn = {"k2": mk.integrate_mega_plain, "k3": tk.tree_kernel_launch_plain,
+          "pool": mk.pool_run}[kind]
     t0 = time.time()
     out = fn(*args, **kwargs)
     return pickle.dumps((out, time.time() - t0))
@@ -572,7 +613,8 @@ def ptxas_figures(text):
 
 
 KERNEL_NAMES = ("line_scan_kernel", "line_roots_kernel", "mega_kernel", "mega_chain_kernel",
-                "probe_kernel", "tree_kernel", "tree_refill_kernel", "refill_probe_kernel")
+                "mega_resume_kernel", "probe_kernel", "tree_kernel", "tree_refill_kernel",
+                "refill_probe_kernel")
 
 
 def source_names(symbol):
@@ -1007,18 +1049,22 @@ def sample_events(n, device, sc, cfg, maxR, n_grid, seed):
     return x, k, e
 
 
-def phase_probe(device, phase=4, funcs=("condition", "rhs"), **scene):
+def phase_probe(device, phase=4, funcs=("condition", "rhs"), modes=None, **scene):
     """The device functions against their torch twins on conversion-surface
     states of the production scene; with `scene`'s fields changed (K2's
-    other dispersion variants, r_NS below 10 km), `funcs` of each species
-    (the RHS and the condition by default).  Logs how many of the states lie
-    below 10 km."""
+    other dispersion variants, r_NS below 10 km) or K2's `modes` (cfg
+    fields: the probe kernel of a variant library against the twins at the
+    same modes), `funcs` of each species (the RHS and the condition by
+    default).  Logs how many of the states lie below 10 km."""
+    import dataclasses
+
     import torch
 
     from adiabatic_raytracer_tpu_torch.ops import megakernel as mk
     from adiabatic_raytracer_tpu_torch.ops.propagate import launch_state
 
     sc, cfg, tcfg, maxR, n_grid = scene_setup(device, **scene)
+    cfg = dataclasses.replace(cfg, **(modes or {}))
     x, k, e = sample_events(512, device, sc, cfg, maxR, n_grid, seed=7)
     B = x.shape[0]
     u = launch_state(x, k, sc, e, -torch.ones_like(e)).contiguous()
@@ -1028,7 +1074,7 @@ def phase_probe(device, phase=4, funcs=("condition", "rhs"), **scene):
     worst = 0.0
     parts = []
     cases = [("photon", w) for w in mk.PROBE_FUNCS] + [("axion", "rhs"), ("mixed", "rhs")]
-    if scene:
+    if scene or modes:
         cases = [(sp, w) for sp in ("photon", "axion", "mixed") for w in funcs]
     for species, which in cases:
         P = mk.mega_params(sc, cfg, species=species, with_prob=True)
@@ -1048,7 +1094,8 @@ def phase_probe(device, phase=4, funcs=("condition", "rhs"), **scene):
                                  f"finite {ok_n}")
         worst = max(worst, err)
         parts.append(f"{which}/{species[0]} {err:.1e}")
-    log(phase, f"probe{scene or ''} vs torch twins on {B} states ({int((u[:, 0] < 10.0).sum())} "
+    log(phase, f"probe{scene or ''}{modes or ''} vs torch twins on {B} states "
+               f"({int((u[:, 0] < 10.0).sum())} "
                f"below 10 km), f64: worst {worst:.2e} (bar 1e-12 of |value| + column scale); "
                + ", ".join(parts))
     return worst
@@ -1195,8 +1242,13 @@ def phase_megakernel(device, n_events):
     if not (frac >= 0.99 and med < 1e-8 and pcx_bad <= 0.01 * int(used.sum())
             and own_rel < 1e-10 and gate_same >= 0.99):
         raise AssertionError("K2 disagrees with its plain version")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None}
+    row = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": None}
+    # phase 26 holds K2's branches against this run: its inputs, the plain
+    # output and the gated kernel's
+    ctx = dict(inputs=(u0, lnt0, lnt1, e, x, sc_b, cfg, kw), out_p=out_p, out_g=out_g,
+               plain_ms=plain_ms, ms=ms)
+    return row, ctx
 
 
 def census_cfg(device, **scene):
@@ -1334,38 +1386,19 @@ def phase_treekernel(device, n_plain, n_tree):
     qd = tcfg.mc_nodes + 2
     it_full = (tcfg.max_nodes + 2) * (cfg.max_steps + 2)
 
-    # --- kernel vs plain on the same blocks, one launch ---
+    # --- kernel vs plain on the same blocks, one launch; the plain version
+    # in plain_pool's CPU processes (PLAIN_WORKERS slices of the events, each
+    # tree independent of the others) while the card runs the rest ---
     x, k, e = sample_events(n_plain, device, sc, cfg, maxR, n_grid, seed=13)
     keys = rng.fold_in(rng.PRNGKey(2027, device=device), torch.arange(n_plain, device=device))
     blocks = blocks_plain = tk.tree_inputs(keys, x, k, e, sc, cfg, tcfg, lnt_end=lnt_end)
+    n_slice = -(-n_plain // PLAIN_WORKERS)
+    futs = [submit_plain("k3", *(b[i:i + n_slice] for b in blocks), sc, cfg, tcfg, nf=nf,
+                         qd=qd, it_cap=it_full) for i in range(0, n_plain, n_slice)]
     launch = lambda: tk.tree_kernel_launch(*blocks, sc, cfg, tcfg, nf=nf, qd=qd, it_cap=it_full)
     _, a_k, _, f_k = launch()
     torch.cuda.synchronize()
-    t0 = time.time()
-    _, a_p, _, f_p = tk.tree_kernel_launch_plain(*blocks, sc, cfg, tcfg, nf=nf, qd=qd,
-                                                 it_cap=it_full)
-    torch.cuda.synchronize()
-    plain_ms = (time.time() - t0) * 1e3   # host clock around one synced run
     ms = cuda_ms(launch, 3)
-    r = tree_agreement(a_k, f_k, a_p, f_p, nf, "K3 vs plain", 6)
-    same = (a_k[:, [tk.A_COUNT, tk.A_CMAIN, tk.A_INFO, tk.A_NALLOC, tk.A_ANOM]]
-            == a_p[:, [tk.A_COUNT, tk.A_CMAIN, tk.A_INFO, tk.A_NALLOC, tk.A_ANOM]]).all(dim=1)
-    bis_same = (a_k[:, tk.A_NBISECT] == a_p[:, tk.A_NBISECT])[same].double().mean().item()
-    tot = lambda r: a_k[:, r].sum().item()
-    steps = a_k[:, tk.A_STEPTOT]
-    n_ph = tot(tk.A_STEPS_PH)
-    b_ms, b_by = tree_bound(a_k, blocks[2].shape[1], nf, qd, cfg)
-    log(6, f"K3 vs plain on {n_plain} events, one launch (default cutoffs, NF {nf}, QD {qd}): "
-           f"{r['text']}; bisection counts identical {bis_same:.4f}; steps per event mean "
-           f"{steps.mean().item():.1f} max {int(steps.max().item())}, photon steps {int(n_ph)} "
-           f"of {int(tot(tk.A_STEPTOT))}, accepted {int(tot(tk.A_NACC))}, dense passes "
-           f"{int(tot(tk.A_NFINE))}, bisections {int(tot(tk.A_NBISECT))}, recorded crossings "
-           f"{int(tot(tk.A_NCROSS))}; kernel {ms:.3f} ms, "
-           f"{ms * 1e3 / steps.max().item():.2f} us per step of the slowest tree; plain "
-           f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by})")
-    if not r["ok"]:
-        raise AssertionError("K3 disagrees with its plain version")
-    max_abs = r["max_abs"]
 
     # --- the tree engine on 2048 events vs the host engine at tree_k=1 ---
     x, k, e = sample_events(n_tree, device, sc, cfg, maxR, n_grid, seed=17)
@@ -1409,6 +1442,32 @@ def phase_treekernel(device, n_plain, n_tree):
            f"launch: {rc['text']}")
     if not rc["ok"]:
         raise AssertionError("K3's relaunch disagrees with one launch")
+
+    # --- the plain version's result, against the kernel's ---
+    outs, secs = zip(*(plain_result(f, device) for f in futs))
+    a_p, f_p = (torch.cat([o[i] for o in outs]) for i in (1, 3))
+    plain_ms = sum(secs) * 1e3
+    r = tree_agreement(a_k, f_k, a_p, f_p, nf, "K3 vs plain", 6)
+    same = (a_k[:, [tk.A_COUNT, tk.A_CMAIN, tk.A_INFO, tk.A_NALLOC, tk.A_ANOM]]
+            == a_p[:, [tk.A_COUNT, tk.A_CMAIN, tk.A_INFO, tk.A_NALLOC, tk.A_ANOM]]).all(dim=1)
+    bis_same = (a_k[:, tk.A_NBISECT] == a_p[:, tk.A_NBISECT])[same].double().mean().item()
+    tot = lambda r: a_k[:, r].sum().item()
+    steps = a_k[:, tk.A_STEPTOT]
+    n_ph = tot(tk.A_STEPS_PH)
+    b_ms, b_by = tree_bound(a_k, blocks_plain[2].shape[1], nf, qd, cfg)
+    log(6, f"K3 vs plain on {n_plain} events, one launch (default cutoffs, NF {nf}, QD {qd}): "
+           f"{r['text']}; bisection counts identical {bis_same:.4f}; steps per event mean "
+           f"{steps.mean().item():.1f} max {int(steps.max().item())}, photon steps {int(n_ph)} "
+           f"of {int(tot(tk.A_STEPTOT))}, accepted {int(tot(tk.A_NACC))}, dense passes "
+           f"{int(tot(tk.A_NFINE))}, bisections {int(tot(tk.A_NBISECT))}, recorded crossings "
+           f"{int(tot(tk.A_NCROSS))}; kernel {ms:.3f} ms, "
+           f"{ms * 1e3 / steps.max().item():.2f} us per step of the slowest tree; plain "
+           f"{plain_ms:.1f} ms on one CPU thread summed over {len(futs)} slices (plain_pool), "
+           f"bound {b_ms:.4f} ms ({b_by})")
+    if not r["ok"]:
+        raise AssertionError("K3 disagrees with its plain version")
+    max_abs = r["max_abs"]
+
     k3 = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
           "bound_by": b_by, "library_ms": None}
     return k3, {"blocks": blocks_plain, "aux": a_p, "fin": f_p, "plain_ms": plain_ms}
@@ -1425,7 +1484,7 @@ def tree_bound(a, uu, nf, qd, cfg):
     tot = lambda r: a[:, r].sum().item()
     n_ph = tot(tk.A_STEPS_PH)
     nflop = (n_ph * flop_step("photon") + (tot(tk.A_STEPTOT) - n_ph) * flop_step("axion")
-             + tot(tk.A_NACC) * flop_gate(cfg.interp_coarse)
+             + tot(tk.A_NACC) * flop_gate(cfg.interp_coarse, cfg.gate_trig == "native")
              + tot(tk.A_NFINE) * flop_dense(cfg.interp_points)
              + tot(tk.A_NBISECT) * flop_bisect(cfg.bisect_iters) + tot(tk.A_NCROSS) * FLOP_PROB)
     n = a.shape[0]
@@ -3405,6 +3464,357 @@ def phase_chain(device, n_events, n_lanes):
             "bound_by": b_by, "library_ms": None}, chain_launches
 
 
+# phase 26: K2's branches, each in its variant library (cuda_lib.Variant at
+# the production scene's dispersion), and the cfg fields / environment
+# overrides that select them
+BRANCH_VARIANTS = {"resume": dict(resume=True), "canonical": dict(cond="canonical"),
+                   "native": dict(gate="native"), "vjp": dict(rhs="vjp"),
+                   "scan": dict(profile="scan"), "coarse": dict(profile="coarse"),
+                   "rhs": dict(profile="rhs")}
+MODE_CFG = {"canonical": dict(cond_mode="canonical"), "native": dict(gate_trig="native"),
+            "vjp": dict(rhs_mode="vjp")}
+MODE_ENV = {"canonical": ("MEGA_COND", "canonical"), "native": ("MEGA_GATE_TRIG", "native"),
+            "vjp": ("MEGA_RHS", "vjp")}
+PROFILE_RAYS = 256   # phase 5's first rays, for the pool without events (26e)
+
+
+def k2_work_bound(out, cfg, species, S, profile=None):
+    """(bound_ms, bound_by) of a K2 run with outputs `out` (phase 5's count
+    of the work: steps, the gate, dense passes, recorded crossings with
+    their bisection and probability; the inputs and outputs read and
+    written once).  A MEGA_PROFILE run is charged only what it runs: "rhs"
+    the steps without their condition, "coarse" the steps and the coarse
+    pass (its out[11] counts gate fires, not dense passes), "scan" the steps,
+    the gate and the dense passes, no bisection."""
+    B = out[0].shape[0]
+    steps = out[2].sum().item()
+    native = cfg.gate_trig == "native"
+    if profile == "rhs":
+        nflop = steps * (flop_step(species) - FLOP_COND)
+    elif profile == "coarse":
+        nflop = steps * (flop_step(species) + flop_gate(cfg.interp_coarse or 4, native))
+    else:
+        nflop = (steps * (flop_step(species) + flop_gate(cfg.interp_coarse, native))
+                 + out[11].sum().item() * flop_dense(cfg.interp_points))
+        if profile is None:
+            nflop += out[4].sum().item() * (flop_bisect(cfg.bisect_iters) + FLOP_PROB)
+    return bound(8 * B * (7 + 8 + 7 + 1 + 4 + 7 * S + S + 7 + S), nflop, F64_PER_S)
+
+
+def k2_vs_plain(out, out_p, S):
+    """Phase 5's comparison of a K2 run with the plain output: the share of
+    rays with the same crossing count, the endpoint median relative error
+    and max abs error on the rays both ended at lnt1, the pcx slots over
+    rtol 1e-8 and the slots compared."""
+    import torch
+
+    same = out[4] == out_p[4]
+    end = (out[3] == 1) & (out_p[3] == 1)
+    rel = (torch.abs(out[0] - out_p[0]) / (torch.abs(out_p[0]) + 1e-30)).amax(dim=1)
+    used = (torch.arange(S, device=out[0].device)[None, :] < out_p[4][:, None]) & same[:, None]
+    pcx_rel = (torch.abs(out[8] - out_p[8]) / torch.clamp(torch.abs(out_p[8]), min=1e-300))[used]
+    return dict(same=same.double().mean().item(), med=rel[end].median().item(),
+                max_abs=torch.abs(out[0] - out_p[0])[end].max().item(),
+                pcx_bad=int((pcx_rel > 1e-8).sum()), slots=int(used.sum()),
+                finite=bool(torch.isfinite(out[0]).all()))
+
+
+def bitwise_rays(out_a, out_b):
+    """Per ray, whether two K2 runs' 12 outputs are all identical."""
+    import torch
+
+    same = torch.ones(out_a[0].shape[0], dtype=torch.bool, device=out_a[0].device)
+    for a, b in zip(out_a, out_b):
+        eq = a == b
+        same &= eq.reshape(eq.shape[0], -1).all(dim=1)
+    return same
+
+
+def phase_k2_branches(device, k2, k2_ctx, k3_plain, rows_kernel, n_cli=4096):
+    """Phase 26: K2's last branches, each from its variant library (built
+    here, every nvcc process started together): (a) the chunked relaunch,
+    (b) the canonical condition, the native gate trig and the vjp RHS on
+    phase 5's backtrace, (c) the probe at canonical and vjp, (d) K3 at the
+    three modes, (e) the MEGA_PROFILE step profiles, (f) the CLI's kernel
+    path at --backtrace_chunk 64 and at each mode.  Returns the kernels'
+    JSON rows."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from adiabatic_raytracer_tpu_torch import cli
+    from adiabatic_raytracer_tpu_torch.ops import cuda_lib
+    from adiabatic_raytracer_tpu_torch.ops import megakernel as mk
+    from adiabatic_raytracer_tpu_torch.ops import treekernel as tk
+
+    u0, lnt0, lnt1, e, x, sc_b, cfg, kw = k2_ctx["inputs"]
+    out_p, out_g = k2_ctx["out_p"], k2_ctx["out_g"]
+    B, S = x.shape[0], kw["max_crossings"]
+    src = "adiabatic_raytracer_tpu_torch/csrc/megakernel.cu"
+    rows = []
+
+    # (e)'s plain version first: the pool without events on PROFILE_RAYS of
+    # phase 5's rays, in plain_pool's CPU processes while the card runs
+    n_pool = PROFILE_RAYS // PLAIN_WORKERS
+    pool_kw = dict(max_crossings=S, species="axion", detect_events=False)
+    futs = [submit_plain("pool", *(a[i:i + n_pool] for a in (u0, lnt0, lnt1, e, x)), sc_b, cfg,
+                         is_photon=kw["is_photon"][i:i + n_pool], **pool_kw)
+            for i in range(0, PROFILE_RAYS, n_pool)]
+
+    variants = {n: cuda_lib.Variant(mk.variant_of(mk.mega_params(sc_b, cfg)).disp, **v)
+                for n, v in BRANCH_VARIANTS.items()}
+    t0 = time.time()
+    cuda_lib.build_many(list(variants.values()))
+    build_s = time.time() - t0
+    figs = []
+    for n, v in variants.items():
+        summary = ptxas_summary(cuda_lib.VARIANT_BUILD_LOGS.get(v, ""))
+        with open(os.path.join(OUT, f"build_log_{v.tag()}.txt"), "w") as f:
+            f.write(cuda_lib.VARIANT_BUILD_LOGS.get(v, "(built before this run)"))
+        names = ("mega_resume_kernel",) if v.resume else ("mega_kernel",)
+        names += ("tree_kernel", "tree_refill_kernel") if v.trees() else ()
+        figs.append(f"{v.tag()}: " + ", ".join(
+            f"{k} {ptxas_figures(summary.get(k, ''))}" for k in names))
+    log("26", f"variant libraries built in {build_s:.1f} s (registers, stack, spill "
+              f"stores/loads; None: built before this run): " + "; ".join(figs))
+
+    # (a) the chunked relaunch against one launch, bitwise
+    chunk_kw = dict(chunk_iters=64, stage_shrink=2, stage_floor=128, **kw)
+    run_single = lambda: mk.integrate_mega(u0, lnt0, lnt1, e, x, sc_b, cfg, **kw)
+    run_chunked = lambda: mk.integrate_mega_chunked(u0, lnt0, lnt1, e, x, sc_b, cfg, **chunk_kw)
+
+    def host_ms(fn, reps=3):
+        best = float("inf")
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.time()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, (time.time() - t) * 1e3)
+        return best
+
+    run_chunked()
+    cuda_lib.reset_launch_counts()
+    reads0 = mk.CHUNKED_READS["alive"]
+    out_c = run_chunked()
+    torch.cuda.synchronize()
+    n_launch, n_reads = cuda_lib.LAUNCHES["megakernel_resume"], mk.CHUNKED_READS["alive"] - reads0
+    ms_c, ms_1 = host_ms(run_chunked), host_ms(run_single)
+    same = bitwise_rays(out_c, out_g)
+    for i in (~same).nonzero().squeeze(1).tolist()[:10]:
+        diff = [j for j, (a, b) in enumerate(zip(out_c, out_g)) if not torch.equal(a[i], b[i])]
+        log("26a", f"  ray {i} not bitwise in outputs {diff}: steps {out_c[2][i].item()} vs "
+                   f"{out_g[2][i].item()}, code {out_c[3][i].item()} vs {out_g[3][i].item()}")
+    vp = k2_vs_plain(out_c, out_p, S)
+    b_ms, b_by = k2_work_bound(out_c, cfg, "axion", S)
+    log("26a", f"K2 chunked (chunk 64, shrink 2, floor 128) vs one launch "
+               f"on phase 5's {B}-ray backtrace: bitwise on {int(same.sum())} of {B} rays; "
+               f"chunk 64: {n_launch} launches, {n_reads} host reads, {ms_c:.2f} ms; chunk 0: "
+               f"1 launch, 0 host reads, {ms_1:.2f} ms (host clock, best of 3); vs plain: "
+               f"identical counts {vp['same']:.4f}, endpoint median {vp['med']:.3g}")
+    if not bool(same.all()):
+        raise AssertionError("the chunked K2 is not bitwise one launch")
+    resume_row = {"name": "megakernel_resume", "route": "cuda", "source": src,
+                  "replaces": "adiabatic_raytracer_tpu/ops/megakernel.py:1436",
+                  "variant": "it_cap/resume (integrate_mega_chunked, backtrace_chunk)",
+                  "max_abs_err": vp["max_abs"], "ms": ms_c, "plain_ms": k2["plain_ms"],
+                  "plain_of": "phase 5", "bound_ms": b_ms, "bound_by": b_by,
+                  "library_ms": None}
+
+    # (b) the three modes on phase 5's backtrace, gated, at phase 5's bars
+    mode_rows = {}
+    for m in ("canonical", "native", "vjp"):
+        cm = dataclasses.replace(cfg, **MODE_CFG[m])
+        run = lambda c=cm: mk.integrate_mega(u0, lnt0, lnt1, e, x, sc_b, c, **kw)
+        out_m = run()
+        ms = cuda_ms(run, 3)
+        vp = k2_vs_plain(out_m, out_p, S)
+        vd = bitwise_rays(out_m, out_g)
+        rel_d = (torch.abs(out_m[0] - out_g[0]) / (torch.abs(out_g[0]) + 1e-30)).amax(dim=1)
+        b_ms, b_by = k2_work_bound(out_m, cm, "axion", S)
+        slow = int(torch.argmax(out_m[2]).item())
+        log("26b", f"K2 {m} vs plain (phase 5's): identical counts {vp['same']:.4f} (bar 0.99), "
+                   f"endpoint median {vp['med']:.3g} (bar 1e-8), pcx over 1e-8 "
+                   f"{vp['pcx_bad']}/{vp['slots']}; vs default K2: counts identical "
+                   f"{(out_m[4] == out_g[4]).double().mean().item():.4f}, bitwise rays "
+                   f"{int(vd.sum())}/{B}, endpoint median rel {rel_d.median().item():.3g} max "
+                   f"{rel_d.max().item():.3g}; {ms:.3f} ms (default {k2_ctx['ms']:.3f}), "
+                   f"{ms * 1e3 / out_m[2][slow].item():.2f} us per step of the slowest ray; "
+                   f"bound {b_ms:.4f} ms ({b_by})")
+        if not (vp["same"] >= 0.99 and vp["med"] < 1e-8 and vp["pcx_bad"] <= 0.01 * vp["slots"]
+                and vp["finite"]):
+            raise AssertionError(f"K2 at {m} disagrees with its plain version")
+        mode_rows[m] = {"name": f"megakernel@{m}", "route": "cuda", "source": src,
+                        "replaces": "adiabatic_raytracer_tpu/ops/megakernel.py:1436",
+                        "variant": str(MODE_CFG[m]), "max_abs_err": vp["max_abs"], "ms": ms,
+                        "plain_ms": k2["plain_ms"], "plain_of": "phase 5",
+                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+    # (c) the probe at the canonical condition and the vjp RHS, f64
+    phase_probe(device, phase="26c", funcs=("condition",), modes=MODE_CFG["canonical"])
+    phase_probe(device, phase="26c", funcs=("rhs",), modes=MODE_CFG["vjp"])
+
+    # (d) K3 at each mode against default K3 on phase 6's 512 events
+    sc, tcfg_cfg, tcfg = scene_setup(device)[:3]
+    kcfg = dataclasses.replace(tcfg_cfg, tree_engine="kernel")
+    nf, qd = int(min(kcfg.tree_kernel_finals, tcfg.num_cutoff)), tcfg.mc_nodes + 2
+    it_full = (tcfg.max_nodes + 2) * (kcfg.max_steps + 2)
+    blocks = k3_plain["blocks"]
+    n_ev = blocks[0].shape[0]
+    ep = tk.refill_partition(n_ev, 1)
+    launch = {"treekernel": lambda c: tk.tree_kernel_launch(*blocks, sc, c, tcfg, nf=nf, qd=qd,
+                                                            it_cap=it_full),
+              "treerefill": lambda c: tk.tree_refill_launch(
+                  *blocks, sc, c, tcfg, nf=nf, qd=qd, epart=ep, refill_k=int(c.tree_refill_k),
+                  it_cap=min(it_full * ep, 2**31 - 2))}
+    src3 = {"treekernel": ("treekernel.cu", "775", "K3"), "treerefill": ("treerefill.cu", "1026",
+                                                                          "K4")}
+    tree_rows = {}
+    for kern, run in launch.items():
+        _, a0, _, f0 = run(kcfg)
+        fname, line, tag = src3[kern]
+        for m in ("canonical", "native", "vjp"):
+            cm = dataclasses.replace(kcfg, **MODE_CFG[m])
+            _, am, _, fm = run(cm)
+            ms = cuda_ms(lambda c=cm: run(c), 3)
+            r = tree_agreement(am, fm, a0, f0, nf, f"{tag} {m} vs default {tag}", "26d")
+            b_ms, b_by = tree_bound(am, blocks[2].shape[1], nf, qd, cm)
+            log("26d", f"{tag} {m} vs default {tag} on {n_ev} events: {r['text']}; "
+                       f"{ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+            if not r["ok"]:
+                raise AssertionError(f"{tag} at {m} disagrees with default {tag}")
+            tree_rows[(kern, m)] = {
+                "name": f"{kern}@{m}", "route": "cuda",
+                "source": f"adiabatic_raytracer_tpu_torch/csrc/{fname}",
+                "replaces": f"adiabatic_raytracer_tpu/ops/treekernel.py:{line}",
+                "variant": str(MODE_CFG[m]), "max_abs_err": r["max_abs"], "ms": ms,
+                "plain_ms": k3_plain["plain_ms"],
+                "plain_of": "phase 6 (K3's plain run at the default modes, which the default "
+                            "K3 and K4 are held against)",
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+    # (e) the step profiles: no event block, so the pool without events is
+    # their plain version; the axion backtrace's trajectory does not depend
+    # on its records below the 16-slot cap, so against default K2 too
+    pkw = dict(kw, with_prob=False)
+    profiles, prof_rows = {}, {}
+    cuda_lib.reset_launch_counts()
+    for prof in ("scan", "coarse", "rhs"):
+        os.environ["MEGA_PROFILE"] = prof
+        try:
+            run = lambda: mk.integrate_mega(u0, lnt0, lnt1, e, x, sc_b, cfg, **pkw)
+            profiles[prof] = (run(), cuda_ms(run, 3))
+        finally:
+            del os.environ["MEGA_PROFILE"]
+    prof_launches = dict(cuda_lib.LAUNCHES)
+    pool_out, pool_s = zip(*(plain_result(f, device) for f in futs))
+    pool_u = torch.cat([o[0] for o in pool_out])
+    pool_steps = torch.cat([o[9] for o in pool_out]).to(torch.float64)
+    n = pool_u.shape[0]
+    uncapped = out_g[4] < S
+    for prof, (out_r, ms) in profiles.items():
+        steps_same = (out_r[2][:n] == pool_steps).double().mean().item()
+        end = out_r[3][:n] == 1
+        rel = (torch.abs(out_r[0][:n] - pool_u) / (torch.abs(pool_u) + 1e-30)).amax(dim=1)
+        med = rel[end].median().item()
+        vs_k2 = (out_r[0] == out_g[0]).all(dim=1)[uncapped].double().mean().item()
+        slow = int(torch.argmax(out_r[2]).item())
+        us = ms * 1e3 / out_r[2][slow].item()
+        b_ms, b_by = k2_work_bound(out_r, cfg, "axion", S, profile=prof)
+        log("26e", f"MEGA_PROFILE={prof} on phase 5's {B} rays: {ms:.3f} ms, {us:.2f} us per "
+                   f"step of the slowest ray ({int(out_r[2][slow].item())} steps), dense-pass "
+                   f"count {int(out_r[11].sum().item())}, crossings {int(out_r[4].sum().item())}; "
+                   f"vs the pool without events on {n} rays: steps identical {steps_same:.4f} "
+                   f"(bar 0.99), endpoint median rel {med:.3g} (bar 1e-8) on {int(end.sum())} "
+                   f"end-reached rays; endpoints bitwise default K2's on "
+                   f"{vs_k2:.4f} of the rays below its crossing cap; bound {b_ms:.4f} ms "
+                   f"({b_by})")
+        if not (steps_same >= 0.99 and med < 1e-8 and int(out_r[4].sum().item()) == 0
+                and bool(torch.isfinite(out_r[0]).all())):
+            raise AssertionError(f"MEGA_PROFILE={prof} disagrees with the pool without events")
+        prof_rows[prof] = {"name": f"megakernel@{prof}", "route": "cuda", "source": src,
+                           "replaces": "adiabatic_raytracer_tpu/ops/megakernel.py:1436",
+                           "variant": f"MEGA_PROFILE={prof} (bench-only: no main path; its "
+                                      f"launches are phase 26e's)",
+                           "launches": prof_launches.get(f"megakernel@{prof}", 0),
+                           "max_abs_err": torch.abs(out_r[0][:n] - pool_u)[end].max().item(),
+                           "ms": ms, "plain_ms": sum(pool_s) * 1e3,
+                           "plain_of": f"the pool without events on {n} rays "
+                                       f"({PLAIN_WORKERS} CPU processes, summed)",
+                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+    # (f) the CLI's kernel path (phase 7's flags), warm: --backtrace_chunk 64
+    # bitwise phase 7's rows, then each mode through its environment override
+    argv = ["--device", device.type, "--event_batch", "2048", "--Nts", str(n_cli + 1),
+            "--saveMode", "1",
+            "--seed", "1769", "--dir_tag", os.path.join(OUT, "branches"), "--tree_engine",
+            "auto"] + SCENE_ARGS
+
+    def cli_run(tag, extra=(), env=None):
+        if env:
+            os.environ[env[0]] = env[1]
+        try:
+            cuda_lib.reset_launch_counts()
+            t = time.time()
+            _, path, stats = cli.run_from_args(argv + ["--ftag", tag, *extra])
+            wall = time.time() - t
+            launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+        finally:
+            if env:
+                del os.environ[env[0]]
+        out = np.load(path)
+        if not rows_ok(out):
+            raise AssertionError(f"{tag}: rows not finite or weights not positive")
+        return out, stats, wall, launches
+
+    rows_c, stats, wall, launches = cli_run("chunk64", ["--backtrace_chunk", "64"])
+    rows_kernel = np.load(rows_kernel) if isinstance(rows_kernel, str) else rows_kernel
+    bitwise = rows_c.shape == rows_kernel.shape and np.array_equal(rows_c, rows_kernel)
+    log("26f", f"CLI kernel path --backtrace_chunk 64, {n_cli} events, warm: {wall:.2f} s = "
+               f"{stats.events / wall:.1f} events/s, census {stats.scan_gate}; rows bitwise "
+               f"phase 7's {bitwise}; launches {launches}")
+    if not (bitwise and launches.get("megakernel_resume", 0) > 0
+            and not launches.get("megakernel") and launches.get("treekernel", 0) > 0):
+        raise AssertionError("--backtrace_chunk 64: rows or launches wrong")
+    resume_row["launches"] = launches["megakernel_resume"]
+    for m in ("canonical", "native", "vjp"):
+        rows_m, stats, wall, launches = cli_run(m, env=MODE_ENV[m])
+        agree = ""
+        if rows_m.shape == rows_kernel.shape:
+            w = np.abs(rows_m[:, 8] / rows_kernel[:, 8] - 1)
+            agree = f", weights median rel {np.median(w):.3g} max {w.max():.3g}"
+        log("26f", f"CLI kernel path {MODE_ENV[m][0]}={m}, {n_cli} events, warm: {wall:.2f} s = "
+                   f"{stats.events / wall:.1f} events/s, census {stats.scan_gate}; rows "
+                   f"{rows_m.shape} vs phase 7's {rows_kernel.shape}{agree}; launches "
+                   f"{launches}")
+        k2n, k3n = launches.get(f"megakernel@{m}", 0), launches.get(f"treekernel@{m}", 0)
+        if not (k2n > 0 and k3n > 0 and not launches.get("megakernel")
+                and not launches.get("treekernel")):
+            raise AssertionError(f"{m}: the kernel path did not run its variant library")
+        mode_rows[m]["launches"] = k2n
+        tree_rows[("treekernel", m)]["launches"] = k3n
+        # the refill path (phase 12's configuration) at the mode: K4's variant
+        from adiabatic_raytracer_tpu_torch.driver import run as driver_run
+
+        rcfg = dataclasses.replace(kcfg, tree_kernel_chunk=64, tree_refill=1, **MODE_CFG[m])
+        cuda_lib.reset_launch_counts()
+        t = time.time()
+        _, path, stats = driver_run(sc, rcfg, tcfg, n_cli // 2 + 1, seed=1769, save_mode=1,
+                                    file_tag=f"refill_{m}", dir_tag=os.path.join(OUT, "branches"),
+                                    event_batch=2048, verbose=False, device=device)
+        wall = time.time() - t
+        launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+        log("26f", f"refill path (driver.run, tree_refill 1) at {m}, {stats.events} events, "
+                   f"warm: {wall:.2f} s; launches {launches}")
+        k4n = launches.get(f"treerefill@{m}", 0)
+        if not (rows_ok(np.load(path)) and k4n > 0 and not launches.get("treerefill")):
+            raise AssertionError(f"{m}: the refill path did not run its variant library")
+        tree_rows[("treerefill", m)]["launches"] = k4n
+    return ([resume_row] + list(mode_rows.values()) + list(tree_rows.values())
+            + list(prof_rows.values()))
+
+
 def phase_slice(device, n_events, batch, tree_engine, phase, cold_run=True, extra=(),
                 uses_tree_kernel=None, zero_weight_ok=False):
     """The main path through the CLI: a cold run when asked (one CLI
@@ -3523,7 +3933,7 @@ def main():
     k1 = timed(3, phase_line_scan, device, 16384)
     timed(3, sample_route_costs, device, 16384)
     timed(4, phase_probe, device)
-    k2 = timed(5, phase_megakernel, device, 2048)
+    k2, k2_ctx = timed(5, phase_megakernel, device, 2048)
     k3, k3_plain = timed(6, phase_treekernel, device, 512, 2048)
     launches, rows_kernel = timed(7, phase_slice, device, 4096, 2048, "auto", 7)
     _, rows_queue = timed(8, phase_slice, device, 2048, 2048, "queue", 8, cold_run=False)
@@ -3549,6 +3959,7 @@ def main():
     timed(23, phase_precision, device, 2048, 2048)
     timed(24, phase_rns, device)
     k2_chain, chain_launches = timed(25, phase_chain, device, 2048, CHAIN_LANES)
+    branch_rows = timed(26, phase_k2_branches, device, k2, k2_ctx, k3_plain, rows_kernel)
     log(14, f"chip_smoke wall {time.time() - t_start:.1f} s")
     kernels = [
         {"name": "line_roots", "route": "cuda",
@@ -3578,7 +3989,7 @@ def main():
         {"name": "refill_probe", "route": "cuda",
          "source": "adiabatic_raytracer_tpu_torch/csrc/refill_probe.cu",
          "replaces": "scripts/probe_refill_ops.py:147", "launches": p1_launches, **p1},
-    ]
+    ] + branch_rows
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

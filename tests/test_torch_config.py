@@ -74,11 +74,13 @@ def test_port_never_imports_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(cfg=dict(backtrace_chunk=64)),
+    dict(cfg=dict(engine="xla")),
 ], ids=lambda kw: str(kw))
 def test_unported_options_raise(kw):
+    """Every run option of the reference is ported; an engine the reference
+    does not run either is refused by name before anything runs."""
     cfg = tcfg.NumericsConfig(**kw.pop("cfg", {}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="not ported: engine='xla'"):
         check_ported(cfg, **kw)
 
 
@@ -94,12 +96,17 @@ def test_unported_options_raise(kw):
     dict(mesh_devices=1, processes=2),
     dict(mesh_devices=2, processes=2),
     dict(cfg=dict(mc_chain=1)),
+    dict(cfg=dict(backtrace_chunk=64)),
+    dict(cfg=dict(rhs_mode="vjp")),
+    dict(cfg=dict(cond_mode="canonical")),
+    dict(cfg=dict(gate_trig="native")),
 ], ids=lambda kw: str(kw))
 def test_ported_options_pass(kw):
     """The streaming window, saveMode 2/3, checkpoint/resume, pool_compact,
     a mesh, pipeline depth 2, processes each running their own shard, a
-    mesh over the process group and the in-kernel MC chain are ported:
-    check_ported lets them pass."""
+    mesh over the process group, the in-kernel MC chain and K2's last
+    branches (the chunked backtrace, the vjp RHS, the canonical condition,
+    the native gate trig) are ported: check_ported lets them pass."""
     check_ported(tcfg.NumericsConfig(**kw.pop("cfg", {})), **kw)
 
 

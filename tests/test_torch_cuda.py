@@ -122,6 +122,93 @@ def test_megakernel_matches_plain(dev):
     assert rel.median().item() < 1e-8
 
 
+@pytest.mark.cuda
+def test_megakernel_chunked_is_one_launch(dev):
+    """K2's resumable instantiation through integrate_mega_chunked (chunk 64,
+    stages 256 -> 128) against one launch of mega_kernel: all 12 outputs
+    bitwise (the controller, f0, g0 and the stall reference are carried)."""
+    x, k, erg = rays(256, seed=9)
+    sc_b = _negate_b(tcfg.Scene(**KW))
+    B = x.shape[0]
+    u0 = launch_state(x, -k, sc_b, erg, -torch.ones(B, dtype=F64))
+    d = lambda t: t.to(dev)
+    args = (d(u0), d(torch.full((B,), -30.0, dtype=F64)), d(torch.zeros(B, dtype=F64)),
+            d(erg), d(x), sc_b, tcfg.NumericsConfig())
+    kw = dict(max_crossings=16, is_photon=d(torch.zeros(B, dtype=torch.bool)),
+              species="axion", with_prob=True)
+    one = mk.integrate_mega(*args, **kw)
+    chunked = mk.integrate_mega_chunked(*args, chunk_iters=64, stage_shrink=2, stage_floor=128,
+                                        **kw)
+    for a, b in zip(one, chunked):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_megakernel_resume_starts_dt0_rays_fresh(dev):
+    """K2's resumable instantiation on one resume dict that mixes rays with
+    dt > 0 (continued from their rows) and rays with dt 0 (fresh from u0
+    and lnt0), as test_torch_k2_branches holds its plain version: after a
+    launch capped at 10 steps, every ray still running ends where one
+    launch of mega_kernel ends it (endpoint, log time, steps, code and
+    crossing count bitwise), the fresh rays record all their crossings, and
+    a ray done in the dict is skipped (outputs zero, rows echoed)."""
+    x, k, erg = rays(256, seed=9)
+    sc_b = _negate_b(tcfg.Scene(**KW))
+    B = x.shape[0]
+    u0 = launch_state(x, -k, sc_b, erg, -torch.ones(B, dtype=F64)).to(dev)
+    lnt0 = torch.full((B,), -30.0, dtype=F64, device=dev)
+    lnt1, erg, x = (t.to(dev) for t in (torch.zeros(B, dtype=F64), erg, x))
+    cfg = tcfg.NumericsConfig()
+    kw = dict(max_crossings=16, is_photon=torch.zeros(B, dtype=torch.bool, device=dev),
+              species="axion", with_prob=True)
+    one = mk.integrate_mega(u0, lnt0, lnt1, erg, x, sc_b, cfg, **kw)
+    first = mk.integrate_mega(u0, lnt0, lnt1, erg, x, sc_b, cfg, it_cap=10,
+                              return_resume=True, **kw)
+    res = {key: v.clone() for key, v in first[-1].items()}
+    fresh = torch.arange(B, device=dev) % 2 == 1
+    res["dt"][fresh] = 0.0
+    res["done"][fresh] = 0.0
+    res["done"][0] = 1.0
+    live = res["done"] < 0.5
+    u_in = torch.where(fresh[:, None], u0, first[0])
+    lnt_in = torch.where(fresh, lnt0, first[1])
+    *out, res_out = mk.integrate_mega(u_in, lnt_in, lnt1, erg, x, sc_b, cfg, resume=res,
+                                      return_resume=True, **kw)
+    for i in range(5):
+        assert torch.equal(out[i][live], one[i][live]), i
+    for i in (5, 6, 8):
+        assert torch.equal(out[i][fresh], one[i][fresh]), i
+    for i in (0, 1, 2, 3, 4, 5, 6, 7, 8, 11):
+        assert not bool(out[i][0].any()), i
+    for key, v in res_out.items():
+        assert torch.equal(v[0], res[key][0]), key
+    assert int(live.sum()) > B // 2 and int(one[4][fresh].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [dict(cond_mode="canonical"), dict(gate_trig="native"),
+                                  dict(rhs_mode="vjp")], ids=lambda m: list(m.values())[0])
+def test_megakernel_mode_matches_plain(dev, mode):
+    """K2 from the mode's variant library against integrate_mega_plain (the
+    pool, whatever the mode) at test_megakernel_matches_plain's bars."""
+    x, k, erg = rays(256, seed=9)
+    sc_b = _negate_b(tcfg.Scene(**KW))
+    B = x.shape[0]
+    u0 = launch_state(x, -k, sc_b, erg, -torch.ones(B, dtype=F64))
+    d = lambda t: t.to(dev)
+    args = (d(u0), d(torch.full((B,), -30.0, dtype=F64)), d(torch.zeros(B, dtype=F64)),
+            d(erg), d(x), sc_b, tcfg.NumericsConfig(**mode))
+    kw = dict(max_crossings=16, is_photon=d(torch.zeros(B, dtype=torch.bool)),
+              species="axion", with_prob=True)
+    got = mk.integrate_mega(*args, **kw)
+    torch.cuda.synchronize()
+    want = mk.integrate_mega_plain(*args, **kw)
+    assert (got[4] == want[4]).double().mean().item() >= 0.99
+    end = (got[3] == 1) & (want[3] == 1)
+    rel = ((got[0] - want[0]).abs() / want[0].abs().clamp(min=1e-300)).amax(dim=1)[end]
+    assert rel.median().item() < 1e-8
+
+
 def surface_rays(dev, n, seed, **scene):
     """n conversion-surface events of the production scene, or of it with
     `scene`'s fields changed (sampled with K1; repeated in turn where the
