@@ -29,6 +29,7 @@ device; the rows are f64 numpy at either precision.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -176,14 +177,13 @@ def packed_sample(key, b, maxR, sc: Scene, cfg: NumericsConfig, n_grid, n_max,
     return pack
 
 
-def scan_gate_census_check(sc: Scene, cfg: NumericsConfig, maxR, lnt_end, *,
-                           n_events: int = 256, seed: int = 0x5CA9,
-                           rel_tol: float = 1e-2, device="cuda", dtype=torch.float64):
-    """Per-scene validation of the gated event scan (driver.py:181 of the
-    reference): backtrace an n_events conversion-surface ensemble with the
-    gate and with the plain dense scan (interp_coarse=0), compare per-event
-    crossing counts and times; the ensemble in the state dtype `dtype`.
-    Returns (ok, n_mismatch, n_checked)."""
+def census_ensemble(sc: Scene, cfg: NumericsConfig, maxR, *, n_events: int = 256,
+                    seed: int = 0x5CA9, device="cuda", dtype=torch.float64):
+    """The census's conversion-surface ensemble (driver.py:202-223 of the
+    reference), drawn from a key independent of the run's stream: (x,
+    v_loc, erg_inf, k_init) of the first n_events successes in the state
+    dtype `dtype`, fewer where 64 chunks draw fewer; None where they draw
+    none."""
     key = rng.fold_in(rng.PRNGKey(seed, device=device), 1)
     n_grid = sampler.default_n_grid(maxR)
     xs, vs, es = [], [], []
@@ -202,13 +202,27 @@ def scan_gate_census_check(sc: Scene, cfg: NumericsConfig, maxR, lnt_end, *,
         if got >= n_events:
             break
     if got == 0:
-        return True, 0, 0
-    n_events = min(n_events, got)
-    x = torch.cat(xs)[:n_events].to(dtype)
-    v = torch.cat(vs)[:n_events].to(dtype)
-    e = torch.cat(es)[:n_events].to(dtype)
+        return None
+    x, v, e = (torch.cat(a)[:n_events].to(dtype) for a in (xs, vs, es))
     k_init = k_norm_cart(x, v, 0.0, e, sc, sc.mass_ns, is_photon=True, ax_fix=True,
                          flat=sc.flat)
+    return x, v, e, k_init
+
+
+def scan_gate_census_check(sc: Scene, cfg: NumericsConfig, maxR, lnt_end, *,
+                           n_events: int = 256, seed: int = 0x5CA9,
+                           rel_tol: float = 1e-2, device="cuda", dtype=torch.float64):
+    """Per-scene validation of the gated event scan (driver.py:181 of the
+    reference): backtrace an n_events conversion-surface ensemble
+    (census_ensemble) with the gate and with the plain dense scan
+    (interp_coarse=0), compare per-event crossing counts and times.
+    Returns (ok, n_mismatch, n_checked)."""
+    ens = census_ensemble(sc, cfg, maxR, n_events=n_events, seed=seed, device=device,
+                          dtype=dtype)
+    if ens is None:
+        return True, 0, 0
+    x, _, e, k_init = ens
+    n_events = x.shape[0]
     plain = dataclasses.replace(cfg, interp_coarse=0)
     bt_g = tree.backtrace(x, k_init, e, sc, cfg, TreeConfig(), lnt_end=lnt_end)
     bt_p = tree.backtrace(x, k_init, e, sc, plain, TreeConfig(), lnt_end=lnt_end)
@@ -228,29 +242,48 @@ def scan_gate_census_check(sc: Scene, cfg: NumericsConfig, maxR, lnt_end, *,
     return bad == 0, bad, n_events
 
 
+@functools.lru_cache(maxsize=16)
+def _census_cached(sc: Scene, cfg: NumericsConfig, maxR: float, lnt_end: float,
+                   device: torch.device, dtype, modes):
+    return scan_gate_census_check(sc, cfg, maxR, lnt_end, n_events=int(cfg.scan_gate_check),
+                                  device=device, dtype=dtype)
+
+
+def census(sc: Scene, cfg: NumericsConfig, maxR, lnt_end, device, dtype=torch.float64):
+    """scan_gate_census_check at cfg's gate on cfg.scan_gate_check events,
+    run once per (scene, cfg) in a process, as the reference caches it
+    (driver.py:253 there); the device, the ensemble's dtype and K2's modes
+    with their MEGA_* overrides are part of the key."""
+    return _census_cached(sc, cfg, float(maxR), float(lnt_end), torch.device(device), dtype,
+                          mega_modes(cfg))
+
+
+def widened(cfg: NumericsConfig) -> NumericsConfig:
+    """cfg's gate one notch wider: interp_coarse x2, scan_gate_theta x2."""
+    return dataclasses.replace(
+        cfg, interp_coarse=min(2 * cfg.interp_coarse, cfg.interp_points - 1),
+        scan_gate_theta=2.0 * float(cfg.scan_gate_theta))
+
+
 def _apply_scan_gate_guard(sc: Scene, cfg: NumericsConfig, maxR, lnt_end,
                            stats: RunStats, device,
                            dtype=torch.float64) -> NumericsConfig:
     """Validate the gate on this scene; widen it one notch (coarse x2,
     theta x2) or fall back to the plain 50-point scan on a census mismatch
-    (driver.py:257 of the reference)."""
+    (driver.py:257 of the reference).  The census runs once per scene and
+    cfg in a process (census)."""
     if not (cfg.engine == "mega" and cfg.scan_gate_check > 0
             and 0 < cfg.interp_coarse < cfg.interp_points):
         return cfg
-    n = int(cfg.scan_gate_check)
-    ok, n_bad, n_chk = scan_gate_census_check(sc, cfg, maxR, lnt_end, n_events=n,
-                                              device=device, dtype=dtype)
+    ok, n_bad, n_chk = census(sc, cfg, maxR, lnt_end, device, dtype)
     if n_chk == 0:
         stats.scan_gate = "unchecked"
         return cfg
     if ok:
         stats.scan_gate = "ok"
         return cfg
-    wide = dataclasses.replace(
-        cfg, interp_coarse=min(2 * cfg.interp_coarse, cfg.interp_points - 1),
-        scan_gate_theta=2.0 * float(cfg.scan_gate_theta))
-    ok_w, n_bad_w, n_chk_w = scan_gate_census_check(sc, wide, maxR, lnt_end,
-                                                    n_events=n, device=device, dtype=dtype)
+    wide = widened(cfg)
+    ok_w, n_bad_w, n_chk_w = census(sc, wide, maxR, lnt_end, device, dtype)
     if ok_w and n_chk_w > 0:
         stats.scan_gate = "widened"
         print(f"NOTE: gated event scan missed crossings on this scene "

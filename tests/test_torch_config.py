@@ -192,6 +192,40 @@ def test_scan_gate_census_defaults_to_the_card():
     assert inspect.signature(scan_gate_census_check).parameters["device"].default == "cuda"
 
 
+def test_scan_gate_census_runs_once_per_scene_and_cfg(monkeypatch):
+    """The guard's census runs once per (scene, cfg) in a process, as the
+    JAX driver caches it (_scan_gate_check_cached): a second run of the
+    same scene and cfg reuses the verdict; another scene, a cfg that
+    differs in any field (a tree field, tree_engine, as well as a
+    backtrace field), the dtype, or a K2 mode override (MEGA_GATE_TRIG)
+    runs it again.  The widened gate's census is cached alike."""
+    from adiabatic_raytracer_tpu_torch import driver
+
+    calls = []
+
+    def census(sc, cfg, maxR, lnt_end, **kw):
+        calls.append((sc.b0, cfg.interp_coarse, kw["dtype"]))
+        return cfg.interp_coarse > 4, 1, 8    # misses at the default gate, clean widened
+
+    monkeypatch.setattr(driver, "scan_gate_census_check", census)
+    driver._census_cached.cache_clear()
+    cfg = tcfg.NumericsConfig(engine="mega")
+    guard = lambda sc, c=cfg, dtype=torch.float64: driver._apply_scan_gate_guard(
+        sc, c, 25.0, 0.0, driver.RunStats(), "cpu", dtype)
+    sc, sc2 = tcfg.Scene(), tcfg.Scene(b0=1e15)
+    for c in (cfg, cfg):
+        assert guard(sc, c).interp_coarse == 8
+    assert calls == [(1e14, 4, torch.float64), (1e14, 8, torch.float64)]
+    guard(sc, dataclasses.replace(cfg, tree_engine="kernel", tree_window=2048))
+    guard(sc2)
+    guard(sc, dataclasses.replace(cfg, rtol=1e-8))
+    guard(sc, dtype=torch.float32)
+    monkeypatch.setenv("MEGA_GATE_TRIG", "native")
+    guard(sc)
+    assert len(calls) == 12
+    driver._census_cached.cache_clear()
+
+
 def test_tree_refill_is_ported():
     """K4 runs where the kernel tree engine runs: check_ported lets it pass."""
     check_ported(tcfg.NumericsConfig(engine="mega", tree_engine="kernel", tree_refill=1))
