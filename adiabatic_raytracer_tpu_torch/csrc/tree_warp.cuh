@@ -321,8 +321,10 @@ static __device__ bool rare_velocity(const MegaParams& P, const double* u, doubl
 // MC draw u_draw < p (the node's uniform against the crossing's conversion
 // probability); uc gets the birth state, the crossing's momenta renormalized
 // onto the axion shell at the event energy with the full-NS-mass metric, in
-// place (the host's launch_state does a Cartesian round trip; in f64 the two
-// differ by rounding), and dw_child the child's Delta_omega.
+// place, phi as integrated (the host's relaunch goes through Cartesian
+// coordinates and launch_state, which wraps phi into (-pi, pi]: the error
+// norm then takes other steps, ROADMAP Queue 3), and dw_child the child's
+// Delta_omega.
 // ops/megakernel.py child_birth is its torch twin.
 __device__ __forceinline__ bool child_birth(const MegaParams& P, const double* us, double erg,
                                             double u_draw, double p, double uc[7],

@@ -727,7 +727,8 @@ def child_birth(P, us, erg, u_draw, p):
     at the recorded crossings us [n, 7] (MainRunner.jl:278-305): (the MC
     draw u_draw < p, the birth state [n, 7], the child's Delta_omega).  The
     birth state is the crossing's momenta renormalized onto the axion shell
-    at the event energy with the full-NS-mass metric, in place."""
+    at the event energy with the full-NS-mass metric, in place, phi as
+    integrated (the host engine's Cartesian relaunch wraps it)."""
     r_s = torch.clamp(us[:, 0], min=P.r_ns)
     g_tt, g_rr, g_thth, g_pp = _metric(P, r_s, torch.sin(us[:, 1]), rs0=P.rs0_full)
     wsq = g_rr * us[:, 3] ** 2 + g_thth * us[:, 4] ** 2 + g_pp * us[:, 5] ** 2

@@ -21,8 +21,12 @@ engine and K2 (ROADMAP Queue 3): every sign change of a step is scanned (up
 to max_roots_per_step), not only the first; "reached" is lnt >= lnt1 - 1e-14;
 the MC uniforms are the host engine's (the state dtype's draws, held in
 f64); the prob cutoff is tot_prob >= 1 - prob_cutoff.
-The child birth state is renormalized onto the axion shell in place, as the
-TPU kernel does (the host engine's Cartesian round trip differs by rounding).
+The child birth state is renormalized onto the axion shell in place, phi as
+integrated, as the TPU kernel does; the host engine's Cartesian round trip
+wraps phi into (-pi, pi], and the integrator's error scale atol + rtol |u|
+then takes other steps, which near-tangent crossings amplify: 17 of 2048
+production events differ between the two engines by more than 1e-6
+(ROADMAP Queue 3, tests/test_torch_tree_engines.py).
 
 `tree_kernel_launch` and `tree_refill_launch` launch the kernels on CUDA
 tensors and run `tree_kernel_launch_plain` and `tree_refill_launch_plain`

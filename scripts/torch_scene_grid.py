@@ -22,7 +22,14 @@ the star (seven of the nine; ThetaM 0.2, seed 1769, saveMode 1):
 - K2's gate at gate_trig "native" against the default on a 2048-ray
   backtrace (chip_smoke.k2_backtrace_inputs), at the default gate and at
   the census's: crossing counts identical, rays bitwise in all 12 outputs,
-  and each gate's counts against the dense scan's.
+  and each gate's counts against the dense scan's;
+- the queue path (--tree_engine queue) on the same 16384 events at the
+  default cutoffs, and the warm kernel path's spectrum against it
+  (chip_smoke.spectrum_gap: the pulse profile's worst bin of at least
+  chip_smoke.SPECTRUM_MIN_ROWS rows and the total photon rate, in units of
+  the Monte Carlo standard error), with the events whose scalars differ by
+  more than chip_smoke.REC_P99 (chip_smoke.row_event_gaps); printed, not
+  held (chip_smoke phase 27e holds it at the production scene).
 
 Prints the card's name and power limit (nvidia-smi) first, then one JSON
 line per scene.  Writes its profiles under chiprun_out/scene_grid/ and the
@@ -93,14 +100,33 @@ def warm(scene, cut, tag):
         wall = time.time() - t0
         launches = dict(cuda_lib.LAUNCHES)
     p = cs.write_profile(prof, wall, "grid", tag)
-    return dict(wall_s=wall, events_s=st.events / wall, verdict=st.scan_gate,
-                t_gate=st.t_gate, t_sample=st.t_sample, t_pipeline=st.t_pipeline,
-                rows=int(rows.shape[0]), rows_ok=bool(cs.rows_ok(rows, zero_weight_ok=True)),
-                zero_weight_rows=int((rows[:, 8] == 0).sum()),
-                busy_share=p["busy_ms"] / 1e3 / wall, device_events=p["device_events"],
-                device_ms={k: v[0] for k, v in p["kernels"].items()},
-                device_launches={k: v[1] for k, v in p["kernels"].items()},
-                launches={k: launches[k] for k in ("line_roots", "megakernel", "treekernel")})
+    return rows, dict(wall_s=wall, events_s=st.events / wall, verdict=st.scan_gate,
+                       t_gate=st.t_gate, t_sample=st.t_sample, t_pipeline=st.t_pipeline,
+                       rows=int(rows.shape[0]),
+                       rows_ok=bool(cs.rows_ok(rows, zero_weight_ok=True)),
+                       zero_weight_rows=int((rows[:, 8] == 0).sum()),
+                       busy_share=p["busy_ms"] / 1e3 / wall, device_events=p["device_events"],
+                       device_ms={k: v[0] for k, v in p["kernels"].items()},
+                       device_launches={k: v[1] for k, v in p["kernels"].items()},
+                       launches={k: launches[k]
+                                 for k in ("line_roots", "megakernel", "treekernel")})
+
+
+def spectrum(scene, rows_kernel):
+    """The queue path at the default cutoffs on the warm kernel path's
+    events, and the kernel path's spectrum against it."""
+    from adiabatic_raytracer_tpu_torch import cli
+
+    t0 = time.time()
+    rows, _, st = cli.run_from_args(argv(scene, "default", "queue") + ["--tree_engine", "queue"])
+    wall = time.time() - t0
+    worst_bin, bins, total, total_rel = cs.spectrum_gap(rows_kernel, rows)
+    gaps = cs.row_event_gaps(rows_kernel, rows)
+    return dict(queue_wall_s=wall, queue_events_s=st.events / wall, rows_kernel=len(rows_kernel),
+                rows_queue=len(rows), events_agreeing=cs.rows_agreement(rows_kernel, rows)[0],
+                events_off=sum(g > cs.REC_P99 for g in gaps.values()),
+                worst_gap=max(gaps.values(), default=0.0), worst_bin_sigma=worst_bin,
+                bins_held=bins, total_sigma=total, total_rel=total_rel)
 
 
 def host_reads(scene):
@@ -162,7 +188,9 @@ def main():
         rec = dict(scene=scene, reference=ref, verdict=verdict, card=smi)
         for cut in CUTOFFS:
             rec[f"cold_{cut}"] = cold(scene, cut)
-            rec[f"warm_{cut}"] = warm(scene, cut, f"{i}_{cut}")
+            rows, rec[f"warm_{cut}"] = warm(scene, cut, f"{i}_{cut}")
+            if cut == "default":
+                rec["spectrum"] = spectrum(scene, rows)
         rec["host_reads"] = host_reads(scene)
         rec["native_gate"] = native_gate(device, scene, gate)
         rec["wall_s"] = time.time() - t0

@@ -1,10 +1,12 @@
-"""chip_smoke.py's helpers that run without a card: ptxas parsing, and the
-refusal to run on a machine without one."""
+"""chip_smoke.py's helpers that run without a card: ptxas parsing, the
+refusal to run on a machine without one, and 27e's spectrum comparison."""
 
+import math
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -151,3 +153,41 @@ def test_plain_pool_gives_the_plain_version_bitwise(monkeypatch):
     assert sec > 0 and len(got) == len(want)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert not chip_smoke._PLAIN_POOL
+
+
+def spectrum_rows(n, seed):
+    """n output rows (29 columns) with the columns spectrum_gap reads: the
+    species (1), phi_f (3), sln_prob (7) and the weight (8)."""
+    rng = np.random.default_rng(seed)
+    rows = np.zeros((n, 29))
+    rows[:, 1] = rng.integers(0, 2, n)
+    rows[:, 3] = rng.uniform(-math.pi, math.pi, n)
+    rows[:, 7] = rng.uniform(0.5, 2.0, n)
+    rows[:, 8] = rng.uniform(1e-3, 1.0, n)
+    return rows
+
+
+def test_spectrum_gap_in_standard_errors():
+    """spectrum_gap: equal rows give 0; one photon row's weight moved by d
+    moves its bin by d x sln_prob over sqrt of the mean of the two runs'
+    sum of pps^2 in the bin, and the total photon rate by the same over the
+    photons' sums; bins with fewer than SPECTRUM_MIN_ROWS rows are not
+    held."""
+    a = spectrum_rows(4000, 3)
+    assert chip_smoke.spectrum_gap(a, a.copy()) == (0.0, 100, 0.0, 0.0)
+    b = a.copy()
+    i = int(np.nonzero(a[:, 1] == 1)[0][0])
+    b[i, 8] += 0.25
+    worst, held, total, rel = chip_smoke.spectrum_gap(a, b)
+    pa, pb = a[:, 8] * a[:, 7], b[:, 8] * b[:, 7]
+    ph = a[:, 1] == 1
+    k = np.floor((a[:, 3] + math.pi) / (2 * math.pi) * 50)
+    same = ph & (k == k[i])
+    d = 0.25 * a[i, 7]
+    assert math.isclose(worst, d / math.sqrt(0.5 * ((pa[same] ** 2).sum() + (pb[same] ** 2).sum())),
+                        rel_tol=1e-9)
+    assert math.isclose(total, d / math.sqrt(0.5 * ((pa[ph] ** 2).sum() + (pb[ph] ** 2).sum())),
+                        rel_tol=1e-9)
+    assert math.isclose(rel, d / pb[ph].sum(), rel_tol=1e-9)
+    assert held == 100
+    assert chip_smoke.spectrum_gap(a[:200], a[:200])[1] < 100

@@ -131,7 +131,8 @@ def test_tree_kernel_matches_jax_host_k1(port_kernel, jax_host):
     adaptive controller and by near-tangent crossing roots (the largest
     record gap measured is ~4e-9, on pconv at a deep node); the child birth
     state is renormalized in place instead of through Cartesian coordinates,
-    a rounding-level difference."""
+    which keeps phi unwrapped: on some production trees that moves records
+    beyond 1e-6 (tests/test_torch_tree_engines.py), on these 3 events not."""
     assert_matches(port_kernel, jax_host, rtol=1e-6)
     assert int(np.sum(np.asarray(port_kernel.count_main))) > 3   # trees grew
 
