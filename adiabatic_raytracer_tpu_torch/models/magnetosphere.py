@@ -18,6 +18,7 @@ from adiabatic_raytracer_tpu_torch.constants import (
     SQRT_4PI_ALPHA,
 )
 from adiabatic_raytracer_tpu_torch.models.metric import metric_inverse
+from adiabatic_raytracer_tpu_torch.ops.geometry import cart_to_sph
 
 
 def _omega_p_of_bz(bz, omega_pul):
@@ -77,25 +78,18 @@ def omega_p_sph(x_sph, t, theta_m, omega_pul, b0, r_ns, *, mass_a=1e-5,
     return wp
 
 
-def _cart_to_sph_point(x):
-    r = torch.sqrt(torch.sum(x * x, dim=-1))
-    theta = torch.arccos(x[..., 2] / r)
-    phi = torch.atan2(x[..., 1], x[..., 0])
-    return torch.stack([r, theta, phi], dim=-1)
-
-
 def omega_p_cart(x_cart, t, theta_m, omega_pul, b0, r_ns, *, mass_a=1e-5,
                  bndry_lyr=-1.0, zero_in=False):
     """omega_p [eV] at Cartesian points (GJ_Model_ωp_vec,
     RayTracer.jl:1066-1103); the Cartesian evaluator never zeroes the
     interior."""
-    return omega_p_sph(_cart_to_sph_point(x_cart), t, theta_m, omega_pul, b0,
+    return omega_p_sph(cart_to_sph(x_cart), t, theta_m, omega_pul, b0,
                        r_ns, mass_a=mass_a, bndry_lyr=bndry_lyr, zero_in=zero_in)
 
 
 def b_cart(x_cart, t, theta_m, omega_pul, b0, r_ns):
     """Cartesian B-vector [Gauss] (GJ_Model_vec, RayTracer.jl:854-891)."""
-    x_sph = _cart_to_sph_point(x_cart)
+    x_sph = cart_to_sph(x_cart)
     theta = x_sph[..., 1]
     phi = x_sph[..., 2]
     br, btheta, bphi = dipole_sph(x_sph, t, theta_m, omega_pul, b0, r_ns)

@@ -22,7 +22,7 @@ from adiabatic_raytracer_tpu_torch.models.magnetosphere import (
 )
 from adiabatic_raytracer_tpu_torch.models.metric import christoffel, metric_inverse
 from adiabatic_raytracer_tpu_torch.ops.dispersion import k_sphere, omega_function
-from adiabatic_raytracer_tpu_torch.ops.geometry import cart_to_sph
+from adiabatic_raytracer_tpu_torch.ops.geometry import cart_to_sph, polar_angle
 
 
 def _sdot(g, a, b):
@@ -257,7 +257,7 @@ def jacobian_fv(x_cart, vel_loc, mass_ns=1.0):
     RayTracer.jl:756-769)."""
     rmag = torch.sqrt(torch.sum(x_cart**2))
     phi = torch.atan2(x_cart[1], x_cart[0])
-    theta = torch.arccos(x_cart[2] / rmag)
+    theta = polar_angle(x_cart, rmag)
 
     def vinf(v):
         return torch.stack([v_infinity(theta, phi, rmag, v, v_comp=c, mass_ns=mass_ns)

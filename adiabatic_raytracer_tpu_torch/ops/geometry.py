@@ -17,10 +17,50 @@ from torch.func import grad
 from adiabatic_raytracer_tpu_torch.models.metric import lapse_A, metric_inverse
 
 
+# sin^2(theta) below which an f32 point counts as near the rotation axis
+# (within ~0.57 degrees): there z / r keeps few digits, and rounds to 1 or
+# past it within ~3e-4 rad of the axis.
+POLE_ZONE = 1e-4
+
+
+def _pole_zone(x, r):
+    """(z / r, the f32 points near the rotation axis, the cylindrical
+    radius) of Cartesian points x (..., 3) of radius r."""
+    cz = x[..., 2] / r
+    return cz, 1.0 - cz * cz < POLE_ZONE, torch.sqrt(x[..., 0] ** 2 + x[..., 1] ** 2)
+
+
+def polar_angle(x, r):
+    """theta of Cartesian points x (..., 3) of radius r, arccos(z / r) as the
+    reference computes it.  In f32 near the rotation axis (1 - (z/r)^2 <
+    POLE_ZONE) it is atan2(rho, z) from the cylindrical radius rho, as K1's
+    <float> takes sin(theta) there (art::line_sin_theta): the reference's
+    f32 form gives 0 or NaN within ~3e-4 rad of the axis (a sampled event
+    1.6e-3 km off it at r 11.5 km made a NaN row).  Elsewhere, and in f64,
+    bit for bit the reference's form; the arccos branch is fed a safe value
+    in the zone, so that derivatives stay finite."""
+    if x.dtype != torch.float32:
+        return torch.arccos(x[..., 2] / r)
+    cz, pole, rho = _pole_zone(x, r)
+    return torch.where(pole, torch.atan2(rho, x[..., 2]),
+                       torch.arccos(torch.where(pole, torch.zeros_like(cz), cz)))
+
+
+def sin_polar(x, r):
+    """sin(theta) of Cartesian points x (..., 3) of radius r,
+    sqrt(1 - (z/r)^2) floored at 1e-15 (as the reference); in f32 in the
+    pole zone (polar_angle) rho / r, floored alike."""
+    st = torch.sqrt(torch.clamp(1.0 - (x[..., 2] / r) ** 2, min=1e-30))
+    if x.dtype != torch.float32:
+        return st
+    _, pole, rho = _pole_zone(x, r)
+    return torch.where(pole, torch.clamp(rho / r, min=1e-15), st)
+
+
 def cart_to_sph(x):
-    """(..., 3) Cartesian -> [r, theta, phi]."""
+    """(..., 3) Cartesian -> [r, theta, phi] (theta: polar_angle)."""
     r = torch.sqrt(torch.sum(x * x, dim=-1))
-    theta = torch.arccos(x[..., 2] / r)
+    theta = polar_angle(x, r)
     phi = torch.atan2(x[..., 1], x[..., 0])
     return torch.stack([r, theta, phi], dim=-1)
 
@@ -36,7 +76,7 @@ def cart_vel_to_sph(x_cart, v_cart):
     """Cartesian velocity -> (dr/dt, r dth/dt, r sth dph/dt)
     (RayTracer.jl:205-206)."""
     r = torch.sqrt(torch.sum(x_cart * x_cart, dim=-1))
-    sin_theta = torch.sqrt(torch.clamp(1.0 - (x_cart[..., 2] / r) ** 2, min=1e-30))
+    sin_theta = sin_polar(x_cart, r)
     dr_dt = torch.sum(x_cart * v_cart, dim=-1) / r
     v_th = (x_cart[..., 2] * dr_dt - r * v_cart[..., 2]) / (r * sin_theta)
     v_ph = (-x_cart[..., 1] * v_cart[..., 0] + x_cart[..., 0] * v_cart[..., 1]) / (

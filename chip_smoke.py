@@ -3,15 +3,16 @@
 Builds the hand-written kernels (adiabatic_raytracer_tpu_torch/csrc/) from
 this checkout, checks each against its plain PyTorch version on the card at
 the shapes the main path gives it, then drives the port's main path through
-its CLI entry point at the production default scene, and at a boundary-layer
-and an isotropic scene, its saveMode 3 text and tree dumps, checkpoint and
+its CLI entry point at the production default scene, and at an isotropic
+scene, its saveMode 3 text and tree dumps, checkpoint and
 resume, the forward tree's streaming window, pipeline depth 2, two processes
 in one group, the mesh (in one process and over a group of processes),
 engine pool_compact, the diagnostics and
 analysis, --precision f32 / --computeDtype, the in-kernel MC chain on
 the queue tree (mc_chain), K2's last branches (the chunked backtrace,
 the canonical condition, the native gate, the vjp RHS, the step profiles),
-and the nine scenes of the (MassA, B0) scan grid, and checks the output.
+and the nine scenes of the (MassA, B0) scan grid, without and with the
+boundary layer, and checks the output.
 
     python3 chip_smoke.py            # needs one CUDA device
 
@@ -34,7 +35,7 @@ non-zero):
      root pairs, a root on the filter's threshold) at most 1 in 1000,
      sampled roots on the others within 2e-3 km, and within 1e-8 km at f64
      on the lines whose f32 and f64 scans give the same intervals (at f64,
-     and at 13a, a line whose grid sign changes differ leaves the root bar
+     and at 28b, a line whose grid sign changes differ leaves the root bar
      only with an f64 witness); the kernels' times and bounds, the fused
      scan alone; one sample_batch call through the fused kernel vs the
      route before it (host clock, eager aten ops, device kernels,
@@ -65,7 +66,7 @@ non-zero):
      fresh process, then warm under torch.profiler in this one, launch
      counters reset just before it;
      K1's fused kernel, K2 and K3 must each have launched, K1's grid kernel
-     not (so in phases 8, 12, 13e and 13f); phases 7, 8 and 12 print the
+     not (so in phases 8, 12, 13f, 27e and 28d); phases 7, 8 and 12 print the
      device time and launches of mega_kernel, tree_kernel and
      tree_refill_kernel from the profiler
   8. the queue path (--tree_engine queue, the auto window: 128 events at one
@@ -89,21 +90,18 @@ non-zero):
  12. the refill path: driver.run with engine mega, tree_engine kernel,
      tree_refill 1, 2 x 2048 events, saveMode 1, warm under torch.profiler,
      counters reset just before it; K1, K2 and K4 must have launched, K3 not
- 13. the boundary-layer and isotropic path (K2's other dispersion variants,
-     the boundary layer in K1): (a) phase 3 at bndry_lyr 0.5; (b) phase 4's
-     condition and RHS, photon, axion and mixed, at bndry_lyr 0.5 and at an
-     isotropic scene; (c) K2 vs integrate_mega_plain at bndry_lyr 0.5 on a
-     backtrace (axion, B flipped, 16 slots) and on a queue-path tree
-     iteration (photon and axion mixed, one slot), 512 rays each (the plain
-     version on the CPU, in plain_pool's processes while the card runs the
-     rest), dense and gated, at phase 5's bars, with the slowest ray's
-     steps and microseconds per step; (d) the mixed launch at the
-     isotropic scene; (e) the CLI at --bndry_lyr 0.5, 2 x 2048 events
-     (--tree_engine auto -> queue), warm under torch.profiler, counters
-     reset just before it: K1 and K2 must launch, K3 not; events/s, the
-     census verdict, mega_kernel's device time; (f) driver.run at the
-     isotropic scene with the CLI's auto window, one batch of 2048, the same
-     checks
+ 13. the isotropic path (K2's isotropic variant) and the device functions at
+     the boundary layer: (b) phase 4's condition and RHS, photon, axion and
+     mixed, at bndry_lyr 0.5 and at an isotropic scene; (d) K2 vs
+     integrate_mega_plain on a queue-path tree iteration at the isotropic
+     scene (photon and axion mixed, one slot), 512 rays (the plain version
+     on the CPU, in plain_pool's processes while the card runs the rest),
+     dense and gated, at phase 5's bars, with the slowest ray's steps and
+     microseconds per step; (f) driver.run at the isotropic scene with the
+     CLI's auto window, one batch of 2048, warm under torch.profiler,
+     counters reset just before it: K1 and K2 must launch, K3 not;
+     events/s, the census verdict, mega_kernel's device time.  The
+     boundary-layer path runs in phase 28, at every grid scene
  15. saveMode 3 through the CLI, one batch of 2048 (auto: the queue path
      and the window), warm, counters reset just before it: every text file
      parses (analysis/treeio.py), one tree_ file per event, final_ lines
@@ -175,7 +173,7 @@ non-zero):
      conversion surface at 9-11 km): (a) K1 at scene B on 4096 lines at
      phase 3's bars and the share of its roots below 10 km; the probe
      (condition, RHS, prob_nd) at scene B's conversion points; (b) K2 mixed
-     and backtrace at both scenes, 512 rays, at phase 13c's bars with the
+     and backtrace at both scenes, 512 rays, at phase 13d's bars with the
      census verdict, the endpoint error split by start radius (below or
      above 10 km) and, at scene B's backtrace, a witness of the endpoints'
      own sensitivity: the plain version on inputs moved by one ulp;
@@ -278,6 +276,43 @@ non-zero):
      figures are logged, not held.  One JSON line per scene (verdicts, K1-K3 ms,
      plain and bound, events/s); every scene runs before the phase fails,
      and the failure names each that did
+ 28. the boundary-layer path across the scan grid: --bndry_lyr 0.5 (BNDRY_LYR,
+     the pinned rows' value) at the nine scenes of SCAN_GRID, at the CLI's
+     card defaults, where --tree_engine auto picks the queue path (the
+     kernel tree engines do not cover the layer).  (a) Right after 27a:
+     the port's census at each scene (at the CLI's cfg), its verdict and
+     mismatched / checked events beside the scene's verdict without the
+     layer (27a; logged, not failed: the reference recorded no census with
+     the layer), and the inputs of (c), whose plain versions run in
+     plain_pool from the end of phase 26 (bndry_plain).  At the two scenes
+     inside the star (f) the CLI at
+     --bndry_lyr 0.5 returns no rows and writes no file within
+     ZERO_YIELD_S.  At the seven others: (b) phase 3 with the layer's term
+     on 4096 lines (2048 where n_grid exceeds 11,000), with the most sign
+     changes a line had against the 16 kept; (c) K2's boundary-layer
+     instantiation at the census's gate against its plain version at phase
+     5's bars on BNDRY_RAYS backtrace rays and on the lanes of one queue-tree
+     iteration of a driver.run at the scene that reach the layer's shell
+     (bndry_capture: the term's peak outside the star plus BNDRY_SHELL decay
+     lengths; at most BNDRY_RAYS, of those the ones the card's K2 takes at
+     most BNDRY_PLAIN_STEPS steps on whole, each other one on its last
+     BNDRY_WINDOW steps, resumed from the card's state there, within 1e-8
+     or ILL_K times its one-ulp witness, at most BNDRY_LONG_SHARE of the
+     set), with the steps, crossing slots and end
+     codes they reached;
+     (d) the CLI at --bndry_lyr 0.5, one batch of BNDRY_EVENTS, warm (census
+     cached) under torch.profiler, counters reset just before it: K1 and K2
+     launched, K3, K4 and K1's grid kernel not, rows finite with weight > 0
+     (0 only where the survival weight is), the run's verdict the census's;
+     events/s, stage times, tree iterations, K2's device time and launches,
+     the weight-0 rows, and the caps K2's rays reached (k2_watch: backtrace
+     slots full, step cap, stalls; tree rays' step cap and stalls), the
+     capped rays' launch inputs written to bndry_caps.json (this run's
+     scenes only) for a check against the JAX pool engine on the CPU
+     (scripts/jax_bndry_caps.py).
+     A failing row's event is logged with its kinematics.  One JSON
+     line per scene; every scene runs before the phase fails, and the
+     failure names each that did
  14. the kernels' JSON line: each kernel's launches on its path (K1's
      grid kernel, a check only, 0 on the main path; P1's through its entry
      point), and its time,
@@ -333,6 +368,23 @@ SLICE_RUNS = {}
 # bisections of one interval by the f64 rounding (up to 1.3e-12 km)
 ROOT_BAR = 2e-3
 ROOT_BAR_F64 = 1e-8
+# Roots on the star's surface.  With the boundary layer the condition jumps
+# at r = r_NS, where the layer's term switches on (its support r >= r_NS,
+# models/magnetosphere as in the reference; the Cartesian omega_p does not
+# zero the interior), and a sign change across the jump bisects onto r_NS
+# itself, to the dtype's rounding.  The recording filter's rr > r_NS then
+# decides such a root by rounding alone, in the reference too, and the
+# kernel and its plain version decide apart there: at the grid's 11.7 km
+# surfaces 74-104 of 4096 lines have such a root (phase 28b), and the two
+# routes decided 6-11 of them apart in one H100 run (at most 0.149 of
+# them).  A line whose filter decisions differ only at roots that lie on
+# r_NS to rounding in both routes (on_surface) is counted apart from the
+# 1-in-1000 allowance (pin_counts), but at most PIN_SHARE of the lines
+# with such a root: a filter that took rr >= r_NS instead of rr > r_NS
+# decides 0.33-0.49 of them the other way (the plain route so changed,
+# against itself, at the two 11.7 km scenes on the CPU).  Every root the
+# kernel accepts must lie outside the star to rounding.
+PIN_SHARE = 0.25
 
 HBM_BYTES_PER_S = 3.35e12
 F32_PER_S = 67e12
@@ -538,7 +590,7 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-# The plain versions of K2 and K3 behind phases 6, 13c-d and 24b-c run in a pool
+# The plain versions of K2 and K3 behind phases 6, 13d, 24b-c, 27 and 28 run in a pool
 # of CPU processes while this process runs the kernels on the card: they are
 # eager torch, set by per-op host overhead (a DP5 step of a 512-ray batch
 # took ~80 ms on one CPU thread, ~200 ms on the card), and four run at once.
@@ -745,7 +797,9 @@ def phase_line_scan(device, n_lines, phase=3, **scene):
     scan (sampling_check), each at both compute dtypes; their times and
     bounds.  Every check of the fused kernel runs before the phase fails,
     and the failure names each that failed.  Returns the JSON fields of both
-    kernels: {"line_scan": ..., "line_roots": ...}."""
+    kernels: {"line_scan": ..., "line_roots": ...}, and under "max_flips"
+    the most sign changes the fused kernel counted on a line, per compute
+    dtype (it keeps sampler.MAX_LINE_CROSSINGS)."""
     import torch
 
     from adiabatic_raytracer_tpu_torch.ops import line_scan, sampler
@@ -846,7 +900,8 @@ def phase_line_scan(device, n_lines, phase=3, **scene):
                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None},
             "line_roots": {"max_abs_err": roots["f32"]["s_err"], "ms": r_ms["f32"],
                            "plain_ms": r_plain_ms, "bound_ms": rb_ms, "bound_by": rb_by,
-                           "library_ms": None}}
+                           "library_ms": None},
+            "max_flips": {cd: int(r["n_flips"].max()) for cd, r in roots.items()}}
 
 
 def sample_batch_grid(key, batch, maxR, sc, n_grid, n_max, dtype):
@@ -966,10 +1021,13 @@ def line_roots_vs_grid(geo, s_grid, sc, phase, scene, fails):
     on the grid kernel's output on the same lines (the route the sampler
     took before it): flip counts and the first 16 intervals identical on
     every line (the same device function scans both); ok identical on all
-    but 1 in 1000 lines, and s* on the roots of the others within the root
+    but 1 in 1000 lines, apart from at most PIN_SHARE of the lines with a
+    root on r_NS that differ only at such roots (pin_counts), no accepted
+    root inside the star, and s* on the roots of the others within the root
     bar of the lines' dtype (ROOT_BAR, ROOT_BAR_F64: both routes bisect the
     same interval from the same f32 value).  Appends what failed to fails.
-    Returns {"s_err", "n_flips", "slots" (-1 past the count), "bisected"}."""
+    Returns {"s_err", "n_flips", "slots" (-1 past the count), "bisected",
+    "n_surface", and the kernel's "s", "ok" with the lines "geo"}."""
     import torch
 
     from adiabatic_raytracer_tpu_torch.ops import line_scan, sampler
@@ -983,9 +1041,8 @@ def line_roots_vs_grid(geo, s_grid, sc, phase, scene, fails):
     same_n = torch.equal(n_k, n_t)
     same_idx = torch.equal(slots, first_slots(g))
     s_p, ok_p, _ = sampler._roots(*args[:4], g.to(geo.x0.dtype), s_grid, sc, sc.mass_ns)
-    ok_diff = (ok_k != ok_p).any(dim=1)
-    n_ok = int(ok_diff.sum())
-    held = has & ~ok_diff[:, None]
+    pin = pin_counts(geo, s_k, ok_k, s_p, ok_p, has, sc)
+    held = has & ~pin["differs"][:, None]
     s_err = (s_k - s_p).abs()[held].max().item() if bool(held.any()) else 0.0
     bar = ROOT_BAR_F64 if geo.x0.dtype == torch.float64 else ROOT_BAR
     B = g.shape[0]
@@ -994,13 +1051,83 @@ def line_roots_vs_grid(geo, s_grid, sc, phase, scene, fails):
     log(phase, f"{tag}: flip counts identical {same_n}, first-16 intervals identical "
                f"{same_idx} on {B} lines ({int(n_k.sum())} flips, at most {int(n_k.max())} "
                f"a line of the {sampler.MAX_LINE_CROSSINGS} kept, {bisected} bisected, "
-               f"{int(ok_k.sum())} accepted); ok differs on {n_ok} lines (bar "
-               f"{max(1, B // 1000)}); s* max err {s_err:.3g} km (bar {bar:g}) on the roots of "
-               f"the others")
-    if not (same_n and same_idx) or n_ok > max(1, B // 1000) or not s_err <= bar:
-        fails.append(f"{tag}: counts {same_n}, intervals {same_idx}, ok differs on {n_ok} "
-                     f"lines, s* err {s_err:.3g} km (bar {bar:g})")
-    return {"s_err": s_err, "n_flips": n_k.cpu(), "slots": slots, "bisected": bisected}
+               f"{int(ok_k.sum())} accepted); ok differs on {pin['n_ok']} lines (bar "
+               f"{max(1, B // 1000)}) and on {pin['n_pin']} more only at roots on r_NS (bar "
+               f"{pin['bar']}: PIN_SHARE of the {pin['n_surface']} lines with such a root; "
+               f"kernel accepts / rejects there {pin['dir']}); kernel-accepted roots inside "
+               f"the star {pin['n_inside']} (bar 0); s* max err {s_err:.3g} km (bar {bar:g}) on "
+               f"the roots of the others")
+    if (not (same_n and same_idx) or pin["n_ok"] > max(1, B // 1000) or pin["n_pin"] > pin["bar"]
+            or pin["n_inside"] or not s_err <= bar):
+        fails.append(f"{tag}: counts {same_n}, intervals {same_idx}, ok differs on {pin['n_ok']} "
+                     f"lines and on {pin['n_pin']} only at roots on r_NS (bar {pin['bar']}), "
+                     f"{pin['n_inside']} accepted roots inside the star, s* err {s_err:.3g} km "
+                     f"(bar {bar:g})")
+    return {"s_err": s_err, "n_flips": n_k.cpu(), "slots": slots, "bisected": bisected,
+            "s": s_k, "ok": ok_k, "geo": geo, "s_grid": s_grid, "n_surface": pin["n_surface"]}
+
+
+def on_surface(geo, s, sc):
+    """Of the roots s [B, 16] along geo's lines: (those on r_NS to the
+    rounding of the lines' dtype, those inside the star beyond it).  The
+    root's radius |x0 + s' v| in f64, over s' from s - 2 ulp(s) to s + 2
+    ulp(s), comes within 2 ulps of r_NS (on), or stays more than 2 ulps
+    below it (inside).  A filter in that dtype computes the radius within
+    about an ulp of it, so rr > r_NS decides a root on r_NS by rounding, and
+    one inside the star is rejected."""
+    import torch
+
+    r_ns = torch.tensor(float(sc.r_ns), dtype=geo.x0.dtype)
+    e = 2.0 * (torch.nextafter(r_ns, 2.0 * r_ns) - r_ns).item()
+    ulp = (torch.nextafter(s, torch.full_like(s, math.inf)) - s).double()
+    x0, v = geo.x0.double()[:, None, :], geo.vvec.double()[:, None, :]
+    rr = torch.stack([torch.linalg.norm(x0 + (s.double() + k * ulp)[..., None] * v, dim=-1)
+                      for k in (-2, 0, 2)])
+    lo, hi = rr.amin(dim=0) - e, rr.amax(dim=0) + e
+    return (lo <= r_ns.item()) & (hi >= r_ns.item()), hi < r_ns.item()
+
+
+def pin_counts(geo, s_k, ok_k, s_p, ok_p, has, sc):
+    """The filter decisions of the kernel (s_k, ok_k [B, 16]) against the
+    plain route's (s_p, ok_p) on geo's lines, has [B, 16] the slots with a
+    root.  A differing decision is excused where both routes' roots lie on
+    r_NS (on_surface).  Returns {"differs": the lines whose decisions differ
+    at a root not so excused, "n_ok": their count, "n_pin": the lines that
+    differ only at excused roots, "n_surface": the lines with a kernel root
+    on r_NS, "bar": the most n_pin may be (PIN_SHARE of n_surface, at least
+    1), "dir": (excused roots the kernel accepted, excused roots it
+    rejected), "n_inside": roots the kernel accepted inside the star}."""
+    on_k, in_k = on_surface(geo, s_k, sc)
+    pinned = has & on_k & on_surface(geo, s_p, sc)[0]
+    diff = has & (ok_k != ok_p)
+    differs = (diff & ~pinned).any(dim=1)
+    only = diff.any(dim=1) & ~differs
+    n_surface = int((has & on_k).any(dim=1).sum())
+    return {"differs": differs | only, "n_ok": int(differs.sum()), "n_pin": int(only.sum()),
+            "n_surface": n_surface, "bar": max(1, int(PIN_SHARE * n_surface)),
+            "dir": (int((diff & pinned & ok_k).sum()), int((diff & pinned & ~ok_k).sum())),
+            "n_inside": int((has & ok_k & in_k).sum())}
+
+
+def pinned_only(kernel, i, plain_g, sc):
+    """Whether line i's filter decisions differ between the fused kernel
+    (kernel: line_roots_vs_grid's dict on these lines) and the plain route
+    (sampler._roots on plain_g, the line's grid in the plain engine's scan)
+    only at roots on r_NS (pin_counts): the same crossing count, and every
+    slot whose decision differs has a root on r_NS in both routes."""
+    import torch
+
+    from adiabatic_raytracer_tpu_torch.ops import sampler
+
+    geo = kernel["geo"]
+    one = type(geo)(*(a[i:i + 1] for a in geo))
+    s_p, ok_p, n_p = sampler._roots(one.x0, one.vvec, one.vvec_loc, one.erg_inf,
+                                    plain_g.to(one.x0.dtype), kernel["s_grid"], sc, sc.mass_ns)
+    if int(n_p[0]) != int(kernel["n_flips"][i]):
+        return False
+    has = torch.arange(sampler.MAX_LINE_CROSSINGS, device=s_p.device)[None, :] < n_p[:, None]
+    return pin_counts(one, kernel["s"][i:i + 1], kernel["ok"][i:i + 1], s_p, ok_p, has,
+                      sc)["n_pin"] == 1
 
 
 def sampling_check(key, n_lines, maxR, sc, tcfg, n_grid, cd, phase, scene, kernel, plain_grid,
@@ -1025,7 +1152,7 @@ def sampling_check(key, n_lines, maxR, sc, tcfg, n_grid, cd, phase, scene, kerne
     n_diff = int((~same).sum())
     changes = lambda g: int((torch.sign(g[1:]) * torch.sign(g[:-1]) < 0).sum())
     # Phase 3 at f32 holds the root bar on every line both scans drew from.
-    # At a boundary-layer scene (phase 13a) a root pair at the shell can be
+    # At a boundary-layer scene (phase 28b) a root pair at the shell can be
     # so near tangency that f32 rounding decides whether the grid sees it;
     # such a line's crossing count differs between the two f32 scans and its
     # drawn root may be another one.  At f64 the plain engine scans in f64,
@@ -1036,10 +1163,18 @@ def sampling_check(key, n_lines, maxR, sc, tcfg, n_grid, cd, phase, scene, kerne
     # counts differ while both scans see the same sign changes (the kernel's
     # filter and torch's decided a root on the filter's threshold apart) is
     # counted against the allowance and held to the root bar.
+    # A line whose filter decisions differ only at roots on r_NS
+    # (pinned_only) is counted apart, its drawn roots not held, at most
+    # PIN_SHARE of the lines with such a root (line_roots_vs_grid's count).
     excusable = bool(scene) or cd == "state"
     excused = torch.zeros_like(both)
+    pinned = torch.zeros_like(both)
     n_thr = 0
-    for i in (both & (rk.weight != rp.weight)).nonzero().squeeze(1).tolist():
+    for i in ((~same) | (both & (rk.weight != rp.weight))).nonzero().squeeze(1).tolist():
+        pinned[i] = pinned_only(kernel, i, plain_grid([i]), sc)
+    n_pin = int(pinned.sum())
+    n_diff -= int((pinned & ~same).sum())
+    for i in (both & (rk.weight != rp.weight) & ~pinned).nonzero().squeeze(1).tolist():
         c_k, c_p = int(kernel["n_flips"][i]), changes(plain_grid([i])[0])
         if c_k == c_p:
             n_thr += 1
@@ -1059,7 +1194,7 @@ def sampling_check(key, n_lines, maxR, sc, tcfg, n_grid, cd, phase, scene, kerne
             fails.append(f"sampling ({cd}): line {i}'s crossing counts differ without an f64 "
                          f"witness")
         excused[i] = excusable and witness
-    held = both & ~excused
+    held = both & ~excused & ~pinned
     n_exc = int(excused.sum())
     err = torch.abs(rk.xpos - rp.xpos).amax(dim=1)
     # at f64, the lines whose two scans bisect the same intervals are held to
@@ -1073,17 +1208,21 @@ def sampling_check(key, n_lines, maxR, sc, tcfg, n_grid, cd, phase, scene, kerne
     worst = lambda m: err[m].max().item() if bool(m.any()) else 0.0
     root_err, strict_err = worst(held & ~strict), worst(strict)
     n_allow = n_diff + n_exc + n_thr
+    pin_bar = max(1, int(PIN_SHARE * kernel["n_surface"]))
     tag = f"K1 sampling{scene or ''} {cd}, kernel vs plain scan"
     log(phase, f"{tag}: {int(rk.success.sum())} successes, {n_diff} flips, {n_exc} near-tangent "
                f"lines with an f64 witness and {n_thr} on the filter's threshold (bar "
-               f"{max(1, n_lines // 1000)} together); root err {root_err:.3g} km (bar "
+               f"{max(1, n_lines // 1000)} together), {n_pin} differing only at roots on r_NS "
+               f"(bar {pin_bar}, counted apart); root err {root_err:.3g} km (bar "
                f"{ROOT_BAR:g}) on {int((held & ~strict).sum())} other lines both drew from"
                + (f", {strict_err:.3g} km (bar {ROOT_BAR_F64:g}) on {int(strict.sum())} whose "
                   f"scans give the same intervals" if cd == "state" else ""))
-    if (n_allow > max(1, n_lines // 1000) or not root_err <= ROOT_BAR
+    if (n_allow > max(1, n_lines // 1000) or n_pin > pin_bar or not root_err <= ROOT_BAR
             or not strict_err <= ROOT_BAR_F64):
         fails.append(f"{tag}: {n_diff} success flips, {n_exc} near-tangent lines, {n_thr} on "
-                     f"the threshold, root err {root_err:.3g} km, f64-held {strict_err:.3g} km")
+                     f"the threshold, {n_pin} only at roots on r_NS (bar {pin_bar}), root err "
+                     f"{root_err:.3g} km, "
+                     f"f64-held {strict_err:.3g} km")
 
 
 def sample_events(n, device, sc, cfg, maxR, n_grid, seed):
@@ -1348,18 +1487,34 @@ def census_cfg(device, cfg=None, **scene):
     return out, stats.scan_gate
 
 
-def k2_variant_job(device, n, launch, witness=False, **scene):
+def k2_variant_job(device, n, launch, witness=False, submit=True, **scene):
     """phase_k2_variant's inputs, made on the card, with K2's plain version on
-    them submitted to plain_pool; with `witness`, also the plain version on
-    the same inputs with u0 moved by one ulp (u0 * (1 + 2^-52))."""
+    them submitted to plain_pool (unless `submit` is false: then by
+    submit_job_plain later); with `witness`, also the plain version on the
+    same inputs with u0 moved by one ulp (u0 * (1 + 2^-52))."""
     make = k2_backtrace_inputs if launch == "backtrace" else k2_queue_inputs
     u0, lnt0, lnt1, e, x, sc, cfg, kw = make(device, n, seed=43, **scene)
     args = (u0, lnt0, lnt1, e, x, sc, cfg)
-    job = dict(launch=launch, scene=scene, args=args, kw=kw,
-               plain=submit_plain("k2", *args, **kw))
+    job = dict(launch=launch, scene=scene, args=args, kw=kw)
+    if submit:
+        submit_job_plain(job)
     if witness:
         job["ulp"] = submit_plain("k2", u0 * (1.0 + 2.0 ** -52), *args[1:], **kw)
     return job
+
+
+def submit_job_plain(job, size=None):
+    """K2's plain version on a k2_variant_job's inputs, submitted to
+    plain_pool: one job, or slices of `size` rays (job["plain"] a list)."""
+    import torch
+
+    if size is None:
+        job["plain"] = submit_plain("k2", *job["args"], **job["kw"])
+        return
+    cut = lambda a, i: a[i:i + size] if isinstance(a, torch.Tensor) else a
+    job["plain"] = [submit_plain("k2", *(cut(a, i) for a in job["args"]),
+                                 **{k: cut(v, i) for k, v in job["kw"].items()})
+                    for i in range(0, job["args"][0].shape[0], size)]
 
 
 def endpoint_rel(out_a, out_b):
@@ -1380,7 +1535,9 @@ def phase_k2_variant(device, job, phase):
     production default gate's agreement is printed beside it), on a
     k2_variant_job: `launch` "backtrace" (axion, B
     flipped, 16 slots) or "mixed" (one queue-path tree iteration: photon and
-    axion, one slot).  The plain version runs on the CPU (plain_pool); on
+    axion, one slot), or on a bndry_capture job ("tree": the lanes of a
+    queue-tree iteration of the CLI's run that reach the boundary layer's
+    shell).  The plain version runs on the CPU (plain_pool); on
     the card it took ~34 s at 2048 rays (phase 5), set by the slowest ray.
     Where rays start below 10 km, the endpoint error is also split by start
     radius with the worst rays' radii, and a witness job's plain version on
@@ -1400,12 +1557,19 @@ def phase_k2_variant(device, job, phase):
     run = lambda c: mk.integrate_mega(u0, lnt0, lnt1, e, x, sc, c, **kw)
     out_d, out_g, out_0 = run(dense), run(gate), run(cfg)
     ms, ms_dense = cuda_ms(lambda: run(gate), 3), cuda_ms(lambda: run(dense), 3)
-    out_p, plain_s = plain_result(job["plain"], device)
+    if isinstance(job["plain"], list):   # slices of the rays, in order
+        parts = [plain_result(f, device) for f in job["plain"]]
+        out_p = tuple(None if parts[0][0][k] is None else torch.cat([o[k] for o, _ in parts])
+                      for k in range(len(parts[0][0])))
+        plain_s = sum(sec for _, sec in parts)
+    else:
+        out_p, plain_s = plain_result(job["plain"], device)
     nc_p = out_p[4]
     same = lambda out: (out[4] == nc_p).double().mean().item()
     same_d, same_g, same_0 = same(out_d), same(out_g), same(out_0)
     rel, end = endpoint_rel(out_d, out_p)
     med = rel[end].median().item() if bool(end.any()) else float("nan")
+    worst = rel[end].max().item() if bool(end.any()) else float("nan")
     finite = bool(torch.isfinite(out_g[0]).all() and torch.isfinite(out_d[0]).all())
     for i in (out_0[4] != nc_p).nonzero().squeeze(1).tolist()[:5]:
         log(phase, f"  default gate vs plain, ray {i}: {int(out_0[4][i])} vs {int(nc_p[i])} "
@@ -1414,17 +1578,22 @@ def phase_k2_variant(device, job, phase):
     steps_slow = out_g[2][slow].item()
     used = torch.arange(out_g[5].shape[1], device=device)[None, :] < out_g[4][:, None]
     below = int((used & (out_g[5][..., 0] < mk.METRIC_R_NS)).sum())
-    species = {"backtrace": "axion, B flipped, 16 slots", "mixed": "photon and axion, 1 slot"}
+    species = {"backtrace": "axion, B flipped, 16 slots", "mixed": "photon and axion, 1 slot",
+               "tree": "a queue-tree iteration's lanes that reach the boundary layer's shell, "
+                       "1 slot"}
     log(phase, f"K2 {launch} {B} rays {scene} ({species[launch]}): dense kernel vs plain "
                f"identical "
                f"crossing counts {same_d:.4f} (bar 0.99), endpoint median rel err {med:.3g} "
-               f"(bar 1e-8) on {int(end.sum())} end-reached rays; census {verdict} (coarse "
+               f"(bar 1e-8; worst ray {worst:.3g}) on {int(end.sum())} end-reached rays; census "
+               f"{verdict} (coarse "
                f"{gate.interp_coarse}, theta {gate.scan_gate_theta}): gated vs plain identical "
                f"counts {same_g:.4f} (bar 0.99); the production default gate (coarse "
                f"{cfg.interp_coarse}, theta {cfg.scan_gate_theta}) {same_0:.4f}; crossings "
                f"{int(nc_p.sum().item())} ({below} of the kernel's below {mk.METRIC_R_NS:g} km); "
                f"kernel {ms:.3f} ms gated / {ms_dense:.3f} ms dense, "
-               f"plain {plain_s:.1f} s on one CPU thread (plain_pool); slowest ray {slow}: "
+               f"plain {plain_s:.1f} s on one CPU thread (plain_pool"
+               f"{', summed over its slices' if isinstance(job['plain'], list) else ''}); "
+               f"slowest ray {slow}: "
                f"{int(steps_slow)} steps, "
                f"{int(out_g[11][slow].item())} dense passes, {ms * 1e3 / steps_slow:.2f} us per "
                f"step of it gated; steps per ray mean {out_g[2].mean().item():.1f}")
@@ -1461,7 +1630,10 @@ def phase_k2_variant(device, job, phase):
     b_ms, b_by = (k2_work_bound(out_g, gate, "axion", kw["max_crossings"])
                   if launch == "backtrace" else (None, None))
     return dict(verdict=verdict, ms=ms, ms_dense=ms_dense, plain_s=plain_s, bound_ms=b_ms,
-                bound_by=b_by, same=same_g, median=med)
+                bound_by=b_by, same=same_g, median=med, rays=B,
+                caps=dict(steps=int(out_g[2].max()), max_steps=int(gate.max_steps),
+                          crossings=int(out_g[4].max()), slots=int(kw["max_crossings"]),
+                          codes={int(c): n for c, n in codes.items()}))
 
 
 def phase_treekernel(device, n_plain, n_tree):
@@ -1902,19 +2074,14 @@ def phase_driver_iso(device, n_events, batch, phase):
 
 
 def phase_variants(device):
-    """Phase 13: the boundary-layer and isotropic path (K1 with the boundary
-    layer, K2's boundary-layer and isotropic instantiations)."""
-    bndry, iso = dict(bndry_lyr=0.5), dict(isotropic=True)
-    jobs = [k2_variant_job(device, 512, "backtrace", **bndry),
-            k2_variant_job(device, 512, "mixed", **bndry),
-            k2_variant_job(device, 512, "mixed", **iso)]
-    timed("13a", phase_line_scan, device, 16384, phase="13a", **bndry)
-    timed("13b", phase_probe, device, phase="13b", **bndry)
+    """Phase 13: the isotropic path (K2's isotropic instantiation) and the
+    device functions at the boundary layer and the isotropic scene; the
+    boundary-layer path itself runs at every grid scene in phase 28."""
+    iso = dict(isotropic=True)
+    job = k2_variant_job(device, 512, "mixed", **iso)
+    timed("13b", phase_probe, device, phase="13b", bndry_lyr=0.5)
     timed("13b", phase_probe, device, phase="13b", **iso)
-    for tag, job in zip(("13c", "13c", "13d"), jobs):
-        timed(tag, phase_k2_variant, device, job, tag)
-    timed("13e", phase_slice, device, 4096, 2048, "auto", "13e", cold_run=False,
-          extra=["--bndry_lyr", "0.5"], uses_tree_kernel=False)
+    timed("13d", phase_k2_variant, device, job, "13d")
     timed("13f", phase_driver_iso, device, 2048, 2048, "13f")
 
 
@@ -4089,15 +4256,16 @@ def grid_scenes():
     return out
 
 
-def grid_census(device, ref, phase, cfg, **scene):
+def grid_census(device, ref, phase, cfg, layer=False, **scene):
     """The port's scan-gate census at a grid scene, at cfg (the kernel
     path's, whose run in 27e then reuses it): census_cfg's choice and
     verdict, with the (mismatched, checked) events at the default gate and,
     where that missed, at the widened one (driver.census, the guard's
-    cached runs), logged beside the reference's verdict.  A verdict that
-    differs is logged, not failed: the port's census runs K2 in f64, the
-    reference's ran f32 on the TPU.  Returns (gate, verdict, fields for the
-    scene's summary)."""
+    cached runs), logged beside the verdict `ref`: the reference's, or with
+    `layer` (a boundary-layer scene) the scene's own without the layer.  A
+    verdict that differs is logged, not failed: the port's census runs K2
+    in f64, the reference's ran f32 on the TPU.  Returns (gate, verdict,
+    fields for the scene's summary)."""
     from adiabatic_raytracer_tpu_torch import driver
 
     sc, _, _, maxR, n_grid = scene_setup(device, **scene)
@@ -4107,14 +4275,16 @@ def grid_census(device, ref, phase, cfg, **scene):
     counts = {"default": driver.census(sc, cfg, maxR, 0.0, device)[1:]}
     if verdict in ("widened", "fallback_plain"):
         counts["widened"] = driver.census(sc, driver.widened(cfg), maxR, 0.0, device)[1:]
+    ref_name = ("the scene's census without the layer (27a)" if layer
+                else "the reference (SCAN_GATE_r05.json)")
     note = ("" if verdict == ref else
-            "; differs from the reference (logged, not failed)" + (
+            f"; differs from {ref_name} (logged, not failed)" + (
                 "; the port's gate passes where the reference's missed (ROADMAP Queue 3)"
-                if verdict == "ok" and ref in ("widened", "fallback_plain") else ""))
+                if verdict == "ok" and ref in ("widened", "fallback_plain") and not layer
+                else ""))
     log(phase, f"census at {scene} (maxR {maxR:.4g} km, n_grid {n_grid}): port {verdict} "
                f"(coarse {gate.interp_coarse}, theta {gate.scan_gate_theta:g}), mismatched / "
-               f"checked events {counts}; the reference (SCAN_GATE_r05.json) {ref}; "
-               f"{wall:.2f} s{note}")
+               f"checked events {counts}; {ref_name} {ref}; {wall:.2f} s{note}")
     return gate, verdict, dict(scene=scene, maxR=maxR, n_grid=n_grid, verdict=verdict,
                                reference=ref, census=counts, census_s=wall)
 
@@ -4506,10 +4676,11 @@ def grid_paths(device, verdict, phase, **scene):
                 spectrum_bin_sigma=worst_bin, spectrum_total_sigma=total)
 
 
-def grid_zero_yield(device, phase, **scene):
-    """The CLI at a scene whose conversion surface lies inside the star: it
-    must return no rows and write no npy file, within ZERO_YIELD_S seconds
-    (the reference's run quits there before sampling)."""
+def grid_zero_yield(device, phase, extra=(), **scene):
+    """The CLI (with the flags `extra`) at a scene whose conversion surface
+    lies inside the star: it must return no rows and write no npy file,
+    within ZERO_YIELD_S seconds (the reference's run quits there before
+    sampling)."""
     import glob
     import shutil
 
@@ -4521,10 +4692,10 @@ def grid_zero_yield(device, phase, **scene):
     out = cli.run_from_args(["--device", "cuda", "--Nts", str(GRID_EVENTS + 1), "--saveMode",
                              "1", "--seed", "1769", "--ThetaM", "0.2", "--MassA",
                              f"{scene['mass_a']:g}", "--B0", f"{scene['b0']:g}", "--dir_tag",
-                             d])
+                             d, *extra])
     wall = time.time() - t0
     files = glob.glob(os.path.join(d, "npy", "*.npy"))
-    log(phase, f"the CLI at {scene}, the surface inside the star: returned "
+    log(phase, f"the CLI {' '.join(extra)} at {scene}, the surface inside the star: returned "
                f"{'nothing' if out is None else 'rows'}, npy files {len(files)}, {wall:.2f} s "
                f"(bar {ZERO_YIELD_S:g} s)")
     if out is not None or files or wall > ZERO_YIELD_S:
@@ -4573,6 +4744,473 @@ def phase_scan_grid(device, jobs):
         log(27, "scene " + json.dumps(summary, default=str))
     if fails:
         raise AssertionError("phase 27: " + "; ".join(fails))
+
+
+# Phase 28: the boundary-layer path across the scan grid, at --bndry_lyr
+# BNDRY_LYR (the value of the rows pinned from the JAX CLI).  The layer adds
+# to omega_p a term (megakernel._bndry_t) that peaks at max(rmax *
+# bndry_lyr, r_NS), rmax the aligned dipole's conversion radius (11.6-250
+# km over the grid), and falls by e over each 0.1 rmax beyond; BNDRY_SHELL
+# decay lengths past the peak it is 5% of its peak.  The kernel tree
+# engines do not cover the layer (tree.kernel_covers), so the CLI's auto
+# picks the queue path there: K1 with the term in the sampler and the
+# census, K2's boundary-layer instantiation in the census, the backtrace
+# and every tree iteration.
+BNDRY_LYR = 0.5
+BNDRY_RAYS = 128      # 28c: K2's rays a set, at most
+BNDRY_EVENTS = 2048   # 28d: the CLI's run, one batch
+BNDRY_CAPTURE = 512   # 28a: the events of the run whose tree iteration 28c takes
+BNDRY_SHELL = 3.0     # the shell's depth past the term's peak, in decay lengths
+# 28c's tree rays are held whole to the plain version where the card's K2
+# takes at most BNDRY_PLAIN_STEPS steps on them.  The eager plain version
+# costs ~50-70 ms a step on one CPU thread whatever the batch, so its time is
+# the longest ray's: at (1e-6, 1e14) a 157-ray set with an 8641-step ray took
+# 612.7 s, beyond what plain_pool can give beside phase 27, and phase 28's
+# plain jobs at 256 rays a set slowed phases 15-27, which share the host's
+# cores with them.  Those go in slices of BNDRY_SLICE, longest first, so
+# that plain_pool's workers share them.  A longer ray (the shell-grazing
+# ones: 0-2 of 128 a scene, 1314-8641 steps, in the H100 runs) is held on
+# its last BNDRY_WINDOW steps, the card's K2 and the plain version resumed
+# from the card's state there (bndry_window), each ray a plain job of its
+# own, with a witness of its conditioning (bndry_windows); at most
+# BNDRY_LONG_SHARE of a set's rays may be held so.
+BNDRY_PLAIN_STEPS = 1000
+BNDRY_SLICE = 64
+BNDRY_WINDOW = 500
+BNDRY_LONG_SHARE = 0.02
+
+
+def shell_radius(sc):
+    """The outer radius (km) of the boundary layer's shell at scene sc: the
+    term's peak outside the star, max(rmax * bndry_lyr, r_NS), plus
+    BNDRY_SHELL decay lengths of 0.1 rmax."""
+    from adiabatic_raytracer_tpu_torch.ops.megakernel import bndry_scalars
+
+    lyr, _, rmax = bndry_scalars(sc)
+    return max(rmax * lyr, float(sc.r_ns)) + BNDRY_SHELL * 0.1 * rmax
+
+
+def reaches_shell(x, k, r_shell):
+    """Rays from x [B, 3] along k [B, 3] whose straight line forward comes
+    within r_shell of the centre: the start radius, or the closest approach
+    where the ray starts inward (a selection of rays, not their path)."""
+    import torch
+
+    khat = k / torch.linalg.norm(k, dim=1, keepdim=True)
+    along = (x * khat).sum(dim=1)
+    closest = torch.where(along < 0, torch.linalg.norm(x - along[:, None] * khat, dim=1),
+                          torch.linalg.norm(x, dim=1))
+    return closest <= r_shell
+
+
+def bndry_cfg(device, **scene):
+    """The CLI's card-default cfg at a boundary-layer scene: grid_cfg's with
+    the queue tree engine, which --tree_engine auto picks there."""
+    import dataclasses
+
+    return dataclasses.replace(grid_cfg(device, **scene), tree_engine="queue")
+
+
+def bndry_capture(device, cfg, **scene):
+    """K2's inputs on the lanes of one queue-tree iteration that reach the
+    boundary layer's shell (reaches_shell at shell_radius), from driver.run
+    at `scene` and cfg (the CLI's, bndry_cfg) on BNDRY_CAPTURE events in one
+    batch, seed 1769, under k2_watch: the first tree iteration (species
+    "mixed") whose shell lanes hold both species, or, where none does, the
+    one with the most shell lanes; at most BNDRY_RAYS of them, in lane
+    order.  The run ends after that iteration's launch.  Returns a
+    phase_k2_variant job (launch "tree") on those of the rays the card's K2
+    (dense scan) takes at most BNDRY_PLAIN_STEPS steps on, longest first
+    (its plain version submitted later, bndry_plain), with the others'
+    windows under "windows" (bndry_window) and the set's size under "n_set"."""
+    import dataclasses
+
+    import torch
+
+    from adiabatic_raytracer_tpu_torch import driver
+    from adiabatic_raytracer_tpu_torch.ops import megakernel as mk
+    from adiabatic_raytracer_tpu_torch.ops.propagate import launch_state
+
+    sc, cfg0, tcfg, _, _ = scene_setup(device, **scene)
+    r_shell = shell_radius(sc)
+    shell = lambda la: reaches_shell(la["x0"], la["k0"], r_shell).nonzero().squeeze(1)[:BNDRY_RAYS]
+
+    def both(la):
+        ph = la["is_photon"][shell(la)] if la["species"] == "mixed" else la["is_photon"][:0]
+        return bool(ph.any()) and bool((~ph).any())
+
+    with k2_watch(stop=both) as launches:
+        driver.run(sc, cfg, tcfg, BNDRY_CAPTURE + 1, seed=1769, save_mode=1,
+                   event_batch=BNDRY_CAPTURE, verbose=False, device=device,
+                   dir_tag=os.path.join(OUT, "bndry"), file_tag="capture")
+    tree = [la for la in launches if la["species"] == "mixed"]
+    best = next((la for la in tree if both(la)), None) or max(
+        tree, key=lambda la: shell(la).numel(), default=None)
+    sel = shell(best) if best else None
+    if sel is None or not sel.numel():
+        raise AssertionError(f"no queue-tree lane at {scene} reaches the shell (r <= "
+                             f"{r_shell:.4g} km)")
+    x0, k0, e, dw, lnt0, lnt1, ph = (best[k][sel] for k in ("x0", "k0", "erg", "delta_w",
+                                                            "lnt0", "lnt1", "is_photon"))
+    args = (launch_state(x0, k0, best["sc"], e, dw), lnt0, lnt1, e, x0, best["sc"], cfg0)
+    kw = dict(max_crossings=best["slots"], is_photon=ph, species="mixed",
+              with_prob=best["with_prob"] and mk.can_prob(best["sc"]))
+    n_ph = int(ph.sum())
+    # the card's steps per ray (dense scan): the plain version takes the rays
+    # of at most BNDRY_PLAIN_STEPS whole, longest first, the others on their
+    # last BNDRY_WINDOW steps
+    dense = dataclasses.replace(cfg0, interp_coarse=0)
+    steps = mk.integrate_mega(*args[:6], dense, **kw)[2]
+    keep = (steps <= BNDRY_PLAIN_STEPS).nonzero().squeeze(1)
+    keep = keep[torch.argsort(steps[keep], descending=True, stable=True)]
+    long = (steps > BNDRY_PLAIN_STEPS).nonzero().squeeze(1).tolist()
+    windows = [bndry_window(args, kw, dense, i, int(steps[i])) for i in long]
+    log("28a", f"tree rays at {scene}: {sel.numel()} lanes of an iteration of "
+               f"{best['x0'].shape[0]} reach the shell r <= {r_shell:.4g} km ({n_ph} photons, "
+               f"{sel.numel() - n_ph} axions); {len(long)} of them take more than "
+               f"{BNDRY_PLAIN_STEPS} steps on the card ({[w['steps'] for w in windows]}), held "
+               f"on their last {BNDRY_WINDOW} steps")
+    args = tuple(a[keep] if isinstance(a, torch.Tensor) else a for a in args)
+    kw = dict(kw, is_photon=kw["is_photon"][keep])
+    return dict(launch="tree", scene=scene, args=args, kw=kw, r_shell=r_shell,
+                windows=windows, n_set=sel.numel())
+
+
+def bndry_window(args, kw, cfg, i, steps):
+    """Ray i of a bndry_capture set (integrate_mega's args and kw), which the
+    card's K2 at cfg takes `steps` steps on: its last BNDRY_WINDOW steps, as
+    the inputs of a launch resumed from the card's own state there (K2 run
+    to steps - BNDRY_WINDOW steps, it_cap, return_resume).  Returns {"args",
+    "kw" (with the resume dict), "steps", "resume_steps": the resumable
+    instantiation's steps in one launch}."""
+    import torch
+
+    from adiabatic_raytracer_tpu_torch.ops import megakernel as mk
+
+    u0, lnt0, lnt1, e, x, sc = (a[i:i + 1] if isinstance(a, torch.Tensor) else a
+                                for a in args[:6])
+    kw1 = dict(kw, is_photon=kw["is_photon"][i:i + 1])
+    pre = mk.integrate_mega(u0, lnt0, lnt1, e, x, sc, cfg, it_cap=steps - BNDRY_WINDOW,
+                            return_resume=True, **kw1)
+    # the resumable instantiation in one uncapped launch: its steps beside
+    # the default one's tell a chunk boundary's loss from rounding
+    whole = mk.integrate_mega(u0, lnt0, lnt1, e, x, sc, cfg, it_cap=cfg.max_steps,
+                              return_resume=True, **kw1)
+    return dict(args=(pre[0], pre[1], lnt1, e, x, sc, cfg), kw=dict(kw1, resume=pre[-1]),
+                steps=steps, resume_steps=int(whole[2][0]))
+
+
+def bndry_windows(device, job, phase):
+    """28c on a bndry_capture job's long rays: each one's last BNDRY_WINDOW
+    steps, the card's K2 against the plain version, both resumed from the
+    card's state there (bndry_window): crossing counts and end codes
+    identical on every ray, and each ray's endpoint within 1e-8 (phase 5's
+    median bar, here on every ray), or, where the plain version's own
+    endpoint moves by `spread` when the state it resumes from moves by one
+    ulp (u0 (1 + 2^-52), the witness), within ILL_K x spread of it (phase
+    23's rule: these shell-grazing rays amplify rounding); and at most
+    BNDRY_LONG_SHARE of the set's rays (n_set) held so.  Returns the
+    summary's fields."""
+    from adiabatic_raytracer_tpu_torch.ops import megakernel as mk
+
+    rays = []
+    for w in job["windows"]:
+        out_k = mk.integrate_mega(*w["args"], **w["kw"])
+        out_p, sec = plain_result(w["plain"], device)
+        out_u, _ = plain_result(w["ulp"], device)
+        rel, spread = endpoint_rel(out_k, out_p)[0].item(), endpoint_rel(out_u, out_p)[0].item()
+        rays.append(dict(steps=w["steps"], resume_steps=w["resume_steps"],
+                         counts=(int(out_k[4][0]), int(out_p[4][0])),
+                         codes=(int(out_k[3][0]), int(out_p[3][0])),
+                         window_steps=(int(out_k[2][0]), int(out_p[2][0])), rel=rel,
+                         spread=spread, bar=max(1e-8, ILL_K * spread), plain_s=sec))
+    limit = int(BNDRY_LONG_SHARE * job["n_set"])
+    bad = [r for r in rays if r["counts"][0] != r["counts"][1] or r["codes"][0] != r["codes"][1]
+           or not r["rel"] <= r["bar"]]
+    log(phase, f"K2 tree rays of more than {BNDRY_PLAIN_STEPS} steps at {job['scene']}: "
+               f"{len(rays)} of {job['n_set']} (bar {limit}), each on its last {BNDRY_WINDOW} "
+               f"steps from the card's state, kernel vs plain (steps: the single launch's, "
+               f"resume_steps: the resumable instantiation's in one launch, window_steps: the "
+               f"resumed launch's end; spread: the plain version from the state moved by one "
+               f"ulp): {rays}; {len(bad)} beyond their bars")
+    if len(rays) > limit or bad:
+        raise AssertionError(f"K2's long tree rays at {job['scene']} disagree with the plain "
+                             f"version on their last {BNDRY_WINDOW} steps, or exceed {limit}: "
+                             f"{bad or rays}")
+    return dict(rays=len(rays), n_set=job["n_set"], long_rays=rays)
+
+
+def bndry_jobs(device, grid):
+    """Phase 28a, right after 27a (grid: grid_jobs's jobs): at every grid
+    scene at bndry_lyr BNDRY_LYR, the census at the CLI's cfg (bndry_cfg,
+    which 28d's run reuses), logged beside the scene's bndry_lyr <= 0
+    verdict of 27a; where the surface lies outside the star, the inputs of
+    28c: BNDRY_RAYS backtrace rays (k2_variant_job) and the rays of a
+    queue-tree iteration that reach the shell (bndry_capture), to be held at
+    the census's gate (bndry_plain submits their plain versions)."""
+    jobs = []
+    for g in grid:
+        scene = dict(g["scene"], bndry_lyr=BNDRY_LYR)
+        cfg = bndry_cfg(device, **scene)
+        gate, verdict, summary = grid_census(device, g["summary"]["verdict"], "28a", cfg,
+                                             layer=True, **scene)
+        summary["without_layer"] = summary.pop("reference")
+        job = dict(scene=scene, cfg=cfg, summary=summary, outside=g["outside"])
+        if g["outside"]:
+            job["k2"] = dict(k2_variant_job(device, BNDRY_RAYS, "backtrace", submit=False,
+                                            **scene), census=(gate, verdict))
+            job["k2_tree"] = dict(bndry_capture(device, cfg, **scene), census=(gate, verdict))
+        jobs.append(job)
+    return jobs
+
+
+def bndry_plain(jobs):
+    """K2's plain versions on 28c's inputs (bndry_jobs), submitted to
+    plain_pool after phase 26, so that they run while phase 27 runs:
+    plain_pool serves its jobs in order, and submitted in 28a they held up
+    phase 24's own plain jobs (phase 24b waited 109.1 s against 19.7 s
+    without phase 28, in one call on an H100).  The tree rays go in slices of
+    BNDRY_SLICE, longest first, so that the workers share them, and each
+    long ray's window (bndry_window) in a job of its own, with its witness:
+    the window from the state moved by one ulp."""
+    for job in jobs:
+        if job["outside"]:
+            submit_job_plain(job["k2"])
+            submit_job_plain(job["k2_tree"], BNDRY_SLICE)
+            for w in job["k2_tree"]["windows"]:
+                kw = dict(w["kw"], resume={k: v.cpu() for k, v in w["kw"]["resume"].items()})
+                w["plain"] = submit_plain("k2", *w["args"], **kw)
+                w["ulp"] = submit_plain("k2", w["args"][0] * (1.0 + 2.0 ** -52),
+                                        *w["args"][1:], **kw)
+
+
+class _WatchStop(Exception):
+    """Ends the run inside k2_watch at its stop launch."""
+
+
+@contextlib.contextmanager
+def k2_watch(stop=None):
+    """While active, every K2 launch (megakernel.propagate_mega) is kept:
+    its scene, species, slots, with_prob and max_steps, its rays' launch
+    inputs (x0, k0, erg, delta_w, lnt0, lnt1, is_photon) and their steps,
+    end (maxed: step cap or stall; cut_short: slots full) and crossings, as
+    device tensors (no host read while the run runs); and each batch's
+    driver._event_kinematics inputs and outputs (species "kinematics").
+    Where stop(launch's record) holds, the run inside ends there."""
+    from adiabatic_raytracer_tpu_torch import driver
+    from adiabatic_raytracer_tpu_torch.ops import megakernel as mk
+
+    launches, real, real_kin = [], mk.propagate_mega, driver._event_kinematics
+
+    def kinematics(xpos, v_loc, erg_inf, sc_, *args):
+        out = real_kin(xpos, v_loc, erg_inf, sc_, *args)
+        launches.append(dict(species="kinematics", inputs=(xpos, v_loc, erg_inf), out=out))
+        return out
+
+    def watch(x0, k0, sc_, cfg_, *, erg, delta_w, lnt0, lnt1, is_photon, max_crossings=1,
+              species="mixed", **kw):
+        res = real(x0, k0, sc_, cfg_, erg=erg, delta_w=delta_w, lnt0=lnt0, lnt1=lnt1,
+                   is_photon=is_photon, max_crossings=max_crossings, species=species, **kw)
+        launches.append(dict(sc=sc_, species=species, slots=int(max_crossings),
+                             with_prob=bool(kw.get("with_prob")),
+                             max_steps=int(cfg_.max_steps), x0=x0, k0=k0, erg=erg,
+                             delta_w=delta_w, lnt0=lnt0, lnt1=lnt1, is_photon=is_photon,
+                             steps=res.steps, maxed=res.maxed, cut_short=res.cut_short,
+                             n_cross=res.n_cross))
+        if stop is not None and stop(launches[-1]):
+            raise _WatchStop
+        return res
+
+    mk.propagate_mega, driver._event_kinematics = watch, kinematics
+    try:
+        yield launches
+    except _WatchStop:
+        pass
+    finally:
+        mk.propagate_mega, driver._event_kinematics = real, real_kin
+
+
+def k2_caps(launches):
+    """The caps K2's rays reached in a one-batch run watched by k2_watch,
+    from its backtrace (the last species-axion launch; a census inside the
+    run launches before it) on: the backtrace's rays that filled their
+    crossing slots, reached max_steps or stalled, and the tree rays that
+    reached max_steps or stalled (a tree ray fills its one slot by design).
+    Returns (the capped rays, each a dict of its launch (0 the backtrace,
+    n the n-th tree iteration) and lane (the backtrace's lane is its event),
+    cap, steps, scene fields and launch inputs as lists; the most steps and
+    crossings of any ray; the count of each cap by species)."""
+    import dataclasses
+
+    import torch
+
+    launches = [la for la in launches if la["species"] != "kinematics"]
+    start = max(n for n, la in enumerate(launches) if la["species"] == "axion")
+    rays, counts, steps, crossings = [], {}, 0, 0
+    for n, la in enumerate(launches[start:]):
+        st, maxed, cut = la["steps"].cpu(), la["maxed"].cpu(), la["cut_short"].cpu()
+        steps = max(steps, int(st.max()))
+        crossings = max(crossings, int(la["n_cross"].max()))
+        cap = torch.where(maxed, torch.where(st >= la["max_steps"], 4, 5), 0)
+        if la["species"] == "axion":
+            cap = torch.where(cut & ~maxed, 3, cap)
+        for i in cap.nonzero().squeeze(1).tolist():
+            name = {3: "slots full", 4: "max_steps", 5: "stalled"}[int(cap[i])]
+            key = f"{la['species']} {name}"
+            counts[key] = counts.get(key, 0) + 1
+            rays.append(dict(
+                launch=n, lane=i, cap=name, species=la["species"], slots=la["slots"],
+                steps=int(st[i]), max_steps=la["max_steps"], scene=dataclasses.asdict(la["sc"]),
+                **{k: la[k][i].double().cpu().tolist() if la[k].dtype != torch.bool
+                   else bool(la[k][i]) for k in ("x0", "k0", "erg", "delta_w", "lnt0", "lnt1",
+                                                  "is_photon")}))
+    return rays, steps, crossings, counts
+
+
+def bndry_path(device, job, phase, caps):
+    """28d: the CLI at --bndry_lyr BNDRY_LYR at the job's scene at its card
+    defaults (--tree_engine auto -> queue, the auto window), one batch of
+    BNDRY_EVENTS events, seed 1769, warm (the census run just before, or
+    found cached) under torch.profiler (the card's activity) and k2_watch,
+    the launch counters reset just before it: K1's fused kernel and K2 must
+    launch, K3, K4 and K1's grid kernel not; rows finite with weight > 0
+    except where the survival weight is 0 (rows_ok; a failing row's event
+    is logged with its kinematics on the card and on the CPU); the run's
+    census verdict the census's.  The caps its K2 rays reached (k2_caps)
+    are logged, and the rays that reached one, with their launch inputs,
+    added to `caps`.  Returns the summary's fields."""
+    import numpy as np
+    import torch
+
+    from adiabatic_raytracer_tpu_torch import cli, driver
+    from adiabatic_raytracer_tpu_torch.ops import cuda_lib
+
+    scene = job["scene"]
+    _, verdict = census_cfg(device, cfg=job["cfg"], **scene)
+    tag = f"bndry_{scene['mass_a']:g}_{scene['b0']:g}"
+    argv = ["--device", "cuda", "--event_batch", str(BNDRY_EVENTS), "--Nts",
+            str(BNDRY_EVENTS + 1), "--saveMode", "1", "--seed", "1769", "--ThetaM", "0.2",
+            "--MassA", f"{scene['mass_a']:g}", "--B0", f"{scene['b0']:g}", "--bndry_lyr",
+            f"{BNDRY_LYR:g}", "--dir_tag", os.path.join(OUT, "bndry"), "--ftag", tag]
+    # the card's activity only: K2's device time and the busy share read
+    # device events, and the queue path's host events cost memory and time
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with k2_watch() as k2_launches, torch.profiler.profile(activities=acts) as prof:
+        cuda_lib.reset_launch_counts()
+        t0 = time.time()
+        _, path, stats = cli.run_from_args(argv)
+        wall = time.time() - t0
+        launches = dict(cuda_lib.LAUNCHES)
+    prof_out = write_profile(prof, wall, phase, tag)
+    rows = np.load(path)
+    capped, steps, crossings, counts = k2_caps(k2_launches)
+    caps.extend(dict(c, grid_scene=scene) for c in capped)
+    zero_w = int((rows[:, 8] == 0).sum()) if rows.ndim == 2 else -1
+    k2_ms, k2_n = prof_out["kernels"]["mega_kernel"]
+    k1_ms, k1_n = prof_out["kernels"]["line_roots_kernel"]
+    log(phase, f"the CLI --bndry_lyr {BNDRY_LYR:g} at {scene}: {stats.events} events, "
+               f"{rows.shape[0]} rows ({zero_w} of weight 0); warm run {wall:.2f} s = "
+               f"{stats.events / wall:.1f} events/s (gate {stats.t_gate:.2f} s, sample "
+               f"{stats.t_sample:.2f} s, pipeline {stats.t_pipeline:.2f} s); tree iterations "
+               f"{stats.tree_iters}; K2 {k2_ms:.1f} ms device over {k2_n} launches, K1 "
+               f"{k1_ms:.1f} ms over {k1_n}; census {stats.scan_gate}; info "
+               f"{stats.info_hist}; launches {launches}")
+    log(phase, f"  caps at {scene}: steps at most {steps} of {job['cfg'].max_steps}, "
+               f"crossings at most {crossings} a ray (16 slots in the backtrace, 1 a tree "
+               f"ray); rays that reached a cap {counts or 'none'}, in launches "
+               f"{sorted({c['launch'] for c in capped})[:16]} (0 the backtrace)")
+    if not (rows.ndim == 2 and rows.shape[1] == 29 and rows.shape[0] > 0):
+        raise AssertionError(f"the CLI at {scene} wrote rows of shape {rows.shape}")
+    if not rows_ok(rows, zero_weight_ok=True):
+        bad = ~np.isfinite(rows).all(axis=1) | ((rows[:, 8] <= 0) & (rows[:, 25] != 0))
+        kin = [la for la in k2_launches if la["species"] == "kinematics"][-1]
+        sc_ = scene_setup(device, **scene)[0]
+        for e in sorted({int(r[0]) - 1 for r in rows[bad]})[:6]:
+            x, v, w = (a[e:e + 1] for a in kin["inputs"])
+            on_cpu = {cd: [o.tolist() for o in driver._event_kinematics(
+                x.cpu(), v.cpu(), w.cpu(), sc_, cd)[:3]]
+                for cd in ("f32", "state")}
+            log(phase, f"  bad event {e} at {scene}: xpos {x[0].tolist()} v_loc {v[0].tolist()} "
+                       f"erg_inf {w[0].item()!r}; the card's k_init, sln_base, cos_w "
+                       f"{[o[e].tolist() for o in kin['out'][:3]]}; the same function on the "
+                       f"CPU {on_cpu}")
+        for r in rows[bad][:6]:
+            log(phase, f"  bad row at {scene}: event {int(r[0])} species {int(r[1])} weight "
+                       f"{r[8]:.4g} survival {r[25]:.4g} count {r[20]:g} info {r[21]:g}; "
+                       f"columns not finite {np.nonzero(~np.isfinite(r))[0].tolist()}; "
+                       f"|x_f| {r[6]:.6g}, theta_f {r[2]:.4g}, conversion point r "
+                       f"{float(np.linalg.norm(r[9:12])):.9g} km")
+        raise AssertionError(f"the CLI's rows at {scene} are not finite or have a weight <= 0 "
+                             f"where the survival weight is not 0: {int(bad.sum())} rows")
+    need, never = ("line_roots", "megakernel"), ("treekernel", "treerefill", "line_scan")
+    if not all(launches[n] > 0 for n in need) or any(launches[n] for n in never):
+        raise AssertionError(f"the CLI at {scene} launched {launches}")
+    if stats.scan_gate != verdict:
+        raise AssertionError(f"the CLI's census at {scene} gave {stats.scan_gate}, the census "
+                             f"{verdict}")
+    return dict(events_s=stats.events / wall, wall=wall, t_gate=stats.t_gate,
+                t_sample=stats.t_sample, t_pipeline=stats.t_pipeline,
+                tree_iters=stats.tree_iters, rows=int(rows.shape[0]), zero_weight_rows=zero_w,
+                k2_device_ms=k2_ms, k2_launches=k2_n, k1_device_ms=k1_ms, k1_launches=k1_n,
+                busy_share=prof_out["busy_ms"] / 1e3 / wall,
+                caps=dict(steps=steps, crossings=crossings, rays=counts))
+
+
+def phase_bndry_grid(device, jobs):
+    """Phase 28 at every grid scene at --bndry_lyr BNDRY_LYR: (a) the census
+    (bndry_jobs, logged there); where the surface lies inside the star (f)
+    the CLI quits with no rows; elsewhere (b) K1 with the layer's term at
+    phase 3's bars on 4096 lines (2048 where n_grid exceeds 11,000), with
+    the most sign changes a line had against the 16 kept, (c) K2's
+    boundary-layer instantiation at the census's gate against its plain
+    version at phase 5's bars on BNDRY_RAYS backtrace rays and on the rays
+    of a queue-tree iteration that reach the shell (phase_k2_variant, with
+    the caps the rays reached; the longest of those on a window,
+    bndry_windows), (d) the CLI's run (bndry_path).  The launch inputs of
+    the rays that reached a cap in 28d go to bndry_caps.json in OUT, this
+    run's scenes only, for a check against the JAX pool engine on the CPU
+    (scripts/jax_bndry_caps.py).  Each scene's summary is one JSON line.
+    Every scene runs before the phase fails, and the failure names each
+    scene that did."""
+    from adiabatic_raytracer_tpu_torch.ops import sampler
+
+    fails, caps = [], []
+    caps_file = os.path.join(OUT, "bndry_caps.json")
+    for job in jobs:
+        scene = job["scene"]
+        summary = dict(job["summary"])
+        t0 = time.time()
+        try:
+            if not job["outside"]:
+                summary.update(grid_zero_yield(device, "28f",
+                                               extra=["--bndry_lyr", f"{BNDRY_LYR:g}"], **scene))
+            else:
+                n_lines = 4096 if summary["n_grid"] <= 11000 else 2048
+                t = [time.time()]
+                k1 = phase_line_scan(device, n_lines, phase="28b", **scene)
+                summary["k1"] = dict(lines=n_lines, max_flips=k1["max_flips"],
+                                     slots=sampler.MAX_LINE_CROSSINGS, **{n: k1["line_roots"][n]
+                                     for n in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                               "max_abs_err")})
+                t.append(time.time())
+                summary["k2"] = {name: phase_k2_variant(device, job[key], "28c")
+                                 for name, key in (("backtrace", "k2"), ("tree", "k2_tree"))}
+                summary["k2"]["long"] = bndry_windows(device, job["k2_tree"], "28c")
+                t.append(time.time())
+                summary.update(bndry_path(device, job, "28d", caps))
+                t.append(time.time())
+                summary["step_s"] = dict(zip(("k1", "k2", "path"),
+                                             (b - a for a, b in zip(t, t[1:]))))
+        except AssertionError as e:
+            fails.append(f"{scene}: {e}")
+            summary["failed"] = str(e)
+        finally:
+            with open(caps_file, "w") as f:
+                json.dump(caps, f)
+        summary["wall_s"] = time.time() - t0
+        log(28, "scene " + json.dumps(summary, default=str))
+    if fails:
+        raise AssertionError("phase 28: " + "; ".join(fails))
 
 
 def phase_slice(device, n_events, batch, tree_engine, phase, cold_run=True, extra=(),
@@ -4716,6 +5354,7 @@ def main():
                 if same_shape else ""))
     phase_variants(device)
     grid = timed("27a", grid_jobs, device)
+    bndry = timed("28a", bndry_jobs, device, grid)
     p21 = pool_compact_start()
     timed(15, phase_savemode3, device, 2048, 2048, rows_queue)
     timed(16, phase_resume, device, 2048, 1024)
@@ -4729,7 +5368,9 @@ def main():
     timed(24, phase_rns, device)
     k2_chain, chain_launches = timed(25, phase_chain, device, 2048, CHAIN_LANES)
     branch_rows = timed(26, phase_k2_branches, device, k2, k2_ctx, k3_plain, rows_kernel)
+    bndry_plain(bndry)
     timed(27, phase_scan_grid, device, grid)
+    timed(28, phase_bndry_grid, device, bndry)
     log(14, f"chip_smoke wall {time.time() - t_start:.1f} s")
     kernels = [
         {"name": "line_roots", "route": "cuda",

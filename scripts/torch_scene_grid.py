@@ -3,6 +3,7 @@ record of what each scene costs, not a benchmark.
 
     python3 scripts/torch_scene_grid.py              # every scene with events
     python3 scripts/torch_scene_grid.py --scenes 2 5 # chip_smoke.SCAN_GRID indices
+    python3 scripts/torch_scene_grid.py --bndry_lyr 0.5   # the boundary-layer path
 
 At each scene of chip_smoke.SCAN_GRID whose conversion surface lies outside
 the star (seven of the nine; ThetaM 0.2, seed 1769, saveMode 1):
@@ -30,6 +31,15 @@ the star (seven of the nine; ThetaM 0.2, seed 1769, saveMode 1):
   the Monte Carlo standard error), with the events whose scalars differ by
   more than chip_smoke.REC_P99 (chip_smoke.row_event_gaps); printed, not
   held (chip_smoke phase 27e holds it at the production scene).
+
+With --bndry_lyr L > 0 the scenes carry the boundary layer, where
+--tree_engine auto picks the queue path (the kernel tree engines do not
+cover it): the CLI on 16384 events, cold and then warm under the profiler,
+at the default cutoffs only, with the same fields (K3 launches none), the
+tree iterations per batch, and the host reads per batch counted on one
+batch of 2048 (chip_smoke.count_host_reads); the profiler records the
+card's activity only (no host events); no production cutoffs, native gate
+or spectrum.
 
 Prints the card's name and power limit (nvidia-smi) first, then one JSON
 line per scene.  Writes its profiles under chiprun_out/scene_grid/ and the
@@ -62,11 +72,12 @@ SUMMARY = re.compile(r"events=(\d+) .*wall=([\d.]+)s \(gate ([\d.]+) sample ([\d
                      r"pipe ([\d.]+)")
 
 
-def argv(scene, cut, tag):
-    return (["--device", "cuda", "--event_batch", str(BATCH), "--Nts", str(EVENTS + 1),
+def argv(scene, cut, tag, events=EVENTS):
+    return (["--device", "cuda", "--event_batch", str(BATCH), "--Nts", str(events + 1),
              "--saveMode", "1", "--seed", "1769", "--ThetaM", "0.2", "--MassA",
              f"{scene['mass_a']:g}", "--B0", f"{scene['b0']:g}", "--dir_tag", RAW, "--ftag",
-             tag] + CUTOFF_FLAGS[cut])
+             tag] + CUTOFF_FLAGS[cut]
+            + (["--bndry_lyr", f"{scene['bndry_lyr']:g}"] if "bndry_lyr" in scene else []))
 
 
 def cold(scene, cut):
@@ -86,13 +97,18 @@ def cold(scene, cut):
 
 def warm(scene, cut, tag):
     """The CLI in this process under torch.profiler, the launch counters
-    reset just before it."""
+    reset just before it.  With the boundary layer the profiler records the
+    card's activity only: with the host's events too, the queue path's
+    16384-event runs (over a million device events each) ran the card
+    machine out of its 96 GiB at the fifth scene (the device busy share and
+    kernel times read device events alone)."""
     import torch
 
     from adiabatic_raytracer_tpu_torch import cli
     from adiabatic_raytracer_tpu_torch.ops import cuda_lib
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    acts = ([torch.profiler.ProfilerActivity.CUDA] if "bndry_lyr" in scene else
+            [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
     with torch.profiler.profile(activities=acts) as prof:
         cuda_lib.reset_launch_counts()
         t0 = time.time()
@@ -102,6 +118,7 @@ def warm(scene, cut, tag):
     p = cs.write_profile(prof, wall, "grid", tag)
     return rows, dict(wall_s=wall, events_s=st.events / wall, verdict=st.scan_gate,
                        t_gate=st.t_gate, t_sample=st.t_sample, t_pipeline=st.t_pipeline,
+                       tree_iters_per_batch=st.tree_iters / (EVENTS // BATCH),
                        rows=int(rows.shape[0]),
                        rows_ok=bool(cs.rows_ok(rows, zero_weight_ok=True)),
                        zero_weight_rows=int((rows[:, 8] == 0).sum()),
@@ -129,14 +146,14 @@ def spectrum(scene, rows_kernel):
                 bins_held=bins, total_sigma=total, total_rel=total_rel)
 
 
-def host_reads(scene):
-    """Synchronizing CUDA operations of one warm run at the default cutoffs,
-    per batch, and their top sites."""
+def host_reads(scene, events=EVENTS):
+    """Synchronizing CUDA operations of one warm run of `events` events at
+    the default cutoffs, per batch, and their top sites."""
     from adiabatic_raytracer_tpu_torch import cli
 
     _, n, sites = cs.count_host_reads(lambda: cli.run_from_args(argv(scene, "default",
-                                                                     "reads")))
-    return dict(per_batch=n / (EVENTS // BATCH), sites=sites)
+                                                                     "reads", events)))
+    return dict(per_batch=n / (events // BATCH), events=events, sites=sites)
 
 
 def native_gate(device, scene, gate):
@@ -167,7 +184,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scenes", type=int, nargs="*", default=None,
                     help="chip_smoke.SCAN_GRID indices (default: every scene with events)")
+    ap.add_argument("--bndry_lyr", type=float, default=-1.0,
+                    help="> 0: the scenes with this boundary layer (the queue path)")
     args = ap.parse_args()
+    bndry = args.bndry_lyr > 0
 
     import torch
 
@@ -184,15 +204,21 @@ def main():
         if not outside:
             continue
         t0 = time.time()
-        gate, verdict = cs.census_cfg(device, **scene)
-        rec = dict(scene=scene, reference=ref, verdict=verdict, card=smi)
-        for cut in CUTOFFS:
+        if bndry:   # the census at the CLI's cfg, as its runs find it
+            scene = dict(scene, bndry_lyr=args.bndry_lyr)
+            gate, verdict = cs.census_cfg(device, cfg=cs.bndry_cfg(device, **scene), **scene)
+        else:
+            gate, verdict = cs.census_cfg(device, **scene)
+        rec = dict(scene=scene, verdict=verdict, card=smi,
+                   **{"reference_without_layer" if bndry else "reference": ref})
+        for cut in (("default",) if bndry else CUTOFFS):
             rec[f"cold_{cut}"] = cold(scene, cut)
-            rows, rec[f"warm_{cut}"] = warm(scene, cut, f"{i}_{cut}")
-            if cut == "default":
+            rows, rec[f"warm_{cut}"] = warm(scene, cut, f"{i}_{cut}" + ("_bndry" if bndry else ""))
+            if cut == "default" and not bndry:
                 rec["spectrum"] = spectrum(scene, rows)
-        rec["host_reads"] = host_reads(scene)
-        rec["native_gate"] = native_gate(device, scene, gate)
+        rec["host_reads"] = host_reads(scene, BATCH if bndry else EVENTS)
+        if not bndry:
+            rec["native_gate"] = native_gate(device, scene, gate)
         rec["wall_s"] = time.time() - t0
         print(json.dumps(rec), flush=True)
 

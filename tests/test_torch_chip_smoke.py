@@ -1,6 +1,8 @@
 """chip_smoke.py's helpers that run without a card: ptxas parsing, the
-refusal to run on a machine without one, and 27e's spectrum comparison."""
+refusal to run on a machine without one, 27e's spectrum comparison, and
+phase 28's shell and pinned-root helpers."""
 
+import dataclasses
 import math
 import os
 import subprocess
@@ -191,3 +193,65 @@ def test_spectrum_gap_in_standard_errors():
     assert math.isclose(rel, d / pb[ph].sum(), rel_tol=1e-9)
     assert held == 100
     assert chip_smoke.spectrum_gap(a[:200], a[:200])[1] < 100
+
+
+def test_bndry_shell_and_pinned_roots():
+    """Phase 28's helpers.  shell_radius: the layer's peak outside the star,
+    max(rmax lyr, r_NS), plus three decay lengths of 0.1 rmax.
+    reaches_shell: a ray from inside the shell, or one aimed inward whose
+    closest approach lies inside it, reaches it; one leaving from outside
+    does not.  pinned_only: on lines of the 11.7 km boundary-layer scene,
+    where roots sit on r_NS (the condition jumps there), a line whose
+    filter decisions differ only at such roots is pinned, and a line that
+    also differs at another root, or that has no root, is not.  pin_counts:
+    the route against itself differs nowhere; a filter that took rr >= r_NS
+    differs on more of the lines with a root on r_NS than PIN_SHARE lets
+    through, and one that dropped rr > r_NS accepts roots inside the star."""
+    from adiabatic_raytracer_tpu_torch.ops import line_scan, sampler
+    from adiabatic_raytracer_tpu_torch.ops.megakernel import bndry_scalars
+    from adiabatic_raytracer_tpu_torch.utils import rng
+
+    cpu = torch.device("cpu")
+    sc, _, _, maxR, n_grid = chip_smoke.scene_setup(cpu, mass_a=1e-5, b0=1e13, bndry_lyr=0.5)
+    _, _, rmax = bndry_scalars(sc)
+    r_shell = chip_smoke.shell_radius(sc)
+    assert math.isclose(r_shell, max(0.5 * rmax, 10.0) + 0.3 * rmax)
+    x = torch.tensor([[r_shell - 1.0, 0, 0], [r_shell + 5.0, 0, 0], [r_shell + 5.0, 0, 0]],
+                     dtype=torch.float64)
+    k = torch.tensor([[1.0, 0, 0], [1.0, 0, 0], [-1.0, 0.1, 0]], dtype=torch.float64)
+    assert chip_smoke.reaches_shell(x, k, r_shell).tolist() == [True, False, True]
+
+    geo = sampler._draw(rng.split(rng.PRNGKey(20261016), 512), maxR, sc, 220.0, True,
+                        torch.float64)
+    s_grid = torch.linspace(0.0, 2.2 * maxR, n_grid, dtype=torch.float64)
+    args = (geo.x0, geo.vvec, geo.vvec_loc, geo.erg_inf)
+    g = line_scan.line_scan_plain(*args, s_grid, sc, sc.mass_ns).to(torch.float64)
+    s, ok, n, _ = line_scan.line_roots_warp(*args, g, s_grid, sc, sc.mass_ns)
+    has = torch.arange(16)[None, :] < n[:, None]
+    pin = has & chip_smoke.on_surface(geo, s, sc)[0]
+    same = chip_smoke.pin_counts(geo, s, ok, s, ok, has, sc)
+    assert (same["n_ok"], same["n_pin"], same["n_inside"]) == (0, 0, 0)
+    # rr >= r_NS is rr > r_NS', r_NS' the dtype's next value below r_NS
+    ge = dataclasses.replace(sc, r_ns=math.nextafter(float(sc.r_ns), 0.0))
+    ok_ge = has & sampler._accept_at(geo.x0, geo.vvec, geo.erg_inf, s, ge, sc.mass_ns)
+    mutant = chip_smoke.pin_counts(geo, s, ok_ge, s, ok, has, sc)
+    assert mutant["n_ok"] == 0 and mutant["n_pin"] > mutant["bar"]
+    no_rns = dataclasses.replace(sc, r_ns=0.0)
+    ok_in = has & sampler._accept_at(geo.x0, geo.vvec, geo.erg_inf, s, no_rns, sc.mass_ns)
+    assert chip_smoke.pin_counts(geo, s, ok_in, s, ok, has, sc)["n_inside"] > 0
+    lines = pin.any(dim=1).nonzero().squeeze(1).tolist()
+    assert len(lines) >= 3
+    i, j = lines[0], lines[1]
+    other = (has[j] & ~pin[j]).nonzero().squeeze(1)
+    assert other.numel() > 0
+    # the "kernel" decides the pinned roots of lines i and j the other way,
+    # and line j's first other root too
+    ok_k = ok.clone()
+    ok_k[i] = torch.where(pin[i], ~ok[i], ok[i])
+    ok_k[j] = torch.where(pin[j], ~ok[j], ok[j])
+    ok_k[j, other[0]] = ~ok[j, other[0]]
+    kernel = {"geo": geo, "s": s, "ok": ok_k, "n_flips": n, "s_grid": s_grid}
+    assert chip_smoke.pinned_only(kernel, i, g[[i]], sc)
+    assert not chip_smoke.pinned_only(kernel, j, g[[j]], sc)
+    quiet = (n == 0).nonzero().squeeze(1)[0].item()
+    assert not chip_smoke.pinned_only(kernel, quiet, g[[quiet]], sc)

@@ -224,6 +224,55 @@ def test_event_kinematics_f32_matches_jax(surface_events):
     assert np.all(np.isfinite(full)) and full.max() > 1e38
 
 
+# an event K1 sampled on the card at MassA 1e-5, B0 1e13, --bndry_lyr 0.5
+# (seed 1769, the CLI's card defaults): 1.6e-3 km off the rotation axis at
+# r 11.49 km, where z / r rounds past 1 in f32
+POLE_EVENT = ([-0.0005605220794677734, -0.0014638900756835938, 11.485711097717285],
+              [-0.2893073558807373, -0.40061208605766296, 0.1137344241142273],
+              1.0000002475862857e-05)
+
+
+def test_event_kinematics_f32_near_the_rotation_axis():
+    """Within ~3e-4 rad of the rotation axis the reference's f32 theta,
+    arccos(z / r), is 0 or NaN: at POLE_EVENT JAX's f32 kinematics give
+    NaN, and the card's CLI wrote a NaN row.  The port takes theta and
+    sin(theta) from the cylindrical radius there in f32 (geometry.
+    polar_angle, sin_polar, ROADMAP Queue 3): finite, k_init within 1e-4 of
+    the f64 kinematics (the celerity's theta component cancels near the
+    axis), sln_base and cos_w within 2e-5; the f64 kinematics are JAX's.
+    Outside the zone, and in f64, theta is bit for bit the reference's
+    form."""
+    from adiabatic_raytracer_tpu_torch.ops import geometry
+
+    sc_j = jcfg.Scene(mass_a=1e-5, theta_m=0.2, b0=1e13, bndry_lyr=0.5)
+    sc = tcfg.Scene(mass_a=1e-5, theta_m=0.2, b0=1e13, bndry_lyr=0.5)
+    x, v, e = (np.asarray([a], dtype=np.float64) for a in POLE_EVENT)
+    jax_f32 = jdriver._event_kinematics(jnp.asarray(x), jnp.asarray(v), jnp.asarray(e), 11.68,
+                                        sc_j, jcfg.TreeConfig(), "f32")
+    assert not np.isfinite(np.asarray(jax_f32[0])).any()
+    jax_f64 = jdriver._event_kinematics(jnp.asarray(x), jnp.asarray(v), jnp.asarray(e), 11.68,
+                                        sc_j, jcfg.TreeConfig(), "state")
+    t = lambda a: torch.as_tensor(a)
+    got = driver._event_kinematics(t(x), t(v), t(e), sc, "f32")
+    own = driver._event_kinematics(t(x), t(v), t(e), sc, "state")
+    for o, j in zip(own[:3], jax_f64[:3]):
+        np.testing.assert_allclose(o.numpy(), np.asarray(j), rtol=1e-12)
+    for g, o, rtol in zip(got[:3], own[:3], (1e-4, 2e-5, 2e-5)):
+        assert bool(torch.isfinite(g).all())
+        np.testing.assert_allclose(g.numpy(), o.numpy(), rtol=rtol)
+    # theta itself: the pole zone's f32 form against f64, and bitwise the
+    # reference's form outside it and in f64
+    pts = torch.tensor([POLE_EVENT[0], [3.0, -4.0, 10.0]], dtype=F64)
+    r64 = torch.linalg.norm(pts, dim=1)
+    p32 = pts.float()
+    r32 = torch.sqrt(torch.sum(p32 * p32, dim=-1))
+    th32 = geometry.polar_angle(p32, r32)
+    assert torch.isnan(torch.arccos(p32[0, 2] / r32[0])) or torch.arccos(p32[0, 2] / r32[0]) == 0
+    np.testing.assert_allclose(th32[0].item(), torch.arccos(pts[0, 2] / r64[0]).item(), rtol=1e-6)
+    assert th32[1] == torch.arccos(p32[1, 2] / r32[1])
+    assert torch.equal(geometry.polar_angle(pts, r64), torch.arccos(pts[:, 2] / r64))
+
+
 # --- K2's and K3's plain versions under an f32 state -----------------------
 
 def test_integrate_mega_plain_f32_boundary(surface_events):

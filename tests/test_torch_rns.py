@@ -236,17 +236,17 @@ def test_photons_into_the_zone_match_jax_pool():
 def tree_runs(tmp_path_factory):
     """Scene B through the CLI on the kernel path (--engine mega
     --tree_engine kernel: K3's plain version here) and driver.run with the
-    host engine at tree_k=1, K3's reference; three events."""
+    host engine at tree_k=1, K3's reference; two events (four rows)."""
     from adiabatic_raytracer_tpu_torch.cli import run_from_args
     from adiabatic_raytracer_tpu_torch.driver import run
 
     d = str(tmp_path_factory.mktemp("rns"))
     rows, _, st = run_from_args([
-        "--Nts", "4", "--seed", "1769", "--ThetaM", "0.2", "--saveMode", "1", "--event_batch",
+        "--Nts", "3", "--seed", "1769", "--ThetaM", "0.2", "--saveMode", "1", "--event_batch",
         "3", "--device", "cpu", "--rNS", "9", "--MassA", "3e-5", "--engine", "mega",
         "--tree_engine", "kernel", "--scan_gate_check", "0", "--dir_tag", d, "--ftag", "kern"])
     cfg = tcfg.NumericsConfig(atol=1e-6, rtol=1e-7, engine="mega", tree_k=1, scan_gate_check=0)
-    host = run(tcfg.Scene(theta_m=0.2, r_ns=9.0, mass_a=3e-5), cfg, tcfg.TreeConfig(), 4,
+    host = run(tcfg.Scene(theta_m=0.2, r_ns=9.0, mass_a=3e-5), cfg, tcfg.TreeConfig(), 3,
                seed=1769, save_mode=1, event_batch=3, dir_tag=d, file_tag="host",
                device="cpu", verbose=False)
     return (rows, st), host[::2]

@@ -1,5 +1,6 @@
 """The port at scenes of the (MassA, B0) scan grid (SCAN_GATE_r05.json)
-against the JAX package on CPU: the CLI's rows at two off-default scenes,
+against the JAX package on CPU: the CLI's rows at four off-default scenes,
+two of them with the boundary layer (--bndry_lyr 0.5),
 the quit at a surface inside the star, and the scan-gate census's
 ensemble."""
 
@@ -15,34 +16,47 @@ GRID_ARGS = ["--Nts", "4", "--seed", "1769", "--ThetaM", "0.2", "--saveMode", "1
 
 # Pinned from the JAX CLI:
 #   python -m adiabatic_raytracer_tpu --Nts 4 --seed 1769 --ThetaM 0.2 --saveMode 1 \
-#       --event_batch 3 --platform cpu --MassA <MassA> --B0 <B0>
+#       --event_batch 3 --platform cpu <flags>
 # with adiabatic_raytracer_tpu/ as of commit f94cb70, its last change; rerun
 # it there after a change to the JAX package (weights, species,
 # processed-node counts, stop codes)
 PINNED = {
     # maxR 54.3 km: the scene whose gate the reference's census widened
-    ("1e-5", "1e15"): ([4.1740698816e-03, 3.1197024765e-02, 2.0722657197e-03],
-                       [1, 1, 1], [1, 1, 1], [2, 2, 2]),
+    ("--MassA", "1e-5", "--B0", "1e15"): (
+        [4.1740698816e-03, 3.1197024765e-02, 2.0722657197e-03],
+        [1, 1, 1], [1, 1, 1], [2, 2, 2]),
     # maxR 11.7 km: a small surface just outside the star
-    ("1e-4", "1e15"): ([4.9267499129e-01, 2.4533714135e-01, 1.3308417246e-01, 3.526913715e-01],
-                       [0, 1, 0, 1], [3, 3, 3, 1], [2, 2, 2, 2]),
+    ("--MassA", "1e-4", "--B0", "1e15"): (
+        [4.9267499129e-01, 2.4533714135e-01, 1.3308417246e-01, 3.526913715e-01],
+        [0, 1, 0, 1], [3, 3, 3, 1], [2, 2, 2, 2]),
+    # the boundary layer at a 54.2 km surface, its shell's peak at 26.9 km;
+    # one event's tree enters the pure-MC mode (13 nodes, stop code -3)
+    ("--MassA", "1e-6", "--B0", "1e13", "--bndry_lyr", "0.5"): (
+        [3.1067685061e-06, 3.1335644034e-05, 6.7489059894e-10, 1.5665864422e-05,
+         5.7068973851e-10, 3.1178988888e-10, 3.3620381187e-11, 1.3016939936e-15],
+        [1, 1, 0, 1, 0, 0, 0, 1], [1, 3, 3, 13, 13, 13, 13, 13],
+        [2, 2, 2, -3, -3, -3, -3, -3]),
+    # the boundary layer at an 11.7 km surface, its peak inside the star
+    # (rmax 11.6 km: 5.8 km), so the term reaches the surface at 2.7% of it
+    ("--MassA", "1e-5", "--B0", "1e13", "--bndry_lyr", "0.5"): (
+        [1.4023578748e-03, 1.5203666688e-06, 3.7894287855e-04, 1.5086498934e-07],
+        [1, 0, 1, 0], [3, 3, 3, 3], [2, 2, 2, 2]),
 }
 
 
 def test_grid_scenes_pinned_rows(tmp_path):
     """The port's CLI on CPU reproduces the JAX CLI's rows at each pinned
-    scene: weights at rtol 1e-6, species, node counts and stop codes exact.
-    (One test for both scenes: xdist's loadfile queues files by their test
-    count, and at three tests this file queues behind the reference's long
-    tests/test_treekernel.py.)"""
-    for (mass_a, b0), (weights, species, count, info) in PINNED.items():
-        rows, _, stats = run_from_args(GRID_ARGS + ["--MassA", mass_a, "--B0", b0,
-                                                    "--dir_tag", str(tmp_path)])
-        assert rows.shape == (len(weights), 29) and stats.events == 3
-        np.testing.assert_allclose(rows[:, 8], weights, rtol=1e-6)
-        np.testing.assert_array_equal(rows[:, 1], species)
-        np.testing.assert_array_equal(rows[:, 20], count)
-        np.testing.assert_array_equal(rows[:, 21], info)
+    scene, two of them at --bndry_lyr 0.5: weights at rtol 1e-6, species,
+    node counts and stop codes exact.  (One test for all scenes: xdist's
+    loadfile queues files by their test count, and at three tests this file
+    queues behind the reference's long tests/test_treekernel.py.)"""
+    for flags, (weights, species, count, info) in PINNED.items():
+        rows, _, stats = run_from_args(GRID_ARGS + list(flags) + ["--dir_tag", str(tmp_path)])
+        assert rows.shape == (len(weights), 29) and stats.events == 3, flags
+        np.testing.assert_allclose(rows[:, 8], weights, rtol=1e-6, err_msg=str(flags))
+        np.testing.assert_array_equal(rows[:, 1], species, err_msg=str(flags))
+        np.testing.assert_array_equal(rows[:, 20], count, err_msg=str(flags))
+        np.testing.assert_array_equal(rows[:, 21], info, err_msg=str(flags))
         assert np.all(np.isfinite(rows)) and np.all(rows[:, 7] > 0)
 
 
